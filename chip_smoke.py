@@ -4,18 +4,28 @@
     python3 chip_smoke.py
 
 1. prints the environment (torch, CUDA, the card and its power limit);
-2. builds the CUDA field kernels from ``nerfca_tpu_torch/csrc``;
+2. builds the CUDA kernels from ``nerfca_tpu_torch/csrc`` (one nvcc per
+   source, started together);
 3. holds each kernel against its plain PyTorch version at the flagship
    shapes (1024 rays x 500 samples, two 4x128 fields, basis 12, 8-d
-   latents) and times both with CUDA events;
-4. drives the main path, ``nerfca_tpu_torch.train.run_composite.main`` on
-   ``configs/composite.txt`` with the kernels on: it builds the flagship
-   SYNTH dataset on the card, takes 6 full-width train steps and renders one
-   eval view, and checks that both kernels ran during training and K1
-   during the eval render;
-5. times the warm flagship step and eval render on that run's dataset,
-   kernel path and plain path in turns;
-6. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
+   latents, every band open) and times both with CUDA events: K1 and K2,
+   then K3 (``fused_train_loss_and_grads``) without and with a random
+   motion-hull gate that leaves some rays empty;
+4. drives the main paths through ``nerfca_tpu_torch.train.run_composite.main``
+   on ``configs/composite.txt``, each with the launch counts set to 0 just
+   before and read just after:
+   a. the two-kernel step (``--use_pallas true``): builds the flagship SYNTH
+      dataset on the card, 6 train steps, one eval view; K1 and K2 must run
+      in training and K1 in the eval render;
+   b. the fused-loss step (``--use_fused_loss true``) on that dataset: 6
+      steps and one eval view; K3 and K2 must run on every step, K1 in the
+      eval;
+   c. the same with ``--use_motion_hull true``: the hull is carved from the
+      run's variance maps, 3 gated K3 steps and one gated eval view;
+5. times the warm flagship step and eval render on that dataset, in turns:
+   K3, K1+K2, plain, K3+hull, then in the reverse order;
+6. profiles three K3 steps with ``torch.profiler`` (device time by kernel);
+7. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
    and last the result line.
 
 Exits non-zero, printing no result, when no CUDA device is present, when
@@ -39,7 +49,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # tolerances, stated with their reasons
 K1_ATOL = 2e-4   # f32 raw densities; only the matmul summation order differs
 K2_REL = 2e-2    # per-leaf grads vs max(leaf scale, 1e-2 x global max), bench.py:93-116
-LOSS_REL = 1e-3  # train loss, kernel path vs plain path on one batch (bench.py rule)
+LOSS_REL = 1e-3  # loss and each K3 term: f32 sums over rays in another order (bench.py rule)
+
+# the card's peaks for the bound (NVIDIA H100 SXM data sheet, at 700 W)
+PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores: the kernels' FMAs
+PEAK_BYTES = 3.35e12    # HBM3
 
 
 def log(msg: str) -> None:
@@ -61,20 +75,24 @@ def flagship_cfgs():
     return FieldConfig(**kw), FieldConfig(use_time_latents=True, num_time_dim=8, **kw)
 
 
+def flagship_geometry():
+    from nerfca_tpu_torch.geometry.cone import (
+        SCALE_FACTOR, ConeGeometry, get_near_far, synth_geometry,
+    )
+
+    geo = ConeGeometry.from_dict(synth_geometry(200, [128, 128, 128]), SCALE_FACTOR)
+    return geo.to_info_dict(), get_near_far(geo)
+
+
 def flagship_rays(n_rays: int, n_samples: int, seed: int, device):
     """``n_rays`` random detector pixels of a flagship view (200x200
     detector, 128^3 SYNTH volume) with stratified depths in [near, far]."""
     import torch
 
-    from nerfca_tpu_torch.geometry.cone import (
-        SCALE_FACTOR, ConeGeometry, get_near_far, synth_geometry,
-    )
     from nerfca_tpu_torch.geometry.rays import detector_rays
     from nerfca_tpu_torch.ops.sampling import linspace_depths, stratify_depths
 
-    geo = ConeGeometry.from_dict(synth_geometry(200, [128, 128, 128]), SCALE_FACTOR)
-    near, far = get_near_far(geo)
-    info = geo.to_info_dict()
+    info, (near, far) = flagship_geometry()
     gen = torch.Generator(device=device).manual_seed(seed)
     o, d = detector_rays(-30.0, 30.0, 0.0, info, device=device)
     idx = torch.randint(0, o.shape[0] * o.shape[1], (n_rays,), generator=gen, device=device)
@@ -83,6 +101,17 @@ def flagship_rays(n_rays: int, n_samples: int, seed: int, device):
     z = stratify_depths(linspace_depths(near, far, n_samples, device=device), gen)
     phases = torch.randint(0, 10, (n_rays,), generator=gen, device=device)
     return origins, dirs, z, phases
+
+
+def flagship_params(seed: int, device):
+    import torch
+
+    from nerfca_tpu_torch.models.fields import init_static_field, init_temporal_field
+
+    cfg_s, cfg_t = flagship_cfgs()
+    gen = torch.Generator().manual_seed(seed)
+    return {"static": init_static_field(gen, cfg_s, device),
+            "temp": init_temporal_field(gen, cfg_t, device)}
 
 
 def cuda_time_ms(fn, iters: int = 5, warmup: int = 2) -> float:
@@ -100,21 +129,48 @@ def cuda_time_ms(fn, iters: int = 5, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_kernels(n_rays: int = 1024, n_samples: int = 500, seed: int = 0,
-                  timed: bool = True) -> dict:
+def launch_counts() -> dict:
+    from nerfca_tpu_torch.ops.cuda import fused_field as ff
+    from nerfca_tpu_torch.ops.cuda import fused_train as ft
+
+    return {**ff.LAUNCHES, **ft.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    from nerfca_tpu_torch.ops.cuda import fused_field as ff
+    from nerfca_tpu_torch.ops.cuda import fused_train as ft
+
+    ff.reset_launch_counts()
+    ft.reset_launch_counts()
+
+
+def leaf_errors(names, got, want) -> tuple[float, float, str]:
+    """Max abs error over leaves, and the worst error as a share of
+    max(leaf scale, 1e-2 x global max); raises beyond K2_REL."""
+    global_max = max(float(b.abs().max()) for b in want)
+    err_max, norm_max, worst = 0.0, 0.0, ""
+    for name, a, b in zip(names, got, want):
+        err = float((a - b).abs().max())
+        scale = max(float(b.abs().max()), 1e-2 * global_max)
+        if not math.isfinite(err) or err / scale > K2_REL:
+            raise AssertionError(f"gradient {name} disagrees: {err:.3e} vs scale {scale:.3e}")
+        err_max = max(err_max, err)
+        if err / scale >= norm_max:
+            norm_max, worst = err / scale, name
+    return err_max, norm_max, worst
+
+
+def check_kernels(n_rays: int = 1024, n_samples: int = 500, seed: int = 0) -> dict:
     """K1 and K2 against the plain version on the same inputs. Raises on a
     disagreement; returns errors and times."""
     import torch
 
-    from nerfca_tpu_torch.models.fields import init_static_field, init_temporal_field
     from nerfca_tpu_torch.ops.cuda import fused_field as ff
     from nerfca_tpu_torch.train.step import param_items
 
     dev = torch.device("cuda")
     cfg_s, cfg_t = flagship_cfgs()
-    gen = torch.Generator().manual_seed(seed)
-    params = {"static": init_static_field(gen, cfg_s, dev),
-              "temp": init_temporal_field(gen, cfg_t, dev)}
+    params = flagship_params(seed, dev)
     names, leaves = zip(*param_items(params))
     for t in leaves:
         t.requires_grad_(True)
@@ -142,22 +198,11 @@ def check_kernels(n_rays: int = 1024, n_samples: int = 500, seed: int = 0,
     k_g = grads(ff.fused_composite_fields_rays)
     p_g = grads(ff.plain_composite_fields_rays)
     torch.cuda.synchronize()
-    global_max = max(float(b.abs().max()) for b in p_g)
-    k2_err, k2_norm, worst = 0.0, 0.0, ""
-    for name, a, b in zip(names, k_g, p_g):
-        err = float((a - b).abs().max())
-        scale = max(float(b.abs().max()), 1e-2 * global_max)
-        if not math.isfinite(err) or err / scale > K2_REL:
-            raise AssertionError(f"K2 gradient {name} disagrees: {err:.3e} vs scale {scale:.3e}")
-        k2_err = max(k2_err, err)
-        if err / scale >= k2_norm:
-            k2_norm, worst = err / scale, name
+    k2_err, k2_norm, worst = leaf_errors(names, k_g, p_g)
     res = {"k1_err": k1_err, "k2_err": k2_err, "k2_norm": k2_norm, "k2_worst": worst}
-    if not timed:
-        return res
 
     # time the launch functions on packed inputs (the wrapper's packing is
-    # outside the kernel); the counts are reset before the main path
+    # outside the kernel); the counts are reset before each main path
     pack_s = ff._Pack(cfg_s, ff._leaves(params["static"]), window, dev)
     pack_t = ff._Pack(cfg_t, ff._leaves(params["temp"]), window, dev)
     ph32 = phases.to(torch.int32)
@@ -174,6 +219,95 @@ def check_kernels(n_rays: int = 1024, n_samples: int = 500, seed: int = 0,
     loss = (out_s * g_s).sum() + (out_t * g_t).sum()
     res["k2_plain_ms"] = cuda_time_ms(
         lambda: torch.autograd.grad(loss, leaves, retain_graph=True))
+    res["shapes"] = {"n_rays": n_rays, "n_samples": n_samples, "param_floats":
+                     sum(t.numel() for t in leaves)}
+    return res
+
+
+def flagship_hull(device):
+    """A random gate grid in [0, 1] over a quarter of the flagship volume's
+    extent: rays that miss it are empty (gate exactly 0 on every sample)."""
+    import numpy as np
+    import torch
+
+    from nerfca_tpu_torch.ops.hull import MotionHull
+
+    info, _ = flagship_geometry()
+    res = 32
+    extent = np.asarray(info["nVoxel"], np.float64) * np.asarray(info["dVoxel"], np.float64)
+    grid = torch.rand(res, res, res, generator=torch.Generator().manual_seed(5))
+    return MotionHull(grid.to(device),
+                      torch.tensor(extent / 4 / res, dtype=torch.float32, device=device),
+                      torch.tensor(np.asarray(info["offOrigin"])[::-1].copy(),
+                                   dtype=torch.float32, device=device))
+
+
+def check_k3(seed: int = 0) -> dict:
+    """K3 (``fused_train_loss_and_grads``) against its plain version at the
+    flagship shapes, without and with the hull gate; times both with CUDA
+    events, and the loss kernel alone."""
+    import torch
+
+    from nerfca_tpu_torch.ops.cuda import fused_field as ff
+    from nerfca_tpu_torch.ops.cuda import fused_train as ft
+    from nerfca_tpu_torch.ops.hull import hull_gate_rays
+    from nerfca_tpu_torch.train.step import CompositeHParams, param_items
+
+    dev = torch.device("cuda")
+    cfg_s, cfg_t = flagship_cfgs()
+    params = flagship_params(seed + 7, dev)
+    origins, dirs, z, phases = flagship_rays(1024, 500, seed + 8, dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    pixels = 2.16 - 0.5 * torch.rand(1024, generator=g, device=dev)
+    weights = 1.0 + torch.rand(1024, generator=g, device=dev)
+    i0 = torch.full((1024,), 2.16, device=dev)
+    window = torch.ones(12, device=dev)
+    # the flagship's regularizers at weights large enough to move the grads
+    hp = CompositeHParams(entro_mask_thre=1e-4, entro_use_weighting=True,
+                          entro_weighted_thresh=0.03, occl_reg_perc=0.2, use_pallas=True,
+                          use_fused_loss=True)
+    hull = flagship_hull(dev)
+    gate = hull_gate_rays(hull, origins, dirs, z)
+    empty = int((gate.sum(-1) == 0).sum())
+    if not 0 < empty < 1024:
+        raise AssertionError(f"the K3 check's gate should leave some rays empty: {empty}")
+    res = {"empty_rays": empty}
+    for tag, h, lw in (("", None, [1e-3, 1e-3, 1e-3, 1e-4]),
+                       ("_hull", hull, [1e-3, 1e-3, 1e-3, 1e-4, 1e-3])):
+        args = (params["static"], params["temp"], origins, dirs, z, phases, pixels, weights,
+                i0, cfg_s, cfg_t, window, window, lw, hp)
+        k_loss, k_terms, k_gs, k_gt = ft.fused_train_loss_and_grads(*args, hull=h)
+        p_loss, p_terms, p_gs, p_gt = ft.plain_train_loss_and_grads(*args, hull=h)
+        torch.cuda.synchronize()
+        loss_rel = abs(float(k_loss) - float(p_loss)) / abs(float(p_loss))
+        if not (math.isfinite(loss_rel) and loss_rel <= LOSS_REL):
+            raise AssertionError(f"K3{tag} loss {float(k_loss)} vs plain {float(p_loss)}")
+        term_rel = 0.0
+        for k in p_terms:
+            a, b = float(k_terms[k]), float(p_terms[k])
+            if not (math.isfinite(a) and abs(a - b) <= LOSS_REL * abs(b)):
+                raise AssertionError(f"K3{tag} term {k}: {a} vs plain {b}")
+            term_rel = max(term_rel, abs(a - b) / abs(b) if b else 0.0)
+        if (float(k_terms["hull_s_l1"]) > 0) != (h is not None):
+            raise AssertionError(f"K3{tag} hull_s_l1 {float(k_terms['hull_s_l1'])}")
+        names, k_leaves = zip(*param_items({"static": k_gs, "temp": k_gt}))
+        _, p_leaves = zip(*param_items({"static": p_gs, "temp": p_gt}))
+        err, norm, worst = leaf_errors(names, k_leaves, p_leaves)
+        res.update({f"loss_rel{tag}": loss_rel, f"term_rel{tag}": term_rel, f"err{tag}": err,
+                    f"norm{tag}": norm, f"worst{tag}": worst})
+        res[f"ms{tag}"] = cuda_time_ms(lambda: ft.fused_train_loss_and_grads(*args, hull=h))
+        res[f"plain_ms{tag}"] = cuda_time_ms(
+            lambda: ft.plain_train_loss_and_grads(*args, hull=h))
+
+    # the loss kernel alone (forward of both fields + loss + cotangents)
+    pack_s = ff._Pack(cfg_s, ff._leaves(params["static"]), window, dev)
+    pack_t = ff._Pack(cfg_t, ff._leaves(params["temp"]), window, dev)
+    ph32 = phases.to(torch.int32)
+    lat = params["temp"]["latents"].detach()
+    occl = ft.occlusion_mask(z, hp)  # kept alive: the launch reads its pointer
+    largs = ft.loss_args(pixels, weights, i0, None, occl, [1e-3] * 3 + [1e-4], hp, 1024, 500)
+    res["loss_kernel_ms"] = cuda_time_ms(
+        lambda: ft.fused_train_loss(pack_s, pack_t, origins, dirs, z, ph32, lat, largs))
     return res
 
 
@@ -182,14 +316,11 @@ def check_step_loss(seed: int = 0) -> float:
     the same batch and depths; returns the relative difference."""
     import torch
 
-    from nerfca_tpu_torch.models.fields import init_static_field, init_temporal_field
     from nerfca_tpu_torch.train.step import CompositeHParams, composite_loss_fn
 
     dev = torch.device("cuda")
     cfg_s, cfg_t = flagship_cfgs()
-    gen = torch.Generator().manual_seed(seed)
-    params = {"static": init_static_field(gen, cfg_s, dev),
-              "temp": init_temporal_field(gen, cfg_t, dev)}
+    params = flagship_params(seed, dev)
     origins, dirs, z, phases = flagship_rays(1024, 500, seed + 2, dev)
     g = torch.Generator(device=dev).manual_seed(seed + 3)
     batch = {"origins": origins, "directions": dirs, "phases": phases,
@@ -209,11 +340,12 @@ def check_step_loss(seed: int = 0) -> float:
     return rel
 
 
-def drive_main_path(workdir: str) -> dict:
-    """run_composite.main at flagship width, 6 steps and one eval render."""
+def drive_main_path(workdir: str, extra_argv: list, n_steps: int) -> dict:
+    """``run_composite.main`` at flagship width: ``n_steps`` train steps and
+    one eval render on the dataset under ``workdir`` (built if absent), with
+    the launch counts set to 0 just before and read just after."""
     import torch
 
-    from nerfca_tpu_torch.ops.cuda import fused_field as ff
     from nerfca_tpu_torch.train import evaluation, run_composite
 
     eval_info = {"launches": {}, "ms": []}
@@ -221,39 +353,38 @@ def drive_main_path(workdir: str) -> dict:
 
     def counted_render(*a, **k):
         torch.cuda.synchronize()
-        before, t0 = dict(ff.LAUNCHES), time.perf_counter()
+        before, t0 = launch_counts(), time.perf_counter()
         out = render(*a, **k)
         torch.cuda.synchronize()
         eval_info["ms"].append(1e3 * (time.perf_counter() - t0))
-        for key, v in ff.LAUNCHES.items():
+        for key, v in launch_counts().items():
             eval_info["launches"][key] = eval_info["launches"].get(key, 0) + v - before[key]
         return out
 
     evaluation.render_test_view = counted_render
     argv = ["--config", os.path.join(REPO, "configs", "composite.txt"), "--use_pallas", "true",
-            "--platform", "cuda", "--n_iters", "5", "--display_every", "5",
+            "--platform", "cuda", "--n_iters", str(n_steps - 1), "--display_every", str(n_steps),
             "--data_root", os.path.join(workdir, "data"),
-            "--log_dir_root", os.path.join(workdir, "cases")]
+            "--log_dir_root", os.path.join(workdir, "cases"), *extra_argv]
     try:
-        ff.reset_launch_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         out = run_composite.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        total = dict(ff.LAUNCHES)
+        total = launch_counts()
     finally:
         evaluation.render_test_view = render
     with open(os.path.join(out["log_dir"], "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
     train = [r for r in records if "train_loss" in r]
     evals = [r for r in records if "test_image_psnr" in r]
-    if len(train) != 6 or not all(math.isfinite(r["train_loss"]) for r in train):
-        raise AssertionError(f"expected 6 finite train steps, got {[r.get('train_loss') for r in train]}")
+    if len(train) != n_steps or not all(math.isfinite(r["train_loss"]) for r in train):
+        raise AssertionError(f"expected {n_steps} finite train steps, "
+                             f"got {[r.get('train_loss') for r in train]}")
     if len(evals) != 1 or not math.isfinite(evals[0]["test_image_psnr"]):
         raise AssertionError(f"expected one finite eval, got {evals}")
     train_launches = {k: total[k] - eval_info["launches"].get(k, 0) for k in total}
-    if train_launches["fused_field_fwd"] < 1 or train_launches["fused_field_bwd"] < 1:
-        raise AssertionError(f"kernels not launched during training: {train_launches}")
     if eval_info["launches"].get("fused_field_fwd", 0) < 1:
         raise AssertionError(f"K1 not launched during the eval render: {eval_info}")
     return {"wall_s": wall, "train": train, "eval": evals[0], "eval_ms": eval_info["ms"],
@@ -261,10 +392,10 @@ def drive_main_path(workdir: str) -> dict:
             "eval_launches": eval_info["launches"], "run": out}
 
 
-def steady_state_times(run: dict, n_steps: int = 10, warmup: int = 3) -> dict:
-    """Flagship step and eval-render times (ms) on the main path's dataset
-    and state, once warm: the kernel path and the plain path in turns
-    (kernel, plain, kernel, plain), host clock around synchronized work."""
+def steady_state_times(run: dict, hull, n_steps: int = 10, warmup: int = 3) -> dict:
+    """Flagship step and eval-render times (ms) on a main path's dataset and
+    state, once warm, path by path in turns and then in the reverse order;
+    host clock around synchronized work."""
     import torch
 
     from nerfca_tpu_torch.train import evaluation
@@ -272,6 +403,8 @@ def steady_state_times(run: dict, n_steps: int = 10, warmup: int = 3) -> dict:
 
     setup, state = run["setup"], run["state"]
     dd, cfgs, view = setup["device_data"], setup["cfgs"], setup["test_views"][0]
+    paths = {"k3": (True, True, None), "k1k2": (True, False, None),
+             "plain": (False, False, None), "k3_hull": (True, True, hull)}
 
     def wall_ms(fn, n):
         torch.cuda.synchronize()
@@ -282,25 +415,102 @@ def steady_state_times(run: dict, n_steps: int = 10, warmup: int = 3) -> dict:
         return 1e3 * (time.perf_counter() - t0) / n
 
     times: dict = {}
-    for use_pallas in (True, False, True, False):
-        hp = dataclasses.replace(setup["hp"], use_pallas=use_pallas)
+    order = list(paths)
+    for path in order + order[::-1]:
+        use_pallas, fused, h = paths[path]
+        hp = dataclasses.replace(setup["hp"], use_pallas=use_pallas, use_fused_loss=fused)
         step = make_composite_train_step(cfgs, hp, setup["tx"], setup["depth_values"],
                                          setup["max_pixel_value"])
 
         def train_step():
-            step(state, dd["rays"], dd["phases"], dd["var_ids"], dd["non_var_ids"])
+            step(state, dd["rays"], dd["phases"], dd["var_ids"], dd["non_var_ids"], hull=h)
 
         def render():
             evaluation.render_test_view(state.params, view["origins"], view["directions"],
                                         view["phases"], setup["depth_values"], state.step,
-                                        cfgs, hp, setup["max_pixel_value"])
+                                        cfgs, hp, setup["max_pixel_value"], hull=h)
 
-        path = "kernels" if use_pallas else "plain"
         wall_ms(train_step, warmup)
         times.setdefault(f"step_ms_{path}", []).append(wall_ms(train_step, n_steps))
         wall_ms(render, 1)
         times.setdefault(f"eval_ms_{path}", []).append(wall_ms(render, 1))
     return times
+
+
+def profile_k3_step(run: dict, n_steps: int = 3) -> dict:
+    """Device time by kernel over ``n_steps`` warm K3 steps (torch.profiler),
+    per step, with the window's wall time and the device's busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nerfca_tpu_torch.train.step import make_composite_train_step
+
+    setup, state = run["setup"], run["state"]
+    dd = setup["device_data"]
+    hp = dataclasses.replace(setup["hp"], use_pallas=True, use_fused_loss=True)
+    step = make_composite_train_step(setup["cfgs"], hp, setup["tx"], setup["depth_values"],
+                                     setup["max_pixel_value"])
+
+    def run_steps(n):
+        for _ in range(n):
+            step(state, dd["rays"], dd["phases"], dd["var_ids"], dd["non_var_ids"])
+
+    run_steps(3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_steps(n_steps)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        rows.append((e.key, us / n_steps / 1e3, e.count / n_steps))
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    return {"wall_ms_per_step": wall_us / n_steps / 1e3, "device_ms_per_step": busy_ms,
+            "busy_share": busy_ms / (wall_us / n_steps / 1e3), "n_kernels_per_step":
+            sum(r[2] for r in rows),
+            "top": [[name[:60], round(ms, 4), count] for name, ms, count in rows[:8]]}
+
+
+def field_macs(cfg) -> int:
+    """Multiply-adds of one field's MLP per point."""
+    k0 = cfg.encoded_features + (cfg.num_time_dim if cfg.use_time_latents else 0)
+    return k0 * cfg.num_filters + cfg.num_early_layers * cfg.num_filters ** 2 + cfg.num_filters
+
+
+def bounds(shapes: dict) -> dict:
+    """Least time (ms) the card could take for each kernel's work at this
+    run's shapes: max(bytes / HBM rate, f32 operations / f32 peak)."""
+    cfg_s, cfg_t = flagship_cfgs()
+    r, s, n_par = shapes["n_rays"], shapes["n_samples"], shapes["param_floats"]
+    n = r * s
+    fwd = 2 * (field_macs(cfg_s) + field_macs(cfg_t)) * n  # forward flops
+    ray_bytes = 4 * (6 * r + s + r)  # origins, directions, depths, phases
+    work = {
+        # K1: the forward; reads rays and weights, writes two raw densities
+        "k1": (fwd, ray_bytes + 4 * n_par + 8 * n),
+        # K2: its VJP, counted as 3x the forward (recompute, dW, dX); reads
+        # rays, weights, the two cotangents, writes every gradient
+        "k2": (3 * fwd, ray_bytes + 8 * n_par + 8 * n),
+        # K3: forward + backward without recompute (3x the forward); the loss
+        # phase (~100 flops a sample) is left out; reads rays, per-ray data,
+        # weights and the gate, writes every gradient and the terms
+        "k3": (3 * fwd, ray_bytes + 12 * r + 4 * n + 8 * n_par + 64),
+    }
+    out = {}
+    for k, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        out[k] = {"bound_ms": 1e3 * max(t_ops, t_bytes),
+                  "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                  "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+    return out
 
 
 def main() -> int:
@@ -314,8 +524,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from nerfca_tpu_torch.ops.cuda import fused_field as ff
+    from nerfca_tpu_torch.ops.cuda import build
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -324,11 +535,12 @@ def main() -> int:
     log(f"nvidia-smi: {card}")
 
     t0 = time.perf_counter()
-    _, nvcc_out = ff.build(verbose=True)
-    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
-    for line in nvcc_out.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    built = build.build(verbose=True)
+    log(f"kernel build ({', '.join(built)}, in parallel): {time.perf_counter() - t0:.1f} s")
+    for name, (_, out) in built.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
 
     kc = check_kernels()
     log(f"K1 max abs err {kc['k1_err']:.3e} (limit {K1_ATOL}); "
@@ -337,33 +549,92 @@ def main() -> int:
     log(f"K1 {kc['k1_ms']:.3f} ms vs plain {kc['k1_plain_ms']:.3f} ms; "
         f"K2 {kc['k2_ms']:.3f} ms vs plain backward {kc['k2_plain_ms']:.3f} ms "
         f"(1024 x 500 points, {card})")
+    k3 = check_k3()
+    for tag, what in (("", "no hull"), ("_hull", f"hull gate, {k3['empty_rays']} empty rays")):
+        log(f"K3 ({what}): loss rel err {k3['loss_rel' + tag]:.3e}, worst term rel err "
+            f"{k3['term_rel' + tag]:.3e} (limit {LOSS_REL}); grads max abs err "
+            f"{k3['err' + tag]:.3e}, worst leaf {k3['worst' + tag]} at {k3['norm' + tag]:.3e} "
+            f"of its scale (limit {K2_REL}); {k3['ms' + tag]:.3f} ms vs plain "
+            f"{k3['plain_ms' + tag]:.3f} ms")
+    log(f"K3 loss kernel alone (forward + loss + cotangents): {k3['loss_kernel_ms']:.3f} ms "
+        f"({card})")
     rel = check_step_loss()
     log(f"flagship step loss, kernels vs plain: rel diff {rel:.3e} (limit {LOSS_REL})")
 
     with tempfile.TemporaryDirectory() as workdir:
-        mp = drive_main_path(workdir)
-    log(f"main path: {mp['wall_s']:.1f} s wall (dataset build included); "
-        f"train_loss {[round(r['train_loss'], 6) for r in mp['train']]}")
-    log(f"train_time per step, chunk means incl. warm-up (s): "
-        f"{[r['train_time'] for r in mp['train']]}")
-    log(f"eval render: {mp['eval_ms']} ms; test_image_psnr {mp['eval']['test_image_psnr']:.3f}")
-    log(f"launches: training {mp['train_launches']}, eval {mp['eval_launches']}")
-    steady = steady_state_times(mp["run"])
-    log(f"steady state, kernels vs plain in turns ({card}): {json.dumps(steady)}")
+        mp = drive_main_path(workdir, [], 6)
+        tl = mp["train_launches"]
+        if tl["fused_field_fwd"] < 1 or tl["fused_field_bwd"] < 1:
+            raise AssertionError(f"K1/K2 not launched during training: {tl}")
+        log(f"main path, two kernels: {mp['wall_s']:.1f} s wall (dataset build included); "
+            f"train_loss {[round(r['train_loss'], 6) for r in mp['train']]}")
+        log(f"  launches: training {tl}, eval {mp['eval_launches']}")
+        log(f"  eval render: {mp['eval_ms']} ms; test_image_psnr "
+            f"{mp['eval']['test_image_psnr']:.3f}")
 
+        fp = drive_main_path(workdir, ["--use_fused_loss", "true"], 6)
+        tl = fp["train_launches"]
+        if (tl["fused_train_loss"] != 6 or tl["fused_field_bwd"] != 6
+                or tl["fused_field_fwd"] != 0):
+            raise AssertionError(f"the fused-loss path did not run K3 + K2 on every step: {tl}")
+        log(f"main path, fused loss (K3): {fp['wall_s']:.1f} s wall; "
+            f"train_loss {[round(r['train_loss'], 6) for r in fp['train']]}")
+        log(f"  launches: training {tl}, eval {fp['eval_launches']}")
+        log(f"  train_time per step, chunk means incl. warm-up (s): "
+            f"{[r['train_time'] for r in fp['train']]}")
+        log(f"  eval render: {fp['eval_ms']} ms; test_image_psnr "
+            f"{fp['eval']['test_image_psnr']:.3f}")
+
+        hp_run = drive_main_path(workdir, ["--use_fused_loss", "true",
+                                           "--use_motion_hull", "true"], 3)
+        hull = hp_run["run"]["setup"]["hull"]
+        tl = hp_run["train_launches"]
+        if hull is None or tl["fused_train_loss"] != 3:
+            raise AssertionError(f"the hull run did not carve a hull or run K3: {tl}")
+        if not all(r["train_hull_s_l1"] >= 0 for r in hp_run["train"]):
+            raise AssertionError("hull run: train_hull_s_l1 missing")
+        occupied = float((hull.grid > 0.5).float().mean())
+        log(f"hull run: res {hull.grid.shape[0]}, occupied {occupied:.4f}; train_loss "
+            f"{[round(r['train_loss'], 6) for r in hp_run['train']]}; gated eval "
+            f"test_image_psnr {hp_run['eval']['test_image_psnr']:.3f}; launches {tl}")
+
+    steady = steady_state_times(fp["run"], hull)
+    log(f"steady state in turns, K3 / K1+K2 / plain / K3+hull then reversed ({card}): "
+        f"{json.dumps(steady)}")
+    prof = profile_k3_step(fp["run"])
+    log(f"profile of 3 K3 steps ({card}): {json.dumps(prof)}")
+
+    bd = bounds(kc["shapes"])
+    launches = fp["launches"]
     kernels = [
         {"name": "fused_field_fwd (K1)", "route": "cuda",
          "source": "nerfca_tpu_torch/csrc/fused_field.cu",
          "replaces": "nerfca_tpu/ops/pallas/fused_field.py:527",
-         "launches": mp["launches"]["fused_field_fwd"], "max_abs_err": kc["k1_err"],
-         "limit": f"abs {K1_ATOL}", "ms": kc["k1_ms"], "plain_ms": kc["k1_plain_ms"]},
+         "launches": launches["fused_field_fwd"], "max_abs_err": kc["k1_err"],
+         "limit": f"abs {K1_ATOL}", "ms": kc["k1_ms"], "plain_ms": kc["k1_plain_ms"],
+         "bound_ms": bd["k1"]["bound_ms"], "bound_by": bd["k1"]["bound_by"],
+         "library_ms": None},
         {"name": "fused_field_bwd (K2)", "route": "cuda",
          "source": "nerfca_tpu_torch/csrc/fused_field.cu",
          "replaces": "nerfca_tpu/ops/pallas/fused_field.py:604",
-         "launches": mp["launches"]["fused_field_bwd"], "max_abs_err": kc["k2_err"],
+         "launches": launches["fused_field_bwd"], "max_abs_err": kc["k2_err"],
          "max_err_of_leaf_scale": kc["k2_norm"], "limit": f"{K2_REL} of leaf scale",
-         "ms": kc["k2_ms"], "plain_ms": kc["k2_plain_ms"]},
+         "ms": kc["k2_ms"], "plain_ms": kc["k2_plain_ms"],
+         "bound_ms": bd["k2"]["bound_ms"], "bound_by": bd["k2"]["bound_by"],
+         "library_ms": None},
+        {"name": "fused_train_loss + fused_field_bwd (K3)", "route": "cuda",
+         "source": "nerfca_tpu_torch/csrc/fused_train.cu",
+         "replaces": "nerfca_tpu/ops/pallas/fused_train.py:607",
+         "launches": launches["fused_train_loss"], "max_abs_err": k3["err"],
+         "max_err_of_leaf_scale": k3["norm"], "loss_rel_err": k3["loss_rel"],
+         "term_rel_err": k3["term_rel"],
+         "limit": f"loss and terms rel {LOSS_REL}, grads {K2_REL} of leaf scale",
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "loss_kernel_ms": k3["loss_kernel_ms"],
+         "ms_hull": k3["ms_hull"], "plain_ms_hull": k3["plain_ms_hull"],
+         "bound_ms": bd["k3"]["bound_ms"], "bound_by": bd["k3"]["bound_by"],
+         "library_ms": None},
     ]
+    log(f"whole script: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

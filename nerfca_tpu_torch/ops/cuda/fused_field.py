@@ -14,7 +14,7 @@ ever materialized.
 Dispatch: a CPU tensor takes :func:`plain_composite_fields_rays` (encode +
 MLP in torch, gradients from autograd); a CUDA tensor launches the kernels
 or raises. The kernels are built with ``nvcc`` into ``build/kernels/`` at
-first use (a plain C interface loaded with ``ctypes``).
+first use (a plain C interface loaded with ``ctypes``; see ``build.py``).
 
 Launch counts: ``LAUNCHES["fused_field_fwd"]`` / ``["fused_field_bwd"]``
 grow by one at each kernel launch and nowhere else.
@@ -23,11 +23,6 @@ grow by one at each kernel launch and nowhere else.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional
 
 import torch
@@ -37,6 +32,7 @@ from nerfca_tpu_torch.models.fields import (
     apply_static_field,
     apply_temporal_field,
 )
+from nerfca_tpu_torch.ops.cuda import build
 
 WIDTH = 128
 TILE_POINTS = 64  # TP in the source
@@ -45,9 +41,6 @@ MAX_ENCODED = 128
 MAX_LAT = 8
 MAX_PHASES = 16
 BWD_CTAS = 132  # fixed so the gradient reduction order never depends on the card
-
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "fused_field.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 LAUNCHES = {"fused_field_fwd": 0, "fused_field_bwd": 0}
 
@@ -112,41 +105,10 @@ class RayArgs(ctypes.Structure):
 _LIB: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if not os.path.isfile(path):
-        raise RuntimeError("nvcc not found: the CUDA field kernels cannot be built")
-    return path
-
-
-def build(verbose: bool = False) -> tuple[Path, str]:
-    """Compile the kernels for sm_90a (skipped when a library of the same
-    source is already built). Returns the library path and nvcc's output."""
-    src = SOURCE.read_bytes()
-    lib = BUILD_DIR / f"libfused_field-{hashlib.sha1(src).hexdigest()[:12]}.so"
-    if lib.is_file():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE)]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    tmp.replace(lib)
-    return lib, res.stdout + res.stderr
-
-
 def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
+        lib = build.load("fused_field")
         ptr = ctypes.POINTER
         lib.fused_field_fwd.argtypes = [ptr(FieldArgs), ptr(FieldArgs), ptr(RayArgs),
                                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]

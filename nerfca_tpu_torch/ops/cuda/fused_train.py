@@ -1,0 +1,394 @@
+"""The fused-loss train step: CUDA kernel K3 ``fused_train_loss`` with its
+plain PyTorch version.
+
+K3 replaces ``nerfca_tpu/ops/pallas/fused_train.py::_train_kernel``
+(``pallas_call`` in ``fused_train_loss_and_grads``): the whole coarse
+composite step, from the encoded points through both MLPs, the motion-hull
+gate, the Beer-Lambert render and the full loss battery to every parameter
+gradient. On the card it runs in two launches:
+
+1. ``fused_train_loss`` (``csrc/fused_train.cu``): one CTA per ray runs
+   the forward of both fields over the ray's samples (K1's device code),
+   keeps the raw densities in shared memory, forms the per-ray sums in a
+   fixed order in exact f32, writes the ray's 13 term partials and the
+   hand-derived cotangents ``dL/draw_s``, ``dL/draw_t``; a one-block
+   reduction sums the partials over rays in order and forms the loss;
+2. K2 (``fused_field_bwd``, unchanged) backpropagates those cotangents
+   into every weight gradient and the latent-table gradient.
+
+The TPU kernel differentiates its loss with an in-kernel ``jax.vjp``;
+here the cotangent is derived by hand (:func:`loss_cotangents_plain`
+writes the same math as tensor ops, and the CPU tests hold it against
+``torch.autograd``). Clips take JAX's derivative, 0.5 on a bound.
+
+Dispatch: CPU tensors take :func:`plain_train_loss_and_grads`; CUDA
+tensors launch the kernels or raise. ``LAUNCHES["fused_train_loss"]``
+grows by one at each launch of the loss kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from nerfca_tpu_torch.models.fields import FieldConfig
+from nerfca_tpu_torch.ops.cuda import build
+from nerfca_tpu_torch.ops.cuda import fused_field as ff
+from nerfca_tpu_torch.ops.hull import hull_gate_rays
+from nerfca_tpu_torch.ops import losses
+from nerfca_tpu_torch.ops.losses import clip
+from nerfca_tpu_torch.ops.render import depth_deltas, output_activation, softplus
+
+TERMS = 16
+# term indices, as in the JAX kernel; T_LOSS holds the weighted total
+(T_PIX, T_FAVOR, T_S_ENT, T_S_SIG, T_D_ENT, T_D_SIG, T_OCCL, T_L1, T_L2,
+ T_BLENDW, T_SMAX, T_DMAX, T_HL1, T_LOSS) = range(14)
+TERM_NAMES = ("pixel_loss", "favor_s", "s_entropy", "s_entropy_sum", "d_entropy",
+              "d_entropy_sum", "occl", "l1", "l2", "blendw", "sigma_s_max", "sigma_d_max",
+              "hull_s_l1")
+ACTIVATIONS = ("softplus", "sigmoid", "clamp")
+MAX_SAMPLES = 1024  # the ray's raw densities live in shared memory
+
+LAUNCHES = {"fused_train_loss": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def fused_train_supported(cfg_s: FieldConfig, cfg_t: FieldConfig, hp) -> bool:
+    """Envelope of the fused-loss step (``fused_train.py:62-88``): the
+    coarse pass only, no static TV, both fields inside the field kernels'
+    envelope, a kernel-side activation, and a ray that fits in shared
+    memory."""
+    return (
+        hp.use_pallas
+        and hp.use_fused_loss
+        and hp.depth_samples_fine == 0
+        and hp.static_tv_weight_start == 0.0
+        and hp.static_tv_weight_end == 0.0
+        and ff.kernel_supported(cfg_s)
+        and ff.kernel_supported(cfg_t)
+        and hp.output_activation.lower() in ACTIVATIONS
+        and hp.depth_samples_coarse <= MAX_SAMPLES
+    )
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version (the CPU path and the reference on the card)
+
+
+def _clip_grad(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
+    """Derivative of ``jnp.clip(x, lo, hi)``: 1 inside, 0.5 on a bound, 0
+    outside."""
+    one = torch.ones_like(x)
+    g = one
+    if lo is not None:
+        lo_t = x.new_full((), lo)
+        g = torch.where(x > lo_t, one, torch.where(x == lo_t, 0.5 * one, 0.0 * one))
+        x = torch.maximum(x, lo_t)
+    if hi is not None:
+        hi_t = x.new_full((), hi)
+        g = g * torch.where(x < hi_t, one, torch.where(x == hi_t, 0.5 * one, 0.0 * one))
+    return g
+
+
+def _activation_grad(raw: torch.Tensor, kind: str) -> torch.Tensor:
+    """Derivative of ``render.output_activation(raw, kind)``."""
+    kind = kind.lower()
+    if kind == "sigmoid":
+        a = torch.sigmoid(raw)
+        return a * (1 - a)
+    grad = torch.sigmoid(raw)  # softplus'
+    if kind == "clamp":
+        grad = grad * _clip_grad(softplus(raw), 0.0, 1.0)
+    return grad
+
+
+def occlusion_mask(z: torch.Tensor, hp) -> torch.Tensor:
+    """``[S]`` float occlusion mask of the shared depths ``z``."""
+    return losses.occlusion_mask(depth_deltas(z), hp.occl_reg_perc,
+                                 front_only=hp.occl_front_only).to(z.dtype)
+
+
+def _weights5(loss_weights_vec) -> list:
+    """``[favor, dentro, occl, l1]`` or with the hull L1 appended -> five
+    floats (an absent hull weight is 0, so its term drops out exactly)."""
+    lw = [float(v) for v in torch.as_tensor(loss_weights_vec, dtype=torch.float32).tolist()]
+    return (lw + [0.0] * 5)[:5]
+
+
+def loss_cotangents_plain(raw_s, raw_t, z, pixels, weights, initial_intensities,
+                          loss_weights_vec, hp, gate=None, total_rays: Optional[int] = None):
+    """The kernel's loss phase as tensor ops. ``raw_s``, ``raw_t``: ``[R, S]``
+    raw densities; ``z`` the shared ``[S]`` depths; ``gate`` the optional
+    ``[R, S]`` hull gate (its presence turns on the hull-gated static L1).
+
+    Returns ``(terms [16], dL/draw_s [R, S], dL/draw_t [R, S])`` with the
+    weighted loss in ``terms[T_LOSS]``. Normalizations use ``total_rays``
+    (default R): pixel, entropies, sigma sums, occlusion and hull L1 are
+    means over rays, favor and blendw means over ``R * S`` samples, l1/l2
+    plain sums.
+    """
+    n_s = z.shape[0]
+    n_r = total_rays if total_rays is not None else raw_s.shape[0]
+    lw = _weights5(loss_weights_vec)  # f32 values as Python floats: no host-device copy
+    dist = depth_deltas(z)
+    occl = occlusion_mask(z, hp)
+
+    sig_s = output_activation(raw_s, hp.output_activation) * 1e-2
+    sig_t = output_activation(raw_t, hp.output_activation) * 1e-2
+    if gate is not None:
+        sig_t = sig_t * gate
+    sd_s, sd_t = sig_s * dist, sig_t * dist
+    sum_s, sum_t = sd_s.sum(-1), sd_t.sum(-1)
+
+    err = initial_intensities - (sum_s + sum_t) - pixels
+    den = sig_s + sig_t + 1e-10
+    bw = sig_t / den
+    k = float(hp.skewness_val)
+    u = bw ** k
+    b = clip(u, 1e-19, 1 - 1e-19)
+    rev = clip(1 - b, lo=1e-19)
+    log_b, log_rev = torch.log(b), torch.log(rev)
+    ent_b = -(b * log_b + rev * log_rev)
+
+    d_s = clip(sum_s, lo=hp.entro_clip_threshold)
+    d_t = clip(sum_t, lo=hp.entro_clip_threshold)
+    p_s, p_t = sd_s / d_s[:, None], sd_t / d_t[:, None]
+    plog_s, plog_t = torch.log(p_s + 1e-10), torch.log(p_t + 1e-10)
+    m_s = (sum_s >= hp.entro_mask_thre).float()
+    m_t = sum_t >= hp.entro_mask_thre
+    if hp.entro_use_weighting:
+        m_t = m_t | (weights > 1.0 + hp.entro_weighted_thresh)
+    m_t = m_t.float()
+
+    terms = torch.zeros(TERMS, device=raw_s.device)
+    terms[T_PIX] = (weights * err ** 2).sum() / n_r
+    terms[T_FAVOR] = ent_b.sum() / (n_r * n_s)
+    terms[T_S_ENT] = (m_s * -(p_s * plog_s).sum(-1)).sum() / n_r
+    terms[T_S_SIG] = sum_s.sum() / n_r
+    terms[T_D_ENT] = (m_t * -(p_t * plog_t).sum(-1)).sum() / n_r
+    terms[T_D_SIG] = sum_t.sum() / n_r
+    terms[T_OCCL] = (sd_t * occl).sum() / n_r
+    terms[T_L1] = sd_s.sum()
+    terms[T_L2] = (sd_s ** 2).sum()
+    terms[T_BLENDW] = bw.sum() / (n_r * n_s)
+    terms[T_SMAX] = sig_s.max()
+    terms[T_DMAX] = sig_t.max()
+    if gate is not None:
+        terms[T_HL1] = (sd_s * gate).sum() / n_r
+    terms[T_LOSS] = (terms[T_PIX] + lw[0] * terms[T_FAVOR] + lw[1] * terms[T_D_ENT]
+                     + lw[2] * terms[T_OCCL] + lw[3] * terms[T_L2] + lw[3] * terms[T_L1]
+                     + lw[4] * terms[T_HL1])
+
+    # d/d(sigma * dist): pixel term, dynamic entropy, occlusion, L1/L2, hull L1
+    g_pix = (-2.0 / n_r) * weights * err
+    q_t = -(plog_t + p_t / (p_t + 1e-10))
+    qp = (q_t * p_t).sum(-1)
+    # the denominator's derivative: clip's (0.5 on the bound), and 0 on
+    # near-empty rays, whose denominator carries no gradient (the
+    # double-where guard of ray_entropy_loss)
+    d_prime = _clip_grad(sum_t, lo=hp.entro_clip_threshold) * (sum_t >= 1e-15).float()
+    c_t = lw[1] * m_t / n_r
+    g_sd_t = (g_pix[:, None] + c_t[:, None] * (q_t - (d_prime * qp)[:, None]) / d_t[:, None]
+              + lw[2] * occl / n_r)
+    g_sd_s = g_pix[:, None] + lw[3] * (1 + 2 * sd_s)
+    if gate is not None:
+        g_sd_s = g_sd_s + lw[4] * gate / n_r
+    # favor: binary entropy of clip(bw ** k) through bw = sig_t / den
+    db = _clip_grad(u, 1e-19, 1 - 1e-19)
+    drev = -_clip_grad(1 - b, lo=1e-19)
+    du = k * bw ** (k - 1) if k != 0 else torch.zeros_like(bw)
+    g_bw = (lw[0] / (n_r * n_s)) * (-(log_b + 1) - (log_rev + 1) * drev) * db * du
+    g_sig_s = g_sd_s * dist - g_bw * sig_t / (den * den)
+    g_sig_t = g_sd_t * dist + g_bw / den - g_bw * sig_t / (den * den)
+    if gate is not None:
+        g_sig_t = g_sig_t * gate
+    return (terms, g_sig_s * 1e-2 * _activation_grad(raw_s, hp.output_activation),
+            g_sig_t * 1e-2 * _activation_grad(raw_t, hp.output_activation))
+
+
+def _param_trees(params_s, params_t):
+    """Detached copies of both parameter trees whose leaves require grad,
+    and the leaves in ``_leaves`` order (latents last)."""
+    def tree(p):
+        out = {"early": [{k: v.detach().requires_grad_(True) for k, v in layer.items()}
+                         for layer in p["early"]],
+               "out": {k: v.detach().requires_grad_(True) for k, v in p["out"].items()}}
+        if "latents" in p:
+            out["latents"] = p["latents"].detach().requires_grad_(True)
+        return out
+    ts, tt = tree(params_s), tree(params_t)
+    return ts, tt, ff._leaves(ts) + ff._leaves(tt) + [tt["latents"]]
+
+
+def _grad_tree(leaf_grads: list, n_hidden: int, latents=None) -> dict:
+    """``_leaves``-ordered gradients -> the parameter tree layout."""
+    early = [{"w": leaf_grads[2 * i], "b": leaf_grads[2 * i + 1]} for i in range(n_hidden + 1)]
+    out = {"early": early, "out": {"w": leaf_grads[-2], "b": leaf_grads[-1]}}
+    if latents is not None:
+        out["latents"] = latents
+    return out
+
+
+def _term_dict(terms: torch.Tensor) -> dict:
+    return {name: terms[i] for i, name in enumerate(TERM_NAMES)}
+
+
+def plain_train_loss_and_grads(params_s, params_t, origins, directions, z, ray_phases, pixels,
+                               weights, initial_intensities, cfg_s: FieldConfig,
+                               cfg_t: FieldConfig, window_s, window_t, loss_weights_vec, hp,
+                               total_rays: Optional[int] = None, hull=None):
+    """Both fields in torch, the hand-derived loss cotangents of
+    :func:`loss_cotangents_plain`, then ``torch.autograd.grad`` of the
+    fields driven by those cotangents."""
+    ts, tt, leaves = _param_trees(params_s, params_t)
+    raw_s, raw_t = ff.plain_composite_fields_rays(ts, tt, origins, directions, z, ray_phases,
+                                                  cfg_s, cfg_t, window_s, window_t)
+    raw_s, raw_t = raw_s[..., 0], raw_t[..., 0]
+    gate = hull_gate_rays(hull, origins, directions, z) if hull is not None else None
+    terms, g_s, g_t = loss_cotangents_plain(
+        raw_s.detach(), raw_t.detach(), z, pixels, weights, initial_intensities,
+        loss_weights_vec, hp, gate=gate, total_rays=total_rays)
+    grads = torch.autograd.grad((raw_s, raw_t), leaves, grad_outputs=(g_s, g_t))
+    n_s = 2 * (cfg_s.num_early_layers + 2)
+    grads_s = _grad_tree(list(grads[:n_s]), cfg_s.num_early_layers)
+    grads_t = _grad_tree(list(grads[n_s:-1]), cfg_t.num_early_layers, grads[-1])
+    return terms[T_LOSS], _term_dict(terms), grads_s, grads_t
+
+
+# ---------------------------------------------------------------------------
+# Build, bind and launch
+
+
+class LossArgs(ctypes.Structure):
+    _fields_ = [("pixels", ctypes.c_void_p), ("weights", ctypes.c_void_p),
+                ("i0", ctypes.c_void_p), ("gate", ctypes.c_void_p), ("occl", ctypes.c_void_p),
+                ("lw", ctypes.c_float * 5), ("skew", ctypes.c_float),
+                ("mask_thre", ctypes.c_float), ("var_thre", ctypes.c_float),
+                ("clip_thr", ctypes.c_float), ("n_rays_total", ctypes.c_float),
+                ("n_samples_total", ctypes.c_float), ("activation", ctypes.c_int),
+                ("use_weighting", ctypes.c_int), ("has_hull", ctypes.c_int)]
+
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = build.load("fused_train")
+        ptr = ctypes.POINTER
+        lib.fused_train_loss.argtypes = [ptr(ff.FieldArgs), ptr(ff.FieldArgs), ptr(ff.RayArgs),
+                                         ptr(LossArgs), ctypes.c_void_p, ctypes.c_void_p,
+                                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        lib.fused_train_loss.restype = ctypes.c_int
+        lib.fused_train_terms.argtypes = [ctypes.c_int]
+        lib.fused_train_terms.restype = ctypes.c_int
+        if lib.fused_train_terms(0) != TERMS:
+            raise RuntimeError("term layout differs between the wrapper and the kernel")
+        _LIB = lib
+    return _LIB
+
+
+def loss_args(pixels, weights, initial_intensities, gate, occl, loss_weights_vec, hp,
+              n_rays_total: int, n_samples: int) -> LossArgs:
+    """The kernel's loss arguments; the tensors must stay alive while the
+    launch uses their pointers."""
+    return LossArgs(
+        pixels.data_ptr(), weights.data_ptr(), initial_intensities.data_ptr(),
+        gate.data_ptr() if gate is not None else None, occl.data_ptr(),
+        (ctypes.c_float * 5)(*_weights5(loss_weights_vec)), float(hp.skewness_val),
+        float(hp.entro_mask_thre), float(1.0 + hp.entro_weighted_thresh),
+        float(hp.entro_clip_threshold), float(n_rays_total), float(n_rays_total * n_samples),
+        ACTIVATIONS.index(hp.output_activation.lower()), int(bool(hp.entro_use_weighting)),
+        int(gate is not None))
+
+
+def fused_train_loss(pack_s, pack_t, origins, directions, z, phases, latents, largs: LossArgs):
+    """Launch K3's loss kernel and its term reduction: ``(terms [16],
+    dL/draw_s [R*S], dL/draw_t [R*S])``."""
+    dev = origins.device
+    n = origins.shape[0] * z.shape[0]
+    g_s = torch.empty(n, device=dev)
+    g_t = torch.empty(n, device=dev)
+    partials = torch.empty(origins.shape[0] * TERMS, device=dev)
+    terms = torch.empty(TERMS, device=dev)
+    rays = ff._ray_args(origins, directions, z, phases, latents)
+    LAUNCHES["fused_train_loss"] += 1
+    ff._check(_lib().fused_train_loss(
+        ctypes.byref(pack_s.args), ctypes.byref(pack_t.args), ctypes.byref(rays),
+        ctypes.byref(largs), g_s.data_ptr(), g_t.data_ptr(), partials.data_ptr(),
+        terms.data_ptr(), ff._stream()), "fused_train_loss")
+    return terms, g_s, g_t
+
+
+def _check_batch(origins, z, pixels, weights, initial_intensities):
+    dev, r = origins.device, origins.shape[0]
+    if z.dim() != 1:
+        raise ValueError("the fused-loss kernel takes the shared [S] depth vector")
+    if not 2 <= z.shape[0] <= MAX_SAMPLES:
+        raise ValueError(f"{z.shape[0]} samples per ray outside [2, {MAX_SAMPLES}]")
+    for name, t in (("pixels", pixels), ("weights", weights),
+                    ("initial_intensities", initial_intensities)):
+        if (t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()
+                or tuple(t.shape) != (r,)):
+            raise ValueError(f"{name}: expected a contiguous float32 [{r}] tensor on {dev}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def fused_train_loss_and_grads(params_s, params_t, origins, directions, z, ray_phases, pixels,
+                               weights, initial_intensities, cfg_s: FieldConfig,
+                               cfg_t: FieldConfig, window_s, window_t, loss_weights_vec, hp,
+                               total_rays: Optional[int] = None, hull=None):
+    """Training loss and parameter gradients of the coarse composite
+    objective in one pass (the JAX contract of ``fused_train.py:416-454``).
+
+    ``z`` is the shared ``[S]`` depth vector; ``loss_weights_vec`` is
+    ``[favor, dentro, occl, l1]`` or ``[..., hull_static_l1]``;
+    ``total_rays`` sets the normalizations when this call computes one
+    shard of a larger batch (default: the local ray count); ``hull`` an
+    optional :class:`~nerfca_tpu_torch.ops.hull.MotionHull`.
+
+    Returns ``(loss, term_dict, grads_s, grads_t)``: the unweighted terms
+    by name, and gradient trees shaped like the parameter trees (the
+    latent-table gradient in ``grads_t["latents"]``).
+    """
+    if origins.device.type == "cpu":
+        return plain_train_loss_and_grads(
+            params_s, params_t, origins, directions, z, ray_phases, pixels, weights,
+            initial_intensities, cfg_s, cfg_t, window_s, window_t, loss_weights_vec, hp,
+            total_rays=total_rays, hull=hull)
+    if origins.device.type != "cuda":
+        raise ValueError(f"no fused-loss kernel for device {origins.device}")
+    if hp.output_activation.lower() not in ACTIVATIONS:
+        raise NotImplementedError(f"activation {hp.output_activation!r} outside the kernel")
+    ff._check_inputs(params_s, params_t, origins, directions, z, cfg_s, cfg_t,
+                     (window_s, window_t))
+    _check_batch(origins, z, pixels, weights, initial_intensities)
+    r, s = origins.shape[0], z.shape[0]
+    dev = origins.device
+    phases = ray_phases.to(device=dev, dtype=torch.int32).contiguous()
+    latents = params_t["latents"].detach()
+    pack_s = ff._Pack(cfg_s, ff._leaves(params_s), window_s, dev)
+    pack_t = ff._Pack(cfg_t, ff._leaves(params_t), window_t, dev)
+    gate = None
+    if hull is not None:
+        gate = hull_gate_rays(hull, origins, directions, z).contiguous()
+    occl = occlusion_mask(z, hp).contiguous()
+    largs = loss_args(pixels, weights, initial_intensities, gate, occl, loss_weights_vec, hp,
+                      total_rays if total_rays is not None else r, s)
+    terms, g_s, g_t = fused_train_loss(pack_s, pack_t, origins, directions, z, phases, latents,
+                                       largs)
+    flat = ff.fused_field_bwd(pack_s, pack_t, origins, directions, z, phases, latents, g_s, g_t)
+    n_phases = latents.shape[0]
+    size_s = pack_s.grad_layout(n_phases)["size"]
+    leaf_s, _ = pack_s.leaf_grads(flat[:size_s], n_phases)
+    leaf_t, d_lat = pack_t.leaf_grads(flat[size_s:], n_phases)
+    grads_s = _grad_tree(leaf_s, cfg_s.num_early_layers)
+    grads_t = _grad_tree(leaf_t, cfg_t.num_early_layers, d_lat)
+    return terms[T_LOSS], _term_dict(terms), grads_s, grads_t

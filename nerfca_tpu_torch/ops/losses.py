@@ -6,6 +6,10 @@
     full-ray L1 of ``sigma * dists``;
   - static L1/L2 reduce with ``sum`` over rays, not ``mean``;
   - the static ray entropy is logged but never enters the loss.
+
+Every clip is :func:`clip`, whose derivative at a bound is 0.5 as JAX's
+``jnp.clip`` gives it (``torch.clamp`` gives 1): ``1 - 1e-19`` is 1.0 in
+f32, so a blend ratio of exactly 1.0 sits on the bound.
 """
 
 from __future__ import annotations
@@ -13,6 +17,18 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+
+def clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
+    """``jnp.clip``: ``minimum(maximum(x, lo), hi)``, so a value ON a bound
+    passes half its gradient (``torch.clamp`` passes all of it). The bounds
+    are filled on the device (``torch.tensor(lo, device=...)`` would copy
+    from the host and synchronize the stream)."""
+    if lo is not None:
+        x = torch.maximum(x, x.new_full((), lo))
+    if hi is not None:
+        x = torch.minimum(x, x.new_full((), hi))
+    return x
 
 
 def blend_ratio(sigma_s, sigma_d):
@@ -23,8 +39,8 @@ def blend_ratio(sigma_s, sigma_d):
 
 def blendw_entropy_loss(blendw, skewness: float = 1.0, clip_threshold: float = 1e-19):
     """Mean binary entropy of ``blendw ** skewness``."""
-    b = torch.clamp(blendw ** skewness, clip_threshold, 1 - clip_threshold)
-    rev = torch.clamp(1 - b, min=clip_threshold)
+    b = clip(blendw ** skewness, clip_threshold, 1 - clip_threshold)
+    rev = clip(1 - b, lo=clip_threshold)
     entropy = torch.mean(-(b * torch.log(b) + rev * torch.log(rev)), dim=-1)
     return torch.mean(entropy)
 
@@ -44,7 +60,7 @@ def ray_entropy_loss(sigma, dists, mask_threshold: float = 0.1,
     mask = sigma_sum[..., 0] >= mask_threshold
     if use_weighting and weighted_pixs is not None:
         mask = mask | (weighted_pixs > 1.0 + weighted_thresh)
-    clipped = torch.clamp(sigma_sum, min=clip_threshold)
+    clipped = clip(sigma_sum, lo=clip_threshold)
     risky = sigma_sum < 1e-15
     denom = torch.where(risky, clipped.detach(), clipped)
     ray_p = sigma_dist / denom
@@ -52,18 +68,24 @@ def ray_entropy_loss(sigma, dists, mask_threshold: float = 0.1,
     return torch.mean(entropy), torch.mean(sigma_sum)
 
 
-def occlusion_loss(sigma, dists, reg_perc: float = 0.1, use_back: bool = False,
+def occlusion_mask(dists, reg_perc: float = 0.1, use_back: bool = False,
                    front_only: bool = False):
-    """L1 of ``sigma * dists`` over the masked ray portion (full ray by
-    default, see the module docstring); ``dists`` is the shared ``[S]``."""
+    """``[S]`` boolean mask of the ray portion the occlusion loss covers
+    (the full ray by default, see the module docstring)."""
     cum_dists = torch.cumsum(dists, dim=0)
     total = cum_dists[-1]
     if front_only:
-        mask = cum_dists < reg_perc * total
-    elif use_back:
-        mask = (cum_dists < reg_perc * total) | (cum_dists > (1 - reg_perc) * total)
-    else:
-        mask = torch.ones_like(cum_dists, dtype=torch.bool)
+        return cum_dists < reg_perc * total
+    if use_back:
+        return (cum_dists < reg_perc * total) | (cum_dists > (1 - reg_perc) * total)
+    return torch.ones_like(cum_dists, dtype=torch.bool)
+
+
+def occlusion_loss(sigma, dists, reg_perc: float = 0.1, use_back: bool = False,
+                   front_only: bool = False):
+    """L1 of ``sigma * dists`` over the masked ray portion; ``dists`` is the
+    shared ``[S]``."""
+    mask = occlusion_mask(dists, reg_perc, use_back, front_only)
     return torch.mean(torch.sum(sigma * dists * mask, dim=-1))
 
 

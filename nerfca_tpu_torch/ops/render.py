@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from nerfca_tpu_torch.ops.losses import clip
+
 
 def depth_deltas(depth_values: torch.Tensor) -> torch.Tensor:
     """Adjacent depth differences with a 1e-10 terminal delta."""
@@ -31,26 +33,35 @@ def output_activation(raw: torch.Tensor, kind: str = "softplus") -> torch.Tensor
     if kind == "sigmoid":
         return torch.sigmoid(raw)
     if kind == "clamp":
-        return torch.clamp(softplus(raw), 0.0, 1.0)
+        return clip(softplus(raw), 0.0, 1.0)
     raise ValueError(f"unknown output activation {kind!r}")
 
 
 def render_transmission(raw_field, initial_intensities, depth_values,
-                        activation: str = "softplus", scale_value: float = 1e-2):
-    """Single-field renderer: ``(int_map [R], sigma [R, S] UNSCALED, dists)``."""
+                        activation: str = "softplus", scale_value: float = 1e-2, gate=None):
+    """Single-field renderer: ``(int_map [R], sigma [R, S] UNSCALED, dists)``.
+    ``gate``: optional ``[R, S]`` multiplier on the activated density (the
+    motion hull, ``ops/hull.py``)."""
     dists = depth_deltas(depth_values)
     sigma = output_activation(raw_field[..., -1], activation)
+    if gate is not None:
+        sigma = sigma * gate
     int_map = initial_intensities - torch.sum(sigma * dists * scale_value, dim=-1)
     return int_map, sigma, dists
 
 
 def render_transmission_composite(static_raw, temp_raw, initial_intensities, depth_values,
-                                  activation: str = "softplus", scale_value: float = 1e-2):
+                                  activation: str = "softplus", scale_value: float = 1e-2,
+                                  temp_gate=None):
     """Two-field renderer: ``(int_map [R], static_sigma, temp_sigma, dists)``
-    with both sigmas PRE-SCALED by ``scale_value``."""
+    with both sigmas PRE-SCALED by ``scale_value``. ``temp_gate``: optional
+    ``[R, S]`` multiplier on the scaled dynamic density (the motion hull);
+    the regularizers then see the gated dynamic sigma."""
     dists = depth_deltas(depth_values)
     static_sigma = output_activation(static_raw[..., -1], activation) * scale_value
     temp_sigma = output_activation(temp_raw[..., -1], activation) * scale_value
+    if temp_gate is not None:
+        temp_sigma = temp_sigma * temp_gate
     weights = (static_sigma + temp_sigma) * dists
     int_map = initial_intensities - torch.sum(weights, dim=-1)
     return int_map, static_sigma, temp_sigma, dists

@@ -14,6 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from nerfca_tpu_torch.ops.hull import hull_gate_rays
 from nerfca_tpu_torch.ops.losses import composite_losses, weighted_mse
 from nerfca_tpu_torch.ops.render import render_transmission, render_transmission_composite
 from nerfca_tpu_torch.train.step import (
@@ -24,24 +25,29 @@ from nerfca_tpu_torch.train.step import (
 @torch.no_grad()
 def render_test_view(params, test_origins, test_directions, test_phases, depth_values,
                      step: int, cfgs: dict, hp: CompositeHParams, initial_intensity: float,
-                     tile: int = 4096) -> dict:
+                     tile: int = 4096, hull=None) -> dict:
     """Render one full test view; per-pixel composite and decomposed
-    intensity maps plus the scaled sigmas and dists."""
+    intensity maps plus the scaled sigmas and dists. ``hull``: optional
+    ``MotionHull`` gating the dynamic density exactly as in training."""
     dev = test_origins.device
     windows = {k: field_window(cfgs[k], step, dev) for k in ("static", "temp")}
-    s_parts, t_parts = [], []
+    s_parts, t_parts, g_parts = [], [], []
     for start in range(0, test_origins.shape[0], tile):
-        s_raw, t_raw = evaluate_fields(
-            params, test_origins[start:start + tile], test_directions[start:start + tile],
-            depth_values, test_phases[start:start + tile], windows, cfgs, hp)
+        o, d = test_origins[start:start + tile], test_directions[start:start + tile]
+        s_raw, t_raw = evaluate_fields(params, o, d, depth_values,
+                                       test_phases[start:start + tile], windows, cfgs, hp)
         s_parts.append(s_raw[..., 0])
         t_parts.append(t_raw[..., 0])
+        if hull is not None:
+            g_parts.append(hull_gate_rays(hull, o, d, depth_values))
     s_raw, t_raw = torch.cat(s_parts), torch.cat(t_parts)
+    gate = torch.cat(g_parts) if hull is not None else None
     i0 = torch.full((s_raw.shape[0],), initial_intensity, device=dev)
     pix, s_sig, t_sig, dists = render_transmission_composite(
-        s_raw[..., None], t_raw[..., None], i0, depth_values, hp.output_activation)
+        s_raw[..., None], t_raw[..., None], i0, depth_values, hp.output_activation,
+        temp_gate=gate)
     pix_temp, _, _ = render_transmission(t_raw[..., None], i0, depth_values,
-                                         hp.output_activation)
+                                         hp.output_activation, gate=gate)
     pix_static, _, _ = render_transmission(s_raw[..., None], i0, depth_values,
                                            hp.output_activation)
     return {"pix": pix, "pix_static": pix_static, "pix_temp": pix_temp,

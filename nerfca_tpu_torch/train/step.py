@@ -2,21 +2,29 @@
 of ``nerfca_tpu/train/step.py``).
 
 One step: variance-oversampled ray batch -> optional sub-pixel ray jitter
--> one shared stratified depth vector -> both fields (the CUDA kernels K1/K2
-with ``use_pallas``, plain torch otherwise) -> Beer-Lambert render -> the
-loss battery (plain torch autograd) -> Adam with linear LR decay and the
-static-freeze gate.
+-> one shared stratified depth vector -> the loss and its gradients -> Adam
+with linear LR decay and the static-freeze gate. The gradients come from
+one of three paths:
 
-The step is split so tests can inject the batch and the depths
-(:func:`composite_grads`), since torch and JAX random numbers never agree.
-Metrics stay on the device as 0-d tensors; the trainer reads them back once
-per chunk. Not ported yet: the fine pass, the motion hull, the fused-loss
-kernel (K3), bf16 compute and AdamW decay.
+  - ``use_pallas`` and ``use_fused_loss`` inside the envelope: the
+    fused-loss kernel K3 (``ops/cuda/fused_train.py``), which returns the
+    loss terms and every gradient in one pass;
+  - ``use_pallas``: the field kernels K1/K2 under the loss battery in
+    torch autograd;
+  - otherwise both fields and the loss in plain torch autograd.
+
+An optional motion hull (``ops/hull.py``) gates the dynamic density on
+every path. The step is split so tests can inject the batch and the depths
+(:func:`composite_grads`, :func:`_fused_loss_metrics_grads`), since torch
+and JAX random numbers never agree. Metrics stay on the device as 0-d
+tensors; the trainer reads them back once per chunk. Not ported yet: the
+fine pass, bf16 compute and residuals, and AdamW decay.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -27,9 +35,14 @@ from nerfca_tpu_torch.ops.cuda.fused_field import (
     fused_composite_fields_rays,
     plain_composite_fields_rays,
 )
+from nerfca_tpu_torch.ops.cuda.fused_train import (
+    fused_train_loss_and_grads,
+    fused_train_supported,
+)
 from nerfca_tpu_torch.ops.encoding import (
     free_window_alpha, free_window_mask, nerfies_alpha, nerfies_window,
 )
+from nerfca_tpu_torch.ops.hull import hull_gate_rays
 from nerfca_tpu_torch.ops.losses import composite_losses, weighted_mse
 from nerfca_tpu_torch.ops.render import render_transmission_composite
 from nerfca_tpu_torch.ops.sampling import stratify_depths
@@ -72,6 +85,7 @@ class CompositeHParams:
     ray_jitter: float = 0.0
     use_pallas: bool = False
     use_fused_loss: bool = False
+    pallas_bf16_residuals: bool = False
 
 
 def field_window(cfg: FieldConfig, step: int, device=None) -> Optional[torch.Tensor]:
@@ -189,24 +203,36 @@ def evaluate_fields(params, origins, directions, depth_values, phases, windows, 
               cfgs["static"], cfgs["temp"], windows["static"], windows["temp"])
 
 
-def composite_forward(params, batch, depth_values, windows, cfgs, hp: CompositeHParams) -> dict:
+def composite_forward(params, batch, depth_values, windows, cfgs, hp: CompositeHParams,
+                      hull=None) -> dict:
     """Coarse forward pass -> render and sigmas. ``depth_values``: the
-    already-jittered shared ``[S]`` vector."""
+    already-jittered shared ``[S]`` vector. ``hull``: optional
+    ``MotionHull`` gating the dynamic density."""
     static_raw, temp_raw = evaluate_fields(
         params, batch["origins"], batch["directions"], depth_values, batch["phases"],
         windows, cfgs, hp)
+    temp_gate = None
+    if hull is not None:
+        temp_gate = hull_gate_rays(hull, batch["origins"], batch["directions"], depth_values)
     pix, s_sig, t_sig, dists = render_transmission_composite(
-        static_raw, temp_raw, batch["initial_intensities"], depth_values, hp.output_activation)
-    return {"pix_coarse": pix, "static_sigma_coarse": s_sig, "temp_sigma_coarse": t_sig,
-            "dists_coarse": dists, "static_raw_coarse": static_raw,
-            "temp_raw_coarse": temp_raw}
+        static_raw, temp_raw, batch["initial_intensities"], depth_values, hp.output_activation,
+        temp_gate=temp_gate)
+    out = {"pix_coarse": pix, "static_sigma_coarse": s_sig, "temp_sigma_coarse": t_sig,
+           "dists_coarse": dists, "static_raw_coarse": static_raw,
+           "temp_raw_coarse": temp_raw}
+    if temp_gate is not None:
+        out["temp_gate_coarse"] = temp_gate  # reused by the hull-gated L1
+    return out
 
 
-def composite_loss_fn(params, batch, depth_values, step: int, cfgs, hp: CompositeHParams):
-    """Total regularized loss + metric dict (same names as the JAX step)."""
+def composite_loss_fn(params, batch, depth_values, step: int, cfgs, hp: CompositeHParams,
+                      hull=None):
+    """Total regularized loss + metric dict (same names as the JAX step).
+    ``hull``: optional motion-hull gate; it adds the hull-gated static L1
+    (the mean over rays of the static line integral inside the hull)."""
     dev = batch["origins"].device
     windows = {k: field_window(cfgs[k], step, dev) for k in ("static", "temp")}
-    fwd = composite_forward(params, batch, depth_values, windows, cfgs, hp)
+    fwd = composite_forward(params, batch, depth_values, windows, cfgs, hp, hull=hull)
     weights = loss_weights(step, hp)
     pixel_loss_c = torch.mean(weighted_mse(fwd["pix_coarse"], batch["pixels"], batch["weights"]))
     losses = composite_losses(
@@ -222,8 +248,13 @@ def composite_loss_fn(params, batch, depth_values, step: int, cfgs, hp: Composit
     if hp.static_tv_weight_start > 0 or hp.static_tv_weight_end > 0:
         static_tv = along_ray_tv(fwd["static_sigma_coarse"])
         loss = loss + weights["static_tv"] * static_tv
+    hull_s_l1 = zero
+    if hull is not None:
+        hull_s_l1 = torch.mean(torch.sum(
+            fwd["static_sigma_coarse"] * fwd["dists_coarse"] * fwd["temp_gate_coarse"], dim=-1))
+        loss = loss + weights["hull_static_l1"] * hull_s_l1
     metrics = {
-        "train_hull_s_l1": zero,
+        "train_hull_s_l1": hull_s_l1.detach(),
         "hull_static_l1_weight": weights["hull_static_l1"],
         "train_static_tv": static_tv.detach(),
         "static_tv_weight": weights["static_tv"],
@@ -268,15 +299,58 @@ def param_items(params) -> list:
     return items
 
 
-def composite_grads(params, batch, depth_values, step: int, cfgs, hp: CompositeHParams):
+def composite_grads(params, batch, depth_values, step: int, cfgs, hp: CompositeHParams,
+                    hull=None):
     """Loss, metrics and the gradient of every leaf (``param_items`` order)
     for an injected batch and depths."""
     leaves = [t for _, t in param_items(params)]
     for t in leaves:
         t.requires_grad_(True)
-    loss, metrics = composite_loss_fn(params, batch, depth_values, step, cfgs, hp)
+    loss, metrics = composite_loss_fn(params, batch, depth_values, step, cfgs, hp, hull=hull)
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), metrics, list(grads)
+
+
+def _fused_loss_metrics_grads(params, batch, depth_values, step: int, cfgs,
+                             hp: CompositeHParams, hull=None):
+    """The fused-loss path: loss, the metric dict of the JAX fused path
+    (``nerfca_tpu/train/step.py:729-773``; no static-TV entries) and the
+    gradient of every leaf in ``param_items`` order."""
+    dev = batch["origins"].device
+    windows = {k: field_window(cfgs[k], step, dev) for k in ("static", "temp")}
+    weights = loss_weights(step, hp)
+    lw = [weights["favor_s"], weights["dynamic_entro"], weights["occl"], weights["l1"],
+          weights["hull_static_l1"]]
+    loss, terms, g_s, g_t = fused_train_loss_and_grads(
+        params["static"], params["temp"], batch["origins"], batch["directions"], depth_values,
+        batch["phases"], batch["pixels"], batch["weights"], batch["initial_intensities"],
+        cfgs["static"], cfgs["temp"], windows["static"], windows["temp"], lw, hp, hull=hull)
+    metrics = {
+        "train_pixel_loss_coarse": terms["pixel_loss"],
+        "train_blendw": terms["blendw"],
+        "train_sigma_s_max": terms["sigma_s_max"],
+        "train_sigma_d_max": terms["sigma_d_max"],
+        "train_favor_s_loss": terms["favor_s"],
+        "train_s_entropy_loss": terms["s_entropy"],
+        "train_d_entropy_loss": terms["d_entropy"],
+        "train_s_entropy_sum": terms["s_entropy_sum"],
+        "train_d_entropy_sum": terms["d_entropy_sum"],
+        "train_d_occl_loss": terms["occl"],
+        "train_s_l1": terms["l1"],
+        "train_s_l2": terms["l2"],
+        "train_hull_s_l1": terms["hull_s_l1"],
+        "favor_s_weight": weights["favor_s"],
+        "dynamic_entro_weight": weights["dynamic_entro"],
+        "occl_weight": weights["occl"],
+        "l1_weight": weights["l1"],
+        "hull_static_l1_weight": weights["hull_static_l1"],
+        "train_static_windowed": window_alpha(cfgs["static"], step),
+        "train_temp_windowed": window_alpha(cfgs["temp"], step),
+        "train_loss": loss,
+        "train_psnr": -10.0 * torch.log10(loss),
+    }
+    grads = [g for _, g in param_items({"static": g_s, "temp": g_t})]
+    return loss, metrics, grads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -347,16 +421,25 @@ class TrainState:
 
 def make_composite_train_step(cfgs: dict, hp: CompositeHParams, tx: AdamConfig,
                               depth_values_base: torch.Tensor, initial_intensity: float):
-    """Build ``train_step(state, rays, phases, var_ids, non_var_ids) ->
-    metrics``; it updates ``state`` in place."""
+    """Build ``train_step(state, rays, phases, var_ids, non_var_ids, hull=None)
+    -> metrics``; it updates ``state`` in place. With ``use_pallas`` and
+    ``use_fused_loss`` the step takes the fused-loss kernel K3; a config
+    outside K3's envelope takes the two-kernel path, with a warning."""
     if hp.depth_samples_fine > 0:
         raise NotImplementedError("the fine pass is not ported yet")
-    if hp.use_fused_loss:
-        raise NotImplementedError("the fused-loss kernel (K3) is not ported yet")
     if hp.compute_dtype != "float32":
         raise NotImplementedError("bf16 compute is not ported yet")
+    if hp.pallas_bf16_residuals:
+        raise NotImplementedError("bf16 residual storage is not ported yet")
+    fused = hp.use_pallas and hp.use_fused_loss
+    if fused and not fused_train_supported(cfgs["static"], cfgs["temp"], hp):
+        warnings.warn("config outside the fused-loss kernel's envelope (coarse pass, no "
+                      "static TV, field-kernel fields, softplus/sigmoid/clamp, <= 1024 "
+                      "samples); taking the two-kernel path")
+        fused = False
+    grads_fn = _fused_loss_metrics_grads if fused else composite_grads
 
-    def train_step(state: TrainState, rays, phases, var_ids, non_var_ids):
+    def train_step(state: TrainState, rays, phases, var_ids, non_var_ids, hull=None):
         gen = state.generator
         batch = sample_ray_batch(gen, rays, phases, var_ids, non_var_ids, hp)
         if hp.ray_jitter > 0:
@@ -364,7 +447,7 @@ def make_composite_train_step(cfgs: dict, hp: CompositeHParams, tx: AdamConfig,
         batch["initial_intensities"] = torch.full(
             (hp.img_sample_size,), initial_intensity, device=rays.device)
         z = stratify_depths(depth_values_base, gen)
-        _, metrics, grads = composite_grads(state.params, batch, z, state.step, cfgs, hp)
+        _, metrics, grads = grads_fn(state.params, batch, z, state.step, cfgs, hp, hull=hull)
         adam_update(state.params, state.opt_state, grads, tx, state.step, hp)
         state.step += 1
         return metrics

@@ -4,8 +4,10 @@
 The dataset is built when absent, loaded once and moved to the device; the
 train loop runs in chunks of steps whose metrics stay on the device and are
 read back once per chunk; the selection view is rendered at
-``display_every`` boundaries. Checkpoints are not ported yet: saves are
-skipped (said once) and ``--resume_from`` raises.
+``display_every`` boundaries. With ``--use_motion_hull`` the hull is carved
+from the training views' variance maps after the dataset is loaded and
+gates every train step and eval render. Checkpoints are not ported yet:
+saves are skipped (said once) and ``--resume_from`` raises.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from nerfca_tpu_torch.data.dataset import build_dataset, dataset_paths, parse_se
 from nerfca_tpu_torch.data.loader import denormalize_image, load_dataset
 from nerfca_tpu_torch.geometry.rays import detector_rays
 from nerfca_tpu_torch.models.fields import FieldConfig, init_static_field, init_temporal_field
+from nerfca_tpu_torch.ops.hull import hull_from_args
 from nerfca_tpu_torch.ops.cuda.fused_field import kernel_supported
 from nerfca_tpu_torch.ops.sampling import linspace_depths, stratify_depths
 from nerfca_tpu_torch.train import evaluation
@@ -116,6 +119,7 @@ def composite_hparams_from_args(args) -> CompositeHParams:
         compute_dtype=args.compute_dtype,
         use_pallas=args.use_pallas,
         use_fused_loss=args.use_fused_loss,
+        pallas_bf16_residuals=args.pallas_bf16_residuals,
     )
 
 
@@ -183,9 +187,6 @@ def prepare_composite(args, device: torch.device) -> dict:
     if args.ray_jitter_perc > 0:
         pix_angle = float(info["dDetector"][0]) / float(info["DSD"])
         hp = dataclasses.replace(hp, ray_jitter=float(args.ray_jitter_perc) * pix_angle)
-    if args.use_motion_hull:
-        raise NotImplementedError("the motion hull is not ported yet")
-
     cfgs = field_configs_from_args(args)
     hp = resolve_pallas_support(hp, cfgs)
     tx = make_optimizer(args.lr, args.lr_end_factor, args.lr_decay_steps,
@@ -199,6 +200,15 @@ def prepare_composite(args, device: torch.device) -> dict:
                                    args.depth_samples_per_ray_coarse, device=device)
     train_step = make_composite_train_step(cfgs, hp, tx, depth_values, max_pixel_value)
 
+    hull = hull_from_args(args, data.train_frames, info, device=device)
+    if args.use_motion_hull:
+        if hull is None:
+            print("use_motion_hull: no variance maps on disk — training ungated "
+                  "(partial cardiac cycles ship unit weights)")
+        else:
+            frac = float((hull.grid > 0.5).float().mean())
+            print(f"motion hull carved: res={hull.grid.shape[0]} occupied={frac:.4f}")
+
     def ids(a):
         return torch.as_tensor(a if len(a) else np.zeros(1, np.int64), device=device)
 
@@ -210,14 +220,15 @@ def prepare_composite(args, device: torch.device) -> dict:
     }
     test_views = [_view_tensors(f, info, device) for f in data.test_frames]
     return {"device_data": device_data, "state": state, "cfgs": cfgs, "hp": hp, "tx": tx,
-            "train_step": train_step, "depth_values": depth_values,
+            "train_step": train_step, "depth_values": depth_values, "hull": hull,
             "max_pixel_value": max_pixel_value, "test_views": test_views,
             "chunk_size": _chunk_size(args)}
 
 
-def _run_chunk(train_step, state, dd, n_now: int) -> dict:
+def _run_chunk(train_step, state, dd, n_now: int, hull=None) -> dict:
     """``n_now`` steps; per-step metrics come back to the host once."""
-    per_step = [train_step(state, dd["rays"], dd["phases"], dd["var_ids"], dd["non_var_ids"])
+    per_step = [train_step(state, dd["rays"], dd["phases"], dd["var_ids"], dd["non_var_ids"],
+                           hull=hull)
                 for _ in range(n_now)]
     keys = list(per_step[0])
     tensor_keys = [k for k in keys if isinstance(per_step[0][k], torch.Tensor)]
@@ -251,7 +262,7 @@ def train_composite(args=None, argv=None, max_steps: Optional[int] = None) -> di
     def eval_view(view, step):
         render = evaluation.render_test_view(
             state.params, view["origins"], view["directions"], view["phases"], test_depths,
-            step, cfgs, hp, setup["max_pixel_value"])
+            step, cfgs, hp, setup["max_pixel_value"], hull=setup["hull"])
         tm = evaluation.test_metrics(render, view["image"], step, hp, img_shape=view["shape"])
         if "dyn_gt" in view:
             wv, hv = view["shape"]
@@ -293,7 +304,7 @@ def train_composite(args=None, argv=None, max_steps: Optional[int] = None) -> di
     stop = False
     while step < n_total and not stop:
         n_now = min(chunk, n_total - step)
-        metrics = _run_chunk(setup["train_step"], state, dd, n_now)
+        metrics = _run_chunk(setup["train_step"], state, dd, n_now, hull=setup["hull"])
         chunk_time = time.time() - t_start
         t_start = time.time()
         for i in range(n_now):

@@ -124,3 +124,91 @@ def test_wrapper_checks_inputs(dev):
     fourier[6] = dataclasses.replace(args[6], pos_enc="fourier")
     with pytest.raises(NotImplementedError):
         ff.fused_composite_fields_rays(*fourier)
+
+
+# K3: loss and every term rel 1e-3 (f32 sums over a ray and over rays in
+# another order), grads by K2's rule above
+K3_REL = 1e-3
+
+
+def k3_inputs(dev, r=37, s=100, hull=False, seed=0):
+    from nerfca_tpu_torch.ops.hull import MotionHull
+    from nerfca_tpu_torch.train.step import CompositeHParams
+
+    args, _ = make(dev, r=r, s=s, shared_z=True, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    pixels = 2.16 - 0.3 * torch.rand(r, generator=g, device=dev)
+    weights = 1.0 + torch.rand(r, generator=g, device=dev)
+    i0 = torch.full((r,), 2.16, device=dev)
+    gate = None
+    if hull:
+        # a random grid over part of the rays' x range: rays that miss it
+        # are empty (gate exactly 0 on every sample)
+        grid = torch.rand(8, 8, 8, generator=g, device=dev)
+        gate = MotionHull(grid, torch.full((3,), 0.1, device=dev),
+                          torch.tensor([0.25, -0.1, 0.0], device=dev))
+    hp = CompositeHParams(entro_mask_thre=1e-4, entro_use_weighting=True,
+                          entro_weighted_thresh=0.03, occl_reg_perc=0.2, use_pallas=True,
+                          use_fused_loss=True)
+    lw = [1e-3, 1e-3, 1e-3, 1e-4, 1e-3 if hull else 0.0]
+    p_s, p_t, o, d, z, ph, cfg_s, cfg_t, w_s, w_t = args
+    return (p_s, p_t, o, d, z, ph, pixels, weights, i0, cfg_s, cfg_t, w_s, w_t, lw, hp), gate
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hull", [False, True])
+def test_fused_train_matches_plain(dev, hull):
+    from nerfca_tpu_torch.ops.cuda import fused_train as ft
+    from nerfca_tpu_torch.ops.hull import hull_gate_rays
+
+    args, h = k3_inputs(dev, hull=hull)
+    if hull:
+        gate = hull_gate_rays(h, args[2], args[3], args[4])
+        empty = int((gate.sum(-1) == 0).sum())
+        assert 0 < empty < gate.shape[0]
+    before = dict(ft.LAUNCHES), dict(ff.LAUNCHES)
+    k_loss, k_terms, k_gs, k_gt = ft.fused_train_loss_and_grads(*args, hull=h)
+    assert ft.LAUNCHES["fused_train_loss"] == before[0]["fused_train_loss"] + 1
+    assert ff.LAUNCHES["fused_field_bwd"] == before[1]["fused_field_bwd"] + 1
+    assert ff.LAUNCHES["fused_field_fwd"] == before[1]["fused_field_fwd"]
+    p_loss, p_terms, p_gs, p_gt = ft.plain_train_loss_and_grads(*args, hull=h)
+    torch.cuda.synchronize()
+    assert abs(float(k_loss) - float(p_loss)) <= K3_REL * abs(float(p_loss))
+    for k in p_terms:
+        assert abs(float(k_terms[k]) - float(p_terms[k])) <= K3_REL * abs(float(p_terms[k])), k
+    assert (float(k_terms["hull_s_l1"]) > 0) == hull
+    k_leaves = [t for tree in (k_gs, k_gt) for _, t in param_items({"g": tree})]
+    p_leaves = [t for tree in (p_gs, p_gt) for _, t in param_items({"g": tree})]
+    top = max(float(b.abs().max()) for b in p_leaves)
+    for a, b in zip(k_leaves, p_leaves):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= K2_REL * max(float(b.abs().max()), 1e-2 * top)
+
+
+@pytest.mark.gpu
+def test_fused_train_cotangents_match_plain(dev):
+    # the loss kernel's own outputs: the hand-derived cotangents against the
+    # plain version's on the kernel's raw densities (K1), within 1e-3 of
+    # each tensor's scale, and the terms
+    from nerfca_tpu_torch.ops.cuda import fused_train as ft
+    from nerfca_tpu_torch.ops.hull import hull_gate_rays
+
+    args, h = k3_inputs(dev, r=64, s=500, hull=True, seed=3)
+    p_s, p_t, o, d, z, ph, pixels, weights, i0, cfg_s, cfg_t, w_s, w_t, lw, hp = args
+    pack_s = ff._Pack(cfg_s, ff._leaves(p_s), w_s, dev)
+    pack_t = ff._Pack(cfg_t, ff._leaves(p_t), w_t, dev)
+    ph32 = ph.to(torch.int32)
+    lat = p_t["latents"].detach()
+    gate = hull_gate_rays(h, o, d, z).contiguous()
+    occl = ft.occlusion_mask(z, hp).contiguous()
+    largs = ft.loss_args(pixels, weights, i0, gate, occl, lw, hp, o.shape[0], z.shape[0])
+    terms, g_s, g_t = ft.fused_train_loss(pack_s, pack_t, o, d, z, ph32, lat, largs)
+    with torch.no_grad():
+        raw_s, raw_t = ff.fused_field_fwd(pack_s, pack_t, o, d, z, ph32, lat)
+    r, s = o.shape[0], z.shape[0]
+    p_terms, pg_s, pg_t = ft.loss_cotangents_plain(raw_s.view(r, s), raw_t.view(r, s), z, pixels,
+                                                  weights, i0, lw, hp, gate=gate)
+    torch.cuda.synchronize()
+    for a, b in ((g_s, pg_s), (g_t, pg_t)):
+        assert float((a.view(r, s) - b).abs().max()) <= 1e-3 * float(b.abs().max())
+    assert torch.allclose(terms, p_terms, rtol=K3_REL, atol=0)

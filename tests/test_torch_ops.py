@@ -177,3 +177,28 @@ def test_ray_entropy_zero_ray_grad_finite():
         weighted_pixs=jnp.asarray([2.0, 1.0, 2.0]), weighted_thresh=0.03)[0])(
         jnp.asarray(sig.detach().numpy()))
     close(g, gj, atol=1e-6, rtol=1e-4)
+
+
+def test_clip_ties_take_jax_gradient():
+    # jnp.clip passes half the gradient when the value sits on a bound;
+    # torch.clamp passes all of it. 1 - 1e-19 == 1.0 in f32, so a blend
+    # ratio of exactly 1.0 is such a tie: the first static sigma's favor_s
+    # gradient is 16.67 in JAX, and was 33.33 with torch.clamp (rel 1e-5)
+    s = np.array([1e-12, 3e-3, 1e-12], np.float32)
+    d = np.array([1e-2, 2e-3, 1e-3], np.float32)
+    gj = jax.grad(lambda a: jlo.blendw_entropy_loss(jlo.blend_ratio(a, jnp.asarray(d))[0]))(
+        jnp.asarray(s))
+    st = t(s).requires_grad_(True)
+    (gt,) = torch.autograd.grad(tlo.blendw_entropy_loss(tlo.blend_ratio(st, t(d))[0]), st)
+    close(gt, gj, atol=0, rtol=1e-5)
+    np.testing.assert_allclose(float(gt[0]), 16.666668, rtol=1e-5)
+    # the ray-entropy denominator clip, with the ray sum exactly on it
+    for sig, dists, clip_thr in ((s[None], d, 1e-19),
+                                 (np.full((1, 2), 0.25, np.float32), np.ones(2, np.float32), 0.5)):
+        gj = jax.grad(lambda a: jlo.ray_entropy_loss(a, jnp.asarray(dists), mask_threshold=0.0,
+                                                     clip_threshold=clip_thr)[0])(
+            jnp.asarray(sig))
+        st = t(sig).requires_grad_(True)
+        (gt,) = torch.autograd.grad(
+            tlo.ray_entropy_loss(st, t(dists), mask_threshold=0.0, clip_threshold=clip_thr)[0], st)
+        close(gt, gj, atol=1e-12, rtol=1e-5)

@@ -13,8 +13,11 @@ import torch
 
 import nerfca_tpu.ops.pallas.fused_field as jff
 from nerfca_tpu.models import fields as jf
+from nerfca_tpu.ops.hull import MotionHull as JHull
+from nerfca_tpu.ops.pallas.fused_train import fused_train_loss_and_grads as jax_k3
 from nerfca_tpu.train import step as js
 from nerfca_tpu_torch.models import fields as tf
+from nerfca_tpu_torch.ops.hull import MotionHull as THull
 from nerfca_tpu_torch.train import step as ts
 
 WEIGHTS = {
@@ -31,6 +34,7 @@ WEIGHTS = {
                    static_tv_weight_start=1e-3, static_tv_weight_end=1e-3),
 }
 ENTROPY_TERMS = {"train_s_entropy_loss", "train_d_entropy_loss", "train_favor_s_loss"}
+HULL_L1 = dict(hull_static_l1_weight_start=1e-3, hull_static_l1_weight_end=1e-3)
 
 
 @pytest.fixture(autouse=True)
@@ -87,31 +91,51 @@ def grads_as_jax(tparams, grads):
             for k, v in tparams.items()}
 
 
-def run_both(weights, use_pallas, step=50):
+def hulls(seed=9):
+    """The same random gate grid for both packages, covering the rays of
+    :func:`problem` (res 6, 0.5 voxels around the origin)."""
+    grid = (0.2 + 0.8 * np.random.default_rng(seed).random((6, 6, 6))).astype(np.float32)
+    return (JHull(jnp.asarray(grid), jnp.full((3,), 0.5, jnp.float32), jnp.zeros(3, jnp.float32)),
+            THull(torch.tensor(grid), torch.full((3,), 0.5), torch.zeros(3)))
+
+
+def run_both(weights, use_pallas, step=50, hull=False, **kw):
     params, batch, z = problem()
-    jhp = hparams(js, weights, use_pallas=use_pallas)
+    jh, th = hulls() if hull else (None, None)
+    jhp = hparams(js, weights, use_pallas=use_pallas, **kw)
     (jloss, jm), jg = jax.value_and_grad(
         lambda p: js.composite_loss_fn(p, {k: jnp.asarray(v) for k, v in batch.items()},
-                                       jnp.asarray(z), jnp.int32(step), cfgs(jf), jhp),
+                                       jnp.asarray(z), jnp.int32(step), cfgs(jf), jhp, hull=jh),
         has_aux=True)(params)
     tparams = torch_params(params)
     tbatch = {k: torch.tensor(v) for k, v in batch.items()}
     tloss, tm, tg = ts.composite_grads(tparams, tbatch, torch.tensor(z), step, cfgs(tf),
-                                       hparams(ts, weights, use_pallas=use_pallas))
+                                       hparams(ts, weights, use_pallas=use_pallas, **kw), hull=th)
     return (float(jloss), jm, jg), (float(tloss), tm, grads_as_jax(tparams, tg))
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-@pytest.mark.parametrize("weights", ["shipped", "strong"])
-def test_loss_and_metrics_match(weights, use_pallas):
+def assert_metrics_match(jl, jm, tl, tm):
     # rel 1e-5 on the loss and every metric; 1e-4 on the entropy terms (sums
     # of p log p whose log amplifies the last-bit differences of p)
-    (jl, jm, _), (tl, tm, _) = run_both(weights, use_pallas)
     np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=0)
     assert set(tm) == set(jm)
     for k in jm:
         rtol = 1e-4 if k in ENTROPY_TERMS else 1e-5
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=rtol, atol=0, err_msg=k)
+
+
+def assert_grads_match(jg, tg, bound):
+    for (path, b), a in zip(jax.tree_util.tree_flatten_with_path(jg)[0],
+                            jax.tree_util.tree_leaves(tg)):
+        b = np.asarray(b)
+        assert np.abs(a - b).max() <= bound * max(np.abs(b).max(), 1e-30), path
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("weights", ["shipped", "strong"])
+def test_loss_and_metrics_match(weights, use_pallas):
+    (jl, jm, _), (tl, tm, _) = run_both(weights, use_pallas)
+    assert_metrics_match(jl, jm, tl, tm)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
@@ -120,11 +144,46 @@ def test_grads_match(weights, use_pallas):
     # as the fields: per leaf, max-abs diff <= 1e-4 x the leaf's scale; with
     # the JAX kernel in interpret mode (double-angle encoding) <= 1e-3
     (_, _, jg), (_, _, tg) = run_both(weights, use_pallas)
-    bound = 1e-3 if use_pallas else 1e-4
-    for (path, b), a in zip(jax.tree_util.tree_flatten_with_path(jg)[0],
-                            jax.tree_util.tree_leaves(tg)):
-        b = np.asarray(b)
-        assert np.abs(a - b).max() <= bound * max(np.abs(b).max(), 1e-30), path
+    assert_grads_match(jg, tg, 1e-3 if use_pallas else 1e-4)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_hull_through_composite_loss(use_pallas):
+    # the gated dynamic density and the hull-gated static L1 through the
+    # two-kernel / plain loss: loss, every metric (train_hull_s_l1 > 0) and
+    # grads at the tolerances above
+    (jl, jm, jg), (tl, tm, tg) = run_both("strong", use_pallas, hull=True, **HULL_L1)
+    assert float(tm["train_hull_s_l1"]) > 0
+    assert_metrics_match(jl, jm, tl, tm)
+    assert_grads_match(jg, tg, 1e-3 if use_pallas else 1e-4)
+
+
+@pytest.mark.parametrize("hull", [False, True])
+def test_fused_loss_step_matches_jax(hull):
+    # the port's fused-loss path (plain K3 on the CPU) against JAX's
+    # _fused_loss_metrics_grads (the Pallas K3 in interpret mode): the same
+    # metric keys, values as above, grads within 1e-3 of each leaf's scale
+    params, batch, z = problem()
+    jh, th = hulls() if hull else (None, None)
+    kw = dict(use_pallas=True, use_fused_loss=True, **HULL_L1)
+    jl, jm, jg = js._fused_loss_metrics_grads(
+        params, {k: jnp.asarray(v) for k, v in batch.items()}, jnp.asarray(z), jnp.int32(50),
+        cfgs(jf), hparams(js, **kw), None, jax_k3, 2, hull=jh)
+    tparams = torch_params(params)
+    tl, tm, tg = ts._fused_loss_metrics_grads(
+        tparams, {k: torch.tensor(v) for k, v in batch.items()}, torch.tensor(z), 50, cfgs(tf),
+        hparams(ts, **kw), hull=th)
+    assert (float(tm["train_hull_s_l1"]) > 0) == hull
+    assert_metrics_match(float(jl), jm, float(tl), tm)
+    assert_grads_match(jg, grads_as_jax(tparams, tg), 1e-3)
+
+
+def test_fused_loss_outside_envelope_warns_and_takes_two_kernel_path():
+    c = cfgs(ts)
+    tx = ts.make_optimizer(1e-3, 0.01, 300)
+    hp = hparams(ts, "strong", use_pallas=True, use_fused_loss=True)  # static TV on
+    with pytest.warns(UserWarning, match="envelope"):
+        ts.make_composite_train_step(c, hp, tx, torch.linspace(3.6, 5.4, 48), 2.16)
 
 
 @pytest.mark.parametrize("step", [0, 5, 10, 60, 100, 400])
@@ -220,9 +279,44 @@ def test_unported_options_raise():
     c = cfgs(ts)
     tx = ts.make_optimizer(1e-3, 0.01, 300)
     z = torch.linspace(3.6, 5.4, 8)
-    for kw in (dict(depth_samples_fine=8), dict(use_fused_loss=True),
+    for kw in (dict(depth_samples_fine=8), dict(pallas_bf16_residuals=True),
                dict(compute_dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
             ts.make_composite_train_step(c, dataclasses.replace(hparams(ts), **kw), tx, z, 2.16)
     with pytest.raises(NotImplementedError):
         ts.make_optimizer(1e-3, 0.01, 300, weight_decay=1e-4)
+
+
+def test_trainer_fused_loss_with_hull_runs_finite(tmp_path, capsys):
+    # the CLI path on the CPU: --use_fused_loss with the motion hull carved
+    # from a 10-phase SYNTH build (small volume projected with 40 samples per
+    # ray to keep the build short; 2 steps of 32 rays x 32 samples, 128-wide
+    # fields); both steps and the eval end finite
+    import json
+    import math
+    import os
+
+    from nerfca_tpu_torch.data.dataset import build_dataset
+    from nerfca_tpu_torch.train import run_composite
+    from nerfca_tpu_torch.train.config import parse_args
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    argv = [
+        "--config", os.path.join(repo, "configs", "synth-small.txt"), "--platform", "cpu",
+        "--use_pallas", "true", "--use_fused_loss", "true", "--use_motion_hull", "true",
+        "--hull_res", "16", "--synth_vol_size", "20", "--depth_samples_per_ray_coarse", "32",
+        "--img_sample_size", "32", "--static_num_filters", "128", "--temp_num_filters", "128",
+        "--n_iters", "1", "--display_every", "2", "--log_every", "1",
+        "--data_root", str(tmp_path / "data"), "--log_dir_root", str(tmp_path / "cases")]
+    build_dataset(parse_args(argv), str(tmp_path / "data"), projector_samples=40)
+    out = run_composite.main(argv)
+    assert "motion hull carved: res=16" in capsys.readouterr().out
+    assert out["setup"]["hull"] is not None and out["setup"]["hp"].use_fused_loss
+    with open(os.path.join(out["log_dir"], "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    train = [r for r in records if "train_loss" in r]
+    evals = [r for r in records if "test_image_psnr" in r]
+    assert len(train) == 2 and all(math.isfinite(r["train_loss"]) for r in train)
+    # the fused path's metric set: no static-TV entries, the real hull L1
+    assert "train_static_tv" not in train[0] and train[0]["train_hull_s_l1"] > 0
+    assert len(evals) == 1 and math.isfinite(evals[0]["test_image_psnr"])
