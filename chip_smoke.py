@@ -52,8 +52,9 @@ K2_REL = 2e-2    # per-leaf grads vs max(leaf scale, 1e-2 x global max), bench.p
 LOSS_REL = 1e-3  # loss and each K3 term: f32 sums over rays in another order (bench.py rule)
 
 # the card's peaks for the bound (NVIDIA H100 SXM data sheet, at 700 W)
-PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores: the kernels' FMAs
-PEAK_BYTES = 3.35e12    # HBM3
+PEAK_F32_FLOPS = 67e12    # f32 outside the tensor cores: K1's and the loss kernel's FMAs
+PEAK_TF32_FLOPS = 495e12  # TF32 on the tensor cores, dense: K2's mma.sync, 3 per f32 product
+PEAK_BYTES = 3.35e12      # HBM3
 
 
 def log(msg: str) -> None:
@@ -487,28 +488,38 @@ def field_macs(cfg) -> int:
 
 def bounds(shapes: dict) -> dict:
     """Least time (ms) the card could take for each kernel's work at this
-    run's shapes: max(bytes / HBM rate, f32 operations / f32 peak)."""
+    run's shapes, max(bytes / HBM rate, operations / peak), on the route the
+    kernel takes, with both routes beside it: f32 FMAs on the CUDA cores
+    (operations / 67 TFLOP/s) and 3xTF32 on the tensor cores (3 x operations
+    / 495 TFLOP/s: three TF32 products per f32 product)."""
     cfg_s, cfg_t = flagship_cfgs()
     r, s, n_par = shapes["n_rays"], shapes["n_samples"], shapes["param_floats"]
     n = r * s
     fwd = 2 * (field_macs(cfg_s) + field_macs(cfg_t)) * n  # forward flops
     ray_bytes = 4 * (6 * r + s + r)  # origins, directions, depths, phases
+    f32_s = lambda flops: flops / PEAK_F32_FLOPS
+    tc_s = lambda flops: 3 * flops / PEAK_TF32_FLOPS
     work = {
         # K1: the forward; reads rays and weights, writes two raw densities
-        "k1": (fwd, ray_bytes + 4 * n_par + 8 * n),
+        "k1": ("f32 FMA on the CUDA cores", fwd, f32_s(fwd), ray_bytes + 4 * n_par + 8 * n),
         # K2: its VJP, counted as 3x the forward (recompute, dW, dX); reads
         # rays, weights, the two cotangents, writes every gradient
-        "k2": (3 * fwd, ray_bytes + 8 * n_par + 8 * n),
-        # K3: forward + backward without recompute (3x the forward); the loss
-        # phase (~100 flops a sample) is left out; reads rays, per-ray data,
-        # weights and the gate, writes every gradient and the terms
-        "k3": (3 * fwd, ray_bytes + 12 * r + 4 * n + 8 * n_par + 64),
+        "k2": ("3xTF32 mma.sync on the tensor cores", 3 * fwd, tc_s(3 * fwd),
+               ray_bytes + 8 * n_par + 8 * n),
+        # K3: forward + backward without recompute (3x the forward); its loss
+        # kernel runs the forward in f32 FMAs, K2 the backward in 3xTF32; the
+        # loss phase (~100 flops a sample) is left out; reads rays, per-ray
+        # data, weights and the gate, writes every gradient and the terms
+        "k3": ("loss kernel f32 FMA on the CUDA cores, then K2 3xTF32 on the tensor cores",
+               3 * fwd, f32_s(fwd) + tc_s(2 * fwd), ray_bytes + 12 * r + 4 * n + 8 * n_par + 64),
     }
     out = {}
-    for k, (flops, nbytes) in work.items():
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-        out[k] = {"bound_ms": 1e3 * max(t_ops, t_bytes),
+    for k, (route, flops, t_ops, nbytes) in work.items():
+        t_bytes = nbytes / PEAK_BYTES
+        out[k] = {"route": route, "bound_ms": 1e3 * max(t_ops, t_bytes),
                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                  "bound_ms_f32_cuda_cores": 1e3 * max(f32_s(flops), t_bytes),
+                  "bound_ms_3xtf32_tensor_cores": 1e3 * max(tc_s(flops), t_bytes),
                   "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
     return out
 
@@ -539,8 +550,10 @@ def main() -> int:
     log(f"kernel build ({', '.join(built)}, in parallel): {time.perf_counter() - t0:.1f} s")
     for name, (_, out) in built.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    smem = build.load("fused_field").fused_field_smem_bytes
+    log(f"  shared memory per CTA: K1 {smem(0)} bytes, K2 {smem(1)} bytes")
 
     kc = check_kernels()
     log(f"K1 max abs err {kc['k1_err']:.3e} (limit {K1_ATOL}); "
@@ -605,6 +618,16 @@ def main() -> int:
     log(f"profile of 3 K3 steps ({card}): {json.dumps(prof)}")
 
     bd = bounds(kc["shapes"])
+    for k, b in bd.items():
+        log(f"{k.upper()} runs {b['route']}: bound {b['bound_ms']:.3f} ms ({b['bound_by']}); "
+            f"all f32 on the CUDA cores {b['bound_ms_f32_cuda_cores']:.3f} ms, all 3xTF32 on "
+            f"the tensor cores {b['bound_ms_3xtf32_tensor_cores']:.3f} ms")
+
+    def bound_keys(b):
+        return {"math": b["route"], "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "bound_ms_f32_cuda_cores": b["bound_ms_f32_cuda_cores"],
+                "bound_ms_3xtf32_tensor_cores": b["bound_ms_3xtf32_tensor_cores"]}
+
     launches = fp["launches"]
     kernels = [
         {"name": "fused_field_fwd (K1)", "route": "cuda",
@@ -612,7 +635,7 @@ def main() -> int:
          "replaces": "nerfca_tpu/ops/pallas/fused_field.py:527",
          "launches": launches["fused_field_fwd"], "max_abs_err": kc["k1_err"],
          "limit": f"abs {K1_ATOL}", "ms": kc["k1_ms"], "plain_ms": kc["k1_plain_ms"],
-         "bound_ms": bd["k1"]["bound_ms"], "bound_by": bd["k1"]["bound_by"],
+         **bound_keys(bd["k1"]),
          "library_ms": None},
         {"name": "fused_field_bwd (K2)", "route": "cuda",
          "source": "nerfca_tpu_torch/csrc/fused_field.cu",
@@ -620,7 +643,7 @@ def main() -> int:
          "launches": launches["fused_field_bwd"], "max_abs_err": kc["k2_err"],
          "max_err_of_leaf_scale": kc["k2_norm"], "limit": f"{K2_REL} of leaf scale",
          "ms": kc["k2_ms"], "plain_ms": kc["k2_plain_ms"],
-         "bound_ms": bd["k2"]["bound_ms"], "bound_by": bd["k2"]["bound_by"],
+         **bound_keys(bd["k2"]),
          "library_ms": None},
         {"name": "fused_train_loss + fused_field_bwd (K3)", "route": "cuda",
          "source": "nerfca_tpu_torch/csrc/fused_train.cu",
@@ -631,7 +654,7 @@ def main() -> int:
          "limit": f"loss and terms rel {LOSS_REL}, grads {K2_REL} of leaf scale",
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "loss_kernel_ms": k3["loss_kernel_ms"],
          "ms_hull": k3["ms_hull"], "plain_ms_hull": k3["plain_ms_hull"],
-         "bound_ms": bd["k3"]["bound_ms"], "bound_by": bd["k3"]["bound_by"],
+         **bound_keys(bd["k3"]),
          "library_ms": None},
     ]
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")

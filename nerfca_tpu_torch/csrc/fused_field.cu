@@ -18,14 +18,34 @@
 // What bounds them on this card: they are compute bound. Both fields cost
 // about 151.5k MAC per point (5 layers of 128x128 plus the input layer), so
 // a 512,000-point train step is ~155 GFLOP forward and ~3x that backward,
-// against a few bytes of HBM traffic per point. This first version runs the
-// MACs as f32 FMAs on the CUDA cores (exact f32 like the reference, no TF32)
-// and is limited by shared-memory load bandwidth: each warp owns 8 points x
-// 128 neurons and reads float4 activations (broadcast) and weight rows per
-// k-step. The design keeps every activation of a 64-point tile in shared
-// memory (K1) or in a per-CTA scratch that stays in L2 (K2 residuals), so
-// HBM only sees ray inputs, weights and outputs. Tensor-core (wgmma) tiles
-// are later work.
+// against a few bytes of HBM traffic per point.
+//
+// K1 runs its MACs as f32 FMAs on the CUDA cores (exact f32 like the
+// reference) and is limited by shared-memory load bandwidth: each warp owns
+// 8 points x 128 neurons and reads float4 activations (broadcast) and weight
+// rows per k-step; a 64-point tile and one layer's weight live in shared
+// memory.
+//
+// K2 runs its three products (the forward recompute, dX of the hidden
+// layers, dW of every layer) on the tensor cores with mma.sync in 3xTF32
+// (field_mma.cuh): three TF32 products per f32 product keep near-f32
+// accuracy, so its bound is 3 x 465.7 GFLOP at 495 TFLOP/s, ~2.8 ms at the
+// flagship step, against ~7 ms for f32 FMAs. The encoding, the output layer,
+// the bias sums and the latent cotangent stay on the CUDA cores in exact
+// f32. A tile is 128 points, which halves per point what K2 moves besides
+// the MACs: the weights (streamed from L2 through a two-chunk cp.async ring
+// that overlaps the next 64 rows' copy with the current ones' products)
+// and the read-modify-write of the CTA's gradient partial after each
+// layer. Residual activations go to a per-CTA scratch in global memory
+// (262 KB at the flagship widths), written and read back within one tile,
+// so no [points, 128] array per layer is ever stored. What bounds K2 is the
+// mma.sync rate: on the H100 a TF32 m16n8k8 issues about every 8 cycles
+// per SM sub-partition, half of what wgmma reaches, so the products alone
+// take ~6 ms; the encoding and the CUDA-core phases run at low occupancy
+// (8 warps per SM). wgmma, TMA and warp specialisation are later work.
+// The short loop for work on these kernels is chip_smoke.check_kernels()
+// on the card (build, errors and times at the flagship shapes);
+// scripts/k2_variants.py splits K2's time by phase.
 //
 // Determinism: K2 writes per-CTA gradient partials (each CTA owns its slice,
 // updated in program order by the same thread every time) and
@@ -42,6 +62,7 @@
 // roundings are kept identical to the plain version on purpose.
 
 #include "field_common.cuh"
+#include "field_mma.cuh"
 
 __global__ void __launch_bounds__(NTHREADS, 2)
 fwd_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, float* out_s, float* out_t) {
@@ -77,164 +98,418 @@ __host__ __device__ inline GradLayout grad_layout(const FieldArgs& f, int n_phas
   return g;
 }
 
-// part[k][n] += sum_p H[p][k] * D[p][n] for k < k_real; thread (kb, nb) owns
-// k = kc + 8kb + 0..7 and n = 4nb + 0..3, 64 + 4nb + 0..3.
-__device__ __forceinline__ void accumulate_dw(const float* H, const float* D, int k_real, float* part) {
-  const int kb = threadIdx.x >> 4, nb = threadIdx.x & 15;
-  for (int kc = 0; kc < round4(k_real); kc += WIDTH) {
-    const int k0 = kc + 8 * kb;
-    if (k0 >= round4(k_real)) continue;
-    float acc[8][8];
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-#pragma unroll
-      for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
-    for (int p = 0; p < TP; ++p) {
-      const float* hrow = H + p * LDH + k0;
-      const float* drow = D + p * LDW;
-      float h[8], d[8];
-      const float4 h0 = *reinterpret_cast<const float4*>(hrow);
-      // k0 + 4 may run past round4(k_real) only inside the zeroed padding
-      const float4 h1 = *reinterpret_cast<const float4*>(hrow + 4);
-      const float4 d0 = *reinterpret_cast<const float4*>(drow + 4 * nb);
-      const float4 d1 = *reinterpret_cast<const float4*>(drow + 64 + 4 * nb);
-      h[0] = h0.x; h[1] = h0.y; h[2] = h0.z; h[3] = h0.w;
-      h[4] = h1.x; h[5] = h1.y; h[6] = h1.z; h[7] = h1.w;
-      d[0] = d0.x; d[1] = d0.y; d[2] = d0.z; d[3] = d0.w;
-      d[4] = d1.x; d[5] = d1.y; d[6] = d1.z; d[7] = d1.w;
-#pragma unroll
-      for (int a = 0; a < 8; ++a)
-#pragma unroll
-        for (int b = 0; b < 8; ++b) acc[a][b] = fmaf(h[a], d[b], acc[a][b]);
-    }
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const int k = k0 + a;
-      if (k >= k_real) break;
-      float4* dst0 = reinterpret_cast<float4*>(part + (long)k * WIDTH + 4 * nb);
-      float4* dst1 = reinterpret_cast<float4*>(part + (long)k * WIDTH + 64 + 4 * nb);
-      float4 v0 = *dst0, v1 = *dst1;
-      v0.x += acc[a][0]; v0.y += acc[a][1]; v0.z += acc[a][2]; v0.w += acc[a][3];
-      v1.x += acc[a][4]; v1.y += acc[a][5]; v1.z += acc[a][6]; v1.w += acc[a][7];
-      *dst0 = v0;
-      *dst1 = v1;
+// ---------------------------------------------------------------------------
+// K2 on the tensor cores. One CTA of 8 warps walks its tiles of BTP points
+// for one field (even CTAs the static field, odd ones the temporal field);
+// per tile it recomputes the forward, storing the residuals in its scratch,
+// then backpropagates. The three products run as 3xTF32 mma.sync
+// (field_mma.cuh), warp w owning a 32 x 64 block of each:
+//   forward  acc[p][n]  = bias[n] + sum_k H[p][k] W[k][n]     (points x outputs)
+//   dX       dh[p][k]   = sum_n D[p][n] W[k][n]               (points x inputs)
+//   dW       dW[k][n]  += sum_p H[p][k] D[p][n]               (inputs x outputs)
+// Each layer's weight streams through a ring of two 64-row chunks (see
+// WeightRing), and each layer's input comes back from the scratch with
+// cp.async while the layer above runs its dX.
+//
+// Strides (floats): LDH = 140 (12 mod 32), LDD = LDW = 132 (4 mod 32). The
+// fragment loads are then conflict-free except the forward's A (H[p][k],
+// k in PAIR order, 2-way): forward B W[k][n] and dW's A H[p][k], B D[p][n]
+// read k or p strided and take the PAIR order; dX's A D[p][n] and B W[k][n]
+// read n along a row and take the plain order.
+
+#define BTP 128              // K2 points per tile
+#define MT (BTP / 64)        // 16-point m-tiles per warp along the points
+#define LDD 132              // cotangent row stride in floats
+#define WCH 64               // weight rows per streamed chunk
+
+__device__ __forceinline__ int round8(int k) { return (k + 7) & ~7; }
+
+// The weight chunks of one field in the order K2 consumes them: the input
+// layer in 64-row chunks (rows past k0 zero), each hidden layer's two halves
+// for the forward, then the hidden layers again, last to first, for dX.
+// Chunk i lives in buffer i & 1. The forward takes one chunk at a time and
+// copies the next while it computes; dX takes a layer's two halves at once,
+// and the next layer's pair is copied while dW and db run.
+struct WeightRing {
+  float* buf;  // [2][WCH][LDW]
+  int n_in;    // chunks of the input layer
+  int total;
+  int next;    // chunk to compute next
+  int issued;  // chunks whose copy has started
+};
+
+// Starts the copy of chunk i into its buffer (not committed).
+__device__ __forceinline__ void ring_copy(const FieldArgs& f, const WeightRing& w, int i) {
+  const float* src;
+  int rows = WCH;
+  if (i < w.n_in) {
+    src = f.w0 + (long)WCH * i * WIDTH;
+    rows = min(WCH, f.enc + f.n_lat - WCH * i);
+  } else {
+    const int j = i - w.n_in;
+    const int layer = j < 2 * f.n_hidden ? j / 2 : 2 * f.n_hidden - 1 - j / 2;
+    src = f.wh + (long)layer * WIDTH * WIDTH + (long)(j & 1) * WCH * WIDTH;
+  }
+  float* dst = w.buf + (i & 1) * WCH * LDW;
+  for (int q = threadIdx.x; q < WCH * (WIDTH / 4); q += NTHREADS) {
+    const int row = q / (WIDTH / 4), c4 = q - row * (WIDTH / 4);
+    float* d = dst + row * LDW + 4 * c4;
+    if (row < rows) {
+      cp_async16(d, src + (long)row * WIDTH + 4 * c4);
+    } else {
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 }
 
-// part[n] += sum_p D[p][n] (points in order).
+// Starts a field's sequence; the ring and every buffer must be free.
+__device__ __forceinline__ WeightRing ring_begin(const FieldArgs& f, float* buf) {
+  WeightRing w;
+  w.buf = buf;
+  w.n_in = (round8(f.enc + f.n_lat) + WCH - 1) / WCH;
+  w.total = w.n_in + 4 * f.n_hidden;
+  w.next = 0;
+  w.issued = 1;
+  __syncthreads();
+  ring_copy(f, w, 0);
+  cp_async_commit();
+  return w;
+}
+
+// Forward: waits for chunk next (the only copy in flight), starts the copy
+// of the one after it into the buffer every warp has just finished with,
+// and returns chunk next.
+__device__ __forceinline__ const float* ring_acquire(const FieldArgs& f, WeightRing& w) {
+  cp_async_wait<0>();
+  __syncthreads();
+  const int i = w.next++;
+  if (w.issued < w.total) ring_copy(f, w, w.issued++);
+  cp_async_commit();
+  return w.buf + (i & 1) * WCH * LDW;
+}
+
+// dX: waits for every copy in flight; chunks next and next + 1 (a layer's
+// two halves) are then in the buffers. Returns next.
+__device__ __forceinline__ int ring_acquire_pair(WeightRing& w) {
+  cp_async_wait<0>();
+  __syncthreads();
+  w.next += 2;
+  return w.next - 2;
+}
+
+// Starts the copies of chunks next and next + 1 not started yet, as exactly
+// two commit groups (empty past the end); every warp must be done with the
+// buffers they go to.
+__device__ __forceinline__ void ring_top_up(const FieldArgs& f, WeightRing& w) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    if (w.issued < min(w.next + 2, w.total)) ring_copy(f, w, w.issued++);
+    cp_async_commit();
+  }
+}
+
+// acc = bias + H[:, :k_pad] W for this warp's MT x 16 points and 64 outputs,
+// the weight taken chunk by chunk from the ring.
+__device__ __forceinline__ void mma_layer_fwd(const FieldArgs& f, WeightRing& ring,
+                                              const float* H, const float* bias, int k_pad,
+                                              float (&acc)[MT][8][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int row0 = (BTP / 4) * (warp & 3), col0 = 64 * (warp >> 2);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float b0 = bias[col0 + 8 * j + 2 * t], b1 = bias[col0 + 8 * j + 2 * t + 1];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      acc[i][j][0] = b0; acc[i][j][1] = b1; acc[i][j][2] = b0; acc[i][j][3] = b1;
+    }
+  }
+  for (int kc = 0; kc < k_pad; kc += WCH) {
+    const float* W = ring_acquire(f, ring);
+    const int kn = min(WCH, k_pad - kc);
+#pragma unroll 2
+    for (int kk = 0; kk < kn; kk += 8) {
+      FragA a[MT];
+      FragB b[8];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) a[i] = load_a<true>(H + (row0 + 16 * i) * LDH + kc + kk, LDH, 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = load_b<true>(W + kk * LDW + col0 + 8 * j, LDW, 1);
+      mma_3xtf32(acc, a, b);
+    }
+  }
+}
+
+// dst[p][n] = relu(acc) for this warp's block (row stride ld).
+__device__ __forceinline__ void store_relu_frag(float* dst, int ld, const float acc[MT][8][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = (BTP / 4) * (warp & 3), col0 = 64 * (warp >> 2);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float* d = dst + (long)(row0 + 16 * i + g) * ld + col0 + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(d) =
+          make_float2(fmaxf(acc[i][j][0], 0.f), fmaxf(acc[i][j][1], 0.f));
+      *reinterpret_cast<float2*>(d + 8 * ld) =
+          make_float2(fmaxf(acc[i][j][2], 0.f), fmaxf(acc[i][j][3], 0.f));
+    }
+}
+
+// Forward of one field on the tile at tile0. On return D holds h_L, H the
+// input of the last layer (for the first backward layer), g_sm the tile's
+// cotangents, and the scratch the encoded input ([BTP][LDH]) and the input
+// of every hidden layer but the last ((n_hidden - 1) x [BTP][WIDTH]).
+__device__ __forceinline__ void k2_forward(const FieldArgs& f, const RayArgs& r, const float* g,
+                                           long tile0, WeightRing& ring, float* H, float* D,
+                                           int* phase_sm, float* g_sm, float* scratch) {
+  const long n_pts = (long)r.n_rays * r.n_samples;
+  for (int p = threadIdx.x; p < BTP; p += NTHREADS) {
+    const long i = tile0 + p;
+    g_sm[p] = i < n_pts ? g[i] : 0.f;
+  }
+  encode_tile(f, r, tile0, H, phase_sm);
+  encode_tile(f, r, tile0 + TP, H + TP * LDH, phase_sm + TP);
+  const int k0 = f.enc + f.n_lat, k4 = round4(k0), k_pad = round8(k0);
+  // the mma steps are 8 deep: zero the columns encode_tile leaves
+  for (int t = threadIdx.x; t < BTP * (k_pad - k4); t += NTHREADS) {
+    const int p = t / (k_pad - k4);
+    H[p * LDH + k4 + t - p * (k_pad - k4)] = 0.f;
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < BTP * (k_pad / 4); t += NTHREADS) {
+    const int p = t / (k_pad / 4), q = t - p * (k_pad / 4);
+    *reinterpret_cast<float4*>(scratch + p * LDH + 4 * q) =
+        *reinterpret_cast<const float4*>(H + p * LDH + 4 * q);
+  }
+  float acc[MT][8][4];
+  mma_layer_fwd(f, ring, H, f.b0, k_pad, acc);
+  for (int l = 0; l < f.n_hidden; ++l) {
+    __syncthreads();  // every read of H is done
+    store_relu_frag(H, LDH, acc);
+    if (l + 1 < f.n_hidden)  // the last hidden layer's input stays in H
+      store_relu_frag(scratch + BTP * LDH + (long)l * BTP * WIDTH, WIDTH, acc);
+    mma_layer_fwd(f, ring, H, f.bh + l * WIDTH, WIDTH, acc);
+  }
+  store_relu_frag(D, LDD, acc);  // D's last reader was behind a barrier
+}
+
+// part[k][n] += sum_p H[p][k] D[p][n] for k < k_real (k_pad rounds k_real
+// up to 8); warp w owns k in kc + 32 (w & 3) + 0..31, n in 64 (w >> 2) + 0..63.
+// The partial is loaded into the accumulators before the products, so its
+// round trip overlaps them.
+__device__ __forceinline__ void mma_accumulate_dw(const float* H, const float* D, int k_real,
+                                                  int k_pad, float* part) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int col0 = 64 * (warp >> 2);
+  for (int kc = 0; kc < k_pad; kc += WIDTH) {
+    const int m0 = kc + 32 * (warp & 3);
+    if (m0 >= k_pad) continue;
+    float acc[2][8][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = m0 + 16 * i + 8 * h + g;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float2 v = make_float2(0.f, 0.f);
+          if (k < k_real)
+            v = *reinterpret_cast<const float2*>(part + (long)k * WIDTH + col0 + 8 * j + 2 * t);
+          acc[i][j][2 * h] = v.x;
+          acc[i][j][2 * h + 1] = v.y;
+        }
+      }
+#pragma unroll 2
+    for (int p = 0; p < BTP; p += 8) {
+      // rows of the second m-tile past k_pad read other columns of H (or
+      // the start of D); their sums are never stored
+      FragA a[2];
+      FragB b[8];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) a[i] = load_a<true>(H + p * LDH + m0 + 16 * i, 1, LDH);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = load_b<true>(D + p * LDD + col0 + 8 * j, LDD, 1);
+      mma_3xtf32(acc, a, b);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = m0 + 16 * i + 8 * h + g;
+        if (k >= k_real) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<float2*>(part + (long)k * WIDTH + col0 + 8 * j + 2 * t) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+  }
+}
+
+// part[n] += sum_p D[p][n], as four interleaved partial sums in point order
+// (a fixed order; four chains instead of one long one).
 __device__ __forceinline__ void accumulate_db(const float* D, float* part) {
   if (threadIdx.x < WIDTH) {
-    float s = 0.f;
-    for (int p = 0; p < TP; ++p) s += D[p * LDW + threadIdx.x];
-    part[threadIdx.x] += s;
+    const float old = part[threadIdx.x];
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+    for (int p = 0; p < BTP; ++p) s[p & 3] += D[p * LDD + threadIdx.x];
+    part[threadIdx.x] = old + ((s[0] + s[1]) + (s[2] + s[3]));
   }
 }
 
-// Backward of one field on one tile (after field_forward with scratch).
-// D (row stride LDW) holds the pre-activation cotangent of the current layer.
-__device__ __forceinline__ void field_backward(const FieldArgs& f, const float acc_last[8][4],
-                               const float* g, long tile0, long n_pts, int n_phases,
-                               float* H, float* D, float* Ws, const int* phase_sm,
-                               float* g_sm, float* dlat_sm, const float* scratch,
-                               float* part, float* lat_acc) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+// acc = D W^T for this warp's MT x 16 points and the 64 inputs of W, the
+// layer's half that holds them (64 (w >> 2) + 0..63).
+__device__ __forceinline__ void mma_dx(const float* D, const float* W, float (&acc)[MT][8][4]) {
+  const int row0 = (BTP / 4) * ((threadIdx.x >> 5) & 3);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+#pragma unroll 2
+  for (int n = 0; n < WIDTH; n += 8) {
+    FragA a[MT];
+    FragB b[8];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) a[i] = load_a<false>(D + (row0 + 16 * i) * LDD + n, LDD, 1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) b[j] = load_b<false>(W + 8 * j * LDW + n, 1, LDW);
+    mma_3xtf32(acc, a, b);
+  }
+}
+
+// H <- the input of layer l from the scratch, with cp.async (committed, not
+// waited for).
+__device__ __forceinline__ void prefetch_layer_input(const FieldArgs& f, const float* scratch,
+                                                     int l, float* H) {
+  const int k_pad = l > 0 ? WIDTH : round8(f.enc + f.n_lat);
+  const float* src = l > 0 ? scratch + BTP * LDH + (long)(l - 1) * BTP * WIDTH : scratch;
+  const int ld_src = l > 0 ? WIDTH : LDH;
+  for (int q = threadIdx.x; q < BTP * (k_pad / 4); q += NTHREADS) {
+    const int p = q / (k_pad / 4), c = q - p * (k_pad / 4);
+    cp_async16(H + p * LDH + 4 * c, src + (long)p * ld_src + 4 * c);
+  }
+  cp_async_commit();
+}
+
+// Backward of one field on one tile, after k2_forward. Layer l's input is
+// in H when its step starts: the forward leaves the last layer's there, and
+// each dX step copies the next one in while its products run.
+__device__ __forceinline__ void k2_backward(const FieldArgs& f, WeightRing& ring, int n_phases,
+                                            float* H, float* D, const int* phase_sm,
+                                            const float* g_sm, float* dlat_sm,
+                                            const float* scratch, float* part, float* lat_acc) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gi = lane >> 2, t = lane & 3;
   const GradLayout L = grad_layout(f, n_phases);
   const int k0 = f.enc + f.n_lat;
   __syncthreads();
-  for (int t = threadIdx.x; t < TP; t += NTHREADS) {
-    const long i = tile0 + t;
-    g_sm[t] = i < n_pts ? g[i] : 0.f;
-  }
-  store_relu(H, LDH, acc_last);  // h_L
-  __syncthreads();
-  // output layer: dwo[n] = sum_p g[p] h_L[p][n], dbo = sum_p g[p]
+  ring_top_up(f, ring);  // the last layer's second half
+  // output layer on the CUDA cores: dwo[n] = sum_p g[p] h_L[p][n], dbo = sum_p g[p]
+  // (each partial is read before its loop, so the load overlaps the sums)
   if (threadIdx.x < WIDTH) {
-    float s = 0.f;
-    for (int p = 0; p < TP; ++p) s = fmaf(g_sm[p], H[p * LDH + threadIdx.x], s);
-    part[L.wo + threadIdx.x] += s;
+    const float old = part[L.wo + threadIdx.x];
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+    for (int p = 0; p < BTP; ++p) s[p & 3] = fmaf(g_sm[p], D[p * LDD + threadIdx.x], s[p & 3]);
+    part[L.wo + threadIdx.x] = old + ((s[0] + s[1]) + (s[2] + s[3]));
   } else if (threadIdx.x == WIDTH) {
+    const float old = part[L.bo];
     float s = 0.f;
-    for (int p = 0; p < TP; ++p) s += g_sm[p];
-    part[L.bo] += s;
+    for (int p = 0; p < BTP; ++p) s += g_sm[p];
+    part[L.bo] = old + s;
   }
-  // dpre_L[p][n] = wo[n] g[p] (h_L > 0)
-  for (int t = threadIdx.x; t < TP * WIDTH; t += NTHREADS) {
-    const int p = t / WIDTH, n = t - p * WIDTH;
-    D[p * LDW + n] = H[p * LDH + n] > 0.f ? __fmul_rn(f.wo[n], g_sm[p]) : 0.f;
+  __syncthreads();
+  {
+    // dpre_L[p][n] = wo[n] g[p] (h_L > 0), in place; a thread keeps one n
+    const int n = threadIdx.x & (WIDTH - 1);
+    const float wo = f.wo[n];
+#pragma unroll 8
+    for (int p = threadIdx.x / WIDTH; p < BTP; p += NTHREADS / WIDTH) {
+      float* d = D + p * LDD + n;
+      *d = *d > 0.f ? __fmul_rn(wo, g_sm[p]) : 0.f;
+    }
   }
+  float* lat_w = ring.buf;  // the latent rows of w0 (row stride LDW), staged once the ring is idle
   for (int l = f.n_hidden; l >= 0; --l) {
+    cp_async_wait<2>();  // H's copy; the next layer's weight may still be in flight
     __syncthreads();
-    // H <- input of layer l, Ws <- its weight
-    const int k_real = l > 0 ? WIDTH : k0;
-    const int k_pad = round4(k_real);
-    const float* src = l > 0 ? scratch + TP * LDH + (long)(l - 1) * TP * WIDTH : scratch;
-    const int ld_src = l > 0 ? WIDTH : LDH;
-    for (int t = threadIdx.x; t < TP * (k_pad / 4); t += NTHREADS) {
-      const int p = t / (k_pad / 4), q = t - p * (k_pad / 4);
-      *reinterpret_cast<float4*>(H + p * LDH + 4 * q) =
-          *reinterpret_cast<const float4*>(src + (long)p * ld_src + 4 * q);
+    if (l == 0 && f.n_lat > 0) {
+      for (int q = threadIdx.x; q < f.n_lat * (WIDTH / 4); q += NTHREADS)
+        cp_async16(lat_w + (q / (WIDTH / 4)) * LDW + 4 * (q % (WIDTH / 4)),
+                   f.w0 + (long)f.enc * WIDTH + 4 * q);
+      cp_async_commit();
     }
-    if (l > 0) {
-      load_weights(Ws, f.wh + (long)(l - 1) * WIDTH * WIDTH, WIDTH, WIDTH);
-    } else {
-      load_weights(Ws, f.w0, k0, k_pad);
-    }
-    __syncthreads();
-    accumulate_dw(H, D, k_real,
-                  part + (l > 0 ? L.wh + (long)(l - 1) * WIDTH * WIDTH : L.w0));
+    mma_accumulate_dw(H, D, l > 0 ? WIDTH : k0, l > 0 ? WIDTH : round8(k0),
+                      part + (l > 0 ? L.wh + (long)(l - 1) * WIDTH * WIDTH : L.w0));
     accumulate_db(D, part + (l > 0 ? L.bh + (long)(l - 1) * WIDTH : L.b0));
     if (l > 0) {
-      // dh[p][k] = sum_n D[p][n] Ws[k][n]; dpre_{l-1} = dh (h_{l-1} > 0)
-      float acc[8][4];
+      // dh = D W_l^T; dpre_{l-1} = dh (h_{l-1} > 0). The ReLU mask is read
+      // before H takes the next layer's input.
+      const int row0 = (BTP / 4) * (warp & 3), col0 = WCH * (warp >> 2);
+      uint32_t mask[MT] = {};
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      const float* dp = D + (warp * 8) * LDW;
-      for (int n = 0; n < WIDTH; n += 4) {
-        float4 d[8], w[4];
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int i = 0; i < 8; ++i) d[i] = *reinterpret_cast<const float4*>(dp + i * LDW + n);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          w[j] = *reinterpret_cast<const float4*>(Ws + (lane + 32 * j) * LDW + n);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc[i][j] = fmaf(d[i].x, w[j].x, acc[i][j]);
-            acc[i][j] = fmaf(d[i].y, w[j].y, acc[i][j]);
-            acc[i][j] = fmaf(d[i].z, w[j].z, acc[i][j]);
-            acc[i][j] = fmaf(d[i].w, w[j].w, acc[i][j]);
+          for (int h = 0; h < 2; ++h) {
+            const int p = row0 + 16 * i + 8 * h + gi, k = col0 + 8 * j + 2 * t;
+            const float2 hv = *reinterpret_cast<const float2*>(H + p * LDH + k);
+            const int bit = 2 * (2 * j + h);
+            mask[i] |= (hv.x > 0.f ? 1u : 0u) << bit;
+            mask[i] |= (hv.y > 0.f ? 1u : 0u) << (bit + 1);
           }
-      }
+      const int c = ring_acquire_pair(ring);  // after its barrier H is free
+      prefetch_layer_input(f, scratch, l - 1, H);
+      float acc[MT][8][4];
+      mma_dx(D, ring.buf + ((c + (warp >> 2)) & 1) * WCH * LDW, acc);
+      __syncthreads();  // every read of D and of the ring is done
+      ring_top_up(f, ring);
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (!(H[(warp * 8 + i) * LDH + lane + 32 * j] > 0.f)) acc[i][j] = 0.f;
-      __syncthreads();  // every read of D is done
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) D[(warp * 8 + i) * LDW + lane + 32 * j] = acc[i][j];
+          for (int h = 0; h < 2; ++h) {
+            const int p = row0 + 16 * i + 8 * h + gi, k = col0 + 8 * j + 2 * t;
+            const int bit = 2 * (2 * j + h);
+            *reinterpret_cast<float2*>(D + p * LDD + k) =
+                make_float2((mask[i] >> bit) & 1u ? acc[i][j][2 * h] : 0.f,
+                            (mask[i] >> (bit + 1)) & 1u ? acc[i][j][2 * h + 1] : 0.f);
+          }
     } else if (f.n_lat > 0) {
-      // per-point latent cotangent, then per-phase sums in point order
-      for (int t = threadIdx.x; t < TP * f.n_lat; t += NTHREADS) {
-        const int p = t / f.n_lat, j = t - p * f.n_lat;
-        const float* drow = D + p * LDW;
-        const float* wrow = Ws + (f.enc + j) * LDW;
-        float s = 0.f;
-        for (int n = 0; n < WIDTH; ++n) s = fmaf(drow[n], wrow[n], s);
-        dlat_sm[p * MAX_LAT + j] = s;
+      // per-point latent cotangent on the CUDA cores, each a sum over n in
+      // order; a thread runs four points at once. Then per-phase sums in
+      // point order.
+      cp_async_wait<0>();
+      __syncthreads();
+      const int n_items = BTP * f.n_lat;
+      for (int q0 = threadIdx.x; q0 < n_items; q0 += 4 * NTHREADS) {
+        int p[4], j[4];
+        float s[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int q = min(q0 + u * NTHREADS, n_items - 1);
+          p[u] = q / f.n_lat;
+          j[u] = q - p[u] * f.n_lat;
+          s[u] = 0.f;
+        }
+#pragma unroll 4
+        for (int n = 0; n < WIDTH; ++n)
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            s[u] = fmaf(D[p[u] * LDD + n], lat_w[j[u] * LDW + n], s[u]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (q0 + u * NTHREADS < n_items) dlat_sm[p[u] * MAX_LAT + j[u]] = s[u];
       }
       __syncthreads();
       if (threadIdx.x < n_phases * f.n_lat) {
-        const int ph = threadIdx.x / f.n_lat, j = threadIdx.x - ph * f.n_lat;
+        const int ph = threadIdx.x / f.n_lat, jj = threadIdx.x - ph * f.n_lat;
         float s = 0.f;
-        for (int p = 0; p < TP; ++p)
-          if (phase_sm[p] == ph) s += dlat_sm[p * MAX_LAT + j];
+        for (int pp = 0; pp < BTP; ++pp)
+          if (phase_sm[pp] == ph) s += dlat_sm[pp * MAX_LAT + jj];
         *lat_acc += s;
       }
     }
@@ -246,31 +521,30 @@ bwd_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, const float* g_s, const float*
            float* partials, long part_stride, float* scratch_all, long scratch_stride) {
   extern __shared__ float4 smem4[];
   float* H = reinterpret_cast<float*>(smem4);
-  float* D = H + TP * LDH;
-  float* Ws = D + TP * LDW;
-  float* g_sm = Ws + KMAX * LDW;
-  float* dlat_sm = g_sm + TP;
-  int* phase_sm = reinterpret_cast<int*>(dlat_sm + TP * MAX_LAT);
+  float* D = H + BTP * LDH;
+  float* ring_buf = D + BTP * LDD;
+  float* g_sm = ring_buf + 2 * WCH * LDW;
+  float* dlat_sm = g_sm + BTP;
+  int* phase_sm = reinterpret_cast<int*>(dlat_sm + BTP * MAX_LAT);
   const long n_pts = (long)r.n_rays * r.n_samples;
-  const long n_tiles = (n_pts + TP - 1) / TP;
+  const long n_tiles = (n_pts + BTP - 1) / BTP;
   float* part = partials + blockIdx.x * part_stride;
   float* scratch = scratch_all + blockIdx.x * scratch_stride;
-  const GradLayout Ls = grad_layout(fs, r.n_phases);
-  const GradLayout Lt = grad_layout(ft, r.n_phases);
+  // even CTAs take the static field, odd ones the temporal field, so a
+  // CTA's live gradient partial is one field's (~300 KB at the flagship
+  // widths, ~40 MB over 132 CTAs, against the 50 MB L2)
+  const bool temporal = blockIdx.x & 1;
+  const FieldArgs& f = temporal ? ft : fs;
+  const float* g = temporal ? g_t : g_s;
+  float* fpart = part + (temporal ? grad_layout(fs, r.n_phases).size : 0);
   float lat_acc = 0.f;
-  float dummy = 0.f;
-  for (long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long tile0 = tile * TP;
-    float acc[8][4];
-    field_forward(fs, r, tile0, H, Ws, phase_sm, acc, scratch);
-    field_backward(fs, acc, g_s, tile0, n_pts, r.n_phases, H, D, Ws, phase_sm, g_sm,
-                   dlat_sm, scratch, part, &dummy);
-    field_forward(ft, r, tile0, H, Ws, phase_sm, acc, scratch);
-    field_backward(ft, acc, g_t, tile0, n_pts, r.n_phases, H, D, Ws, phase_sm, g_sm,
-                   dlat_sm, scratch, part + Ls.size, &lat_acc);
+  for (long tile = blockIdx.x >> 1; tile < n_tiles; tile += gridDim.x >> 1) {
+    WeightRing ring = ring_begin(f, ring_buf);
+    k2_forward(f, r, g, tile * BTP, ring, H, D, phase_sm, g_sm, scratch);
+    k2_backward(f, ring, r.n_phases, H, D, phase_sm, g_sm, dlat_sm, scratch, fpart, &lat_acc);
   }
-  if (ft.n_lat > 0 && threadIdx.x < r.n_phases * ft.n_lat)
-    part[Ls.size + Lt.lat + threadIdx.x] += lat_acc;
+  if (f.n_lat > 0 && threadIdx.x < r.n_phases * f.n_lat)
+    fpart[grad_layout(f, r.n_phases).lat + threadIdx.x] += lat_acc;
 }
 
 // out[i] = sum over CTAs b (in order) of partials[b][i].
@@ -283,12 +557,16 @@ __global__ void reduce_kernel(const float* partials, long part_stride, int n_par
   out[i] = s;
 }
 
+// H, D, the weight ring, g_sm, dlat_sm, phase_sm: 211,968 bytes of the 232,448 a block may use
 static const int BWD_SMEM =
-    (TP * LDH + TP * LDW + KMAX * LDW + TP + TP * MAX_LAT) * 4 + TP * 4;
+    (BTP * LDH + BTP * LDD + 2 * WCH * LDW + BTP + BTP * MAX_LAT) * 4 + BTP * 4;
 
 extern "C" {
 
 int fused_field_smem_bytes(int which) { return which == 0 ? FWD_SMEM : BWD_SMEM; }
+
+// Points per K2 tile (the wrapper sizes the residual scratch with it).
+int fused_field_bwd_tile_points() { return BTP; }
 
 // Floats in one CTA's gradient partial (static block, then temporal block).
 long fused_field_grad_size(const FieldArgs* fs, const FieldArgs* ft, int n_phases) {

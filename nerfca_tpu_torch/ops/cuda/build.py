@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-HEADERS = ("field_common.cuh",)
+HEADERS = ("field_common.cuh", "field_mma.cuh")
 LIBRARIES = ("fused_field", "fused_train")
 # per-library nvcc flags: the loss kernel keeps multiply and add separate
 # (no FMA contraction) so its arithmetic matches the plain version's

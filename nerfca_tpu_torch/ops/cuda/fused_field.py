@@ -4,12 +4,13 @@
 K1 ``fused_field_fwd`` replaces ``nerfca_tpu/ops/pallas/fused_field.py::
 _fwd_kernel`` and K2 ``fused_field_bwd`` replaces ``::_bwd_kernel``, the
 custom VJP of K1. Both live in ``nerfca_tpu_torch/csrc/fused_field.cu``;
-the source note there says what bounds them on the H100 (f32 FMA work on
-the CUDA cores, fed from shared memory) and how the design keeps every
-activation out of HBM. The kernels take the ray form (origins, directions,
-per-ray or shared depths, per-ray phases, the latent table) and build
-points and latents themselves, so no ``[R*S, 3]`` or ``[N, 8]`` array is
-ever materialized.
+the source note there says what bounds them on the H100 and how the
+design keeps every activation out of HBM. K1 runs f32 FMAs on the CUDA
+cores over 64-point tiles; K2 runs its matrix products on the tensor cores
+in 3xTF32 (``mma.sync``, ``csrc/field_mma.cuh``) over 128-point tiles. The
+kernels take the ray form (origins, directions, per-ray or shared depths,
+per-ray phases, the latent table) and build points and latents themselves,
+so no ``[R*S, 3]`` or ``[N, 8]`` array is ever materialized.
 
 Dispatch: a CPU tensor takes :func:`plain_composite_fields_rays` (encode +
 MLP in torch, gradients from autograd); a CUDA tensor launches the kernels
@@ -35,8 +36,8 @@ from nerfca_tpu_torch.models.fields import (
 from nerfca_tpu_torch.ops.cuda import build
 
 WIDTH = 128
-TILE_POINTS = 64  # TP in the source
 ROW_STRIDE = 140  # LDH in the source
+BWD_TILE_POINTS = 128  # BTP in the source: K2's tile (K1 and the loss kernel use 64)
 MAX_ENCODED = 128
 MAX_LAT = 8
 MAX_PHASES = 16
@@ -120,6 +121,9 @@ def _lib() -> ctypes.CDLL:
         lib.fused_field_bwd.restype = ctypes.c_int
         lib.fused_field_grad_size.argtypes = [ptr(FieldArgs), ptr(FieldArgs), ctypes.c_int]
         lib.fused_field_grad_size.restype = ctypes.c_long
+        lib.fused_field_bwd_tile_points.restype = ctypes.c_int
+        if lib.fused_field_bwd_tile_points() != BWD_TILE_POINTS:
+            raise RuntimeError("K2's tile differs between the wrapper and the kernel")
         _LIB = lib
     return _LIB
 
@@ -236,10 +240,13 @@ def fused_field_bwd(pack_s: _Pack, pack_t: _Pack, origins, directions, z, phases
     if lib.fused_field_grad_size(ctypes.byref(pack_s.args), ctypes.byref(pack_t.args),
                                  n_phases) != size:
         raise RuntimeError("gradient layout differs between the wrapper and the kernel")
-    n_tiles = -(-origins.shape[0] * z.shape[-1] // TILE_POINTS)
-    n_ctas = max(1, min(BWD_CTAS, n_tiles))
+    n_tiles = -(-origins.shape[0] * z.shape[-1] // BWD_TILE_POINTS)
+    # an even count: even CTAs take the static field, odd ones the temporal
+    n_ctas = max(2, min(BWD_CTAS, 2 * n_tiles))
     n_hidden = max(pack_s.cfg.num_early_layers, pack_t.cfg.num_early_layers)
-    scratch_stride = TILE_POINTS * ROW_STRIDE + n_hidden * TILE_POINTS * WIDTH
+    # residuals of one tile: the encoded input, then the input of each hidden
+    # layer but the last (which stays in shared memory)
+    scratch_stride = BWD_TILE_POINTS * (ROW_STRIDE + max(n_hidden - 1, 0) * WIDTH)
     partials = torch.empty(n_ctas * size, device=dev)
     scratch = torch.empty(n_ctas * scratch_stride, device=dev)
     grads = torch.empty(size, device=dev)

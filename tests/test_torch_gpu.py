@@ -92,7 +92,17 @@ def test_kernels_match_plain_shared_depths(dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("enc,basis,layers", [("none", 0, 1), ("nerfies_windowed", 5, 2),
+@pytest.mark.parametrize("shared_z", [False, True])
+@pytest.mark.parametrize("r,s,rem", [(3, 43, 1), (3, 64, 64), (5, 51, 127), (2, 50, 100)])
+def test_kernels_match_plain_at_tile_edges(dev, shared_z, r, s, rem):
+    # K2's last tile holds 1, half a tile, all but one point, or the whole
+    # batch is smaller than one tile
+    assert (r * s) % ff.BWD_TILE_POINTS == rem
+    check(*make(dev, r=r, s=s, shared_z=shared_z))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("enc,basis,layers",[("none", 0, 1), ("nerfies_windowed", 5, 2),
                                               ("free_windowed", 20, 0)])
 def test_kernels_match_plain_other_configs(dev, enc, basis, layers):
     # basis 20: 3 + 120 encoded + 8 latent rows = 131 > 128, the second
