@@ -9,8 +9,9 @@
 3. holds each kernel against its plain PyTorch version at the flagship
    shapes (1024 rays x 500 samples, two 4x128 fields, basis 12, 8-d
    latents, every band open) and times both with CUDA events: K1 and K2,
-   then K3 (``fused_train_loss_and_grads``) without and with a random
-   motion-hull gate that leaves some rays empty;
+   then K3 (``fused_train_loss_and_grads``: K1, the loss kernel, K2)
+   without and with a random motion-hull gate that leaves some rays empty,
+   and K3's forward and loss phase apart;
 4. drives the main paths through ``nerfca_tpu_torch.train.run_composite.main``
    on ``configs/composite.txt``, each with the launch counts set to 0 just
    before and read just after:
@@ -18,10 +19,12 @@
       dataset on the card, 6 train steps, one eval view; K1 and K2 must run
       in training and K1 in the eval render;
    b. the fused-loss step (``--use_fused_loss true``) on that dataset: 6
-      steps and one eval view; K3 and K2 must run on every step, K1 in the
-      eval;
-   c. the same with ``--use_motion_hull true``: the hull is carved from the
-      run's variance maps, 3 gated K3 steps and one gated eval view;
+      steps and one eval view; K1, the loss kernel and K2 must run once on
+      every step, K1 in the eval;
+   c. the same with ``--use_motion_hull true`` on the clean-protocol SYNTH
+      phantom (``SYNTH-FOVHC`` at 96^3, the vessel inside every view): the
+      hull is carved from the run's variance maps and must hold occupied
+      voxels, 3 gated K3 steps and one gated eval view;
 5. times the warm flagship step and eval render on that dataset, in turns:
    K3, K1+K2, plain, K3+hull, then in the reverse order;
 6. profiles three K3 steps with ``torch.profiler`` (device time by kernel);
@@ -52,9 +55,21 @@ K2_REL = 2e-2    # per-leaf grads vs max(leaf scale, 1e-2 x global max), bench.p
 LOSS_REL = 1e-3  # loss and each K3 term: f32 sums over rays in another order (bench.py rule)
 
 # the card's peaks for the bound (NVIDIA H100 SXM data sheet, at 700 W)
-PEAK_F32_FLOPS = 67e12    # f32 outside the tensor cores: K1's and the loss kernel's FMAs
-PEAK_TF32_FLOPS = 495e12  # TF32 on the tensor cores, dense: K2's mma.sync, 3 per f32 product
+PEAK_F32_FLOPS = 67e12    # f32 outside the tensor cores: the f32 bound beside each kernel
+PEAK_TF32_FLOPS = 495e12  # dense TF32 on the tensor cores: K1's and K2's mma.sync, 3 per product
 PEAK_BYTES = 3.35e12      # HBM3
+
+
+# the hull run's data: the clean-protocol SYNTH phantom and hull knobs of
+# artifacts/round4/clean_protocol/config.json, whose vessel every training
+# view sees (the flagship phantom carves an empty hull); its own data name
+# keeps it out of the flagship dataset's cache folder
+HULL_RUN_ARGS = ["--data_name", "SYNTH-FOVHC", "--synth_vol_size", "96",
+                 "--synth_lca_val", "2.4", "--synth_vessel_radius", "0.065",
+                 "--synth_motion_scale", "1.5", "--synth_vessel_extent", "0.22",
+                 "--synth_rib_scale", "0.35", "--synth_smooth_sigma", "1.5",
+                 "--hull_res", "96", "--hull_thresh", "0.02", "--hull_dilate", "3",
+                 "--hull_sigma", "1.0"]
 
 
 def log(msg: str) -> None:
@@ -246,7 +261,7 @@ def flagship_hull(device):
 def check_k3(seed: int = 0) -> dict:
     """K3 (``fused_train_loss_and_grads``) against its plain version at the
     flagship shapes, without and with the hull gate; times both with CUDA
-    events, and the loss kernel alone."""
+    events, and K3's forward (K1) and loss phase (the loss kernel) apart."""
     import torch
 
     from nerfca_tpu_torch.ops.cuda import fused_field as ff
@@ -300,15 +315,21 @@ def check_k3(seed: int = 0) -> dict:
         res[f"plain_ms{tag}"] = cuda_time_ms(
             lambda: ft.plain_train_loss_and_grads(*args, hull=h))
 
-    # the loss kernel alone (forward of both fields + loss + cotangents)
+    # K3's forward (K1 on the batch's points) and its loss phase (the loss
+    # kernel on K1's raw densities: loss, terms, cotangents)
     pack_s = ff._Pack(cfg_s, ff._leaves(params["static"]), window, dev)
     pack_t = ff._Pack(cfg_t, ff._leaves(params["temp"]), window, dev)
     ph32 = phases.to(torch.int32)
     lat = params["temp"]["latents"].detach()
     occl = ft.occlusion_mask(z, hp)  # kept alive: the launch reads its pointer
     largs = ft.loss_args(pixels, weights, i0, None, occl, [1e-3] * 3 + [1e-4], hp, 1024, 500)
-    res["loss_kernel_ms"] = cuda_time_ms(
-        lambda: ft.fused_train_loss(pack_s, pack_t, origins, dirs, z, ph32, lat, largs))
+
+    def forward():
+        return ff.fused_field_fwd(pack_s, pack_t, origins, dirs, z, ph32, lat)
+
+    raw_s, raw_t = forward()
+    res["forward_ms"] = cuda_time_ms(forward)
+    res["loss_phase_ms"] = cuda_time_ms(lambda: ft.fused_train_loss(raw_s, raw_t, z, largs))
     return res
 
 
@@ -501,17 +522,18 @@ def bounds(shapes: dict) -> dict:
     tc_s = lambda flops: 3 * flops / PEAK_TF32_FLOPS
     work = {
         # K1: the forward; reads rays and weights, writes two raw densities
-        "k1": ("f32 FMA on the CUDA cores", fwd, f32_s(fwd), ray_bytes + 4 * n_par + 8 * n),
+        "k1": ("3xTF32 mma.sync on the tensor cores", fwd, tc_s(fwd),
+               ray_bytes + 4 * n_par + 8 * n),
         # K2: its VJP, counted as 3x the forward (recompute, dW, dX); reads
         # rays, weights, the two cotangents, writes every gradient
         "k2": ("3xTF32 mma.sync on the tensor cores", 3 * fwd, tc_s(3 * fwd),
                ray_bytes + 8 * n_par + 8 * n),
-        # K3: forward + backward without recompute (3x the forward); its loss
-        # kernel runs the forward in f32 FMAs, K2 the backward in 3xTF32; the
-        # loss phase (~100 flops a sample) is left out; reads rays, per-ray
+        # K3: forward + backward without recompute (3x the forward); K1 runs
+        # the forward and K2 the backward in 3xTF32; the loss phase (~100
+        # flops a sample on the CUDA cores) is left out; reads rays, per-ray
         # data, weights and the gate, writes every gradient and the terms
-        "k3": ("loss kernel f32 FMA on the CUDA cores, then K2 3xTF32 on the tensor cores",
-               3 * fwd, f32_s(fwd) + tc_s(2 * fwd), ray_bytes + 12 * r + 4 * n + 8 * n_par + 64),
+        "k3": ("K1 then K2 3xTF32 mma.sync on the tensor cores, the loss kernel between",
+               3 * fwd, tc_s(3 * fwd), ray_bytes + 12 * r + 4 * n + 8 * n_par + 64),
     }
     out = {}
     for k, (route, flops, t_ops, nbytes) in work.items():
@@ -552,8 +574,10 @@ def main() -> int:
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    smem = build.load("fused_field").fused_field_smem_bytes
-    log(f"  shared memory per CTA: K1 {smem(0)} bytes, K2 {smem(1)} bytes")
+    ff_lib = build.load("fused_field")
+    log(f"  shared memory per CTA: K1 {ff_lib.fused_field_smem_bytes(0)} bytes, K2 "
+        f"{ff_lib.fused_field_smem_bytes(1)} bytes, loss kernel "
+        f"{build.load('fused_train').fused_train_smem_bytes(500)} bytes at 500 samples")
 
     kc = check_kernels()
     log(f"K1 max abs err {kc['k1_err']:.3e} (limit {K1_ATOL}); "
@@ -569,8 +593,8 @@ def main() -> int:
             f"{k3['err' + tag]:.3e}, worst leaf {k3['worst' + tag]} at {k3['norm' + tag]:.3e} "
             f"of its scale (limit {K2_REL}); {k3['ms' + tag]:.3f} ms vs plain "
             f"{k3['plain_ms' + tag]:.3f} ms")
-    log(f"K3 loss kernel alone (forward + loss + cotangents): {k3['loss_kernel_ms']:.3f} ms "
-        f"({card})")
+    log(f"K3 apart: forward (K1) {k3['forward_ms']:.3f} ms, loss phase (loss kernel: loss, "
+        f"terms, cotangents) {k3['loss_phase_ms']:.3f} ms ({card})")
     rel = check_step_loss()
     log(f"flagship step loss, kernels vs plain: rel diff {rel:.3e} (limit {LOSS_REL})")
 
@@ -588,8 +612,9 @@ def main() -> int:
         fp = drive_main_path(workdir, ["--use_fused_loss", "true"], 6)
         tl = fp["train_launches"]
         if (tl["fused_train_loss"] != 6 or tl["fused_field_bwd"] != 6
-                or tl["fused_field_fwd"] != 0):
-            raise AssertionError(f"the fused-loss path did not run K3 + K2 on every step: {tl}")
+                or tl["fused_field_fwd"] != 6):
+            raise AssertionError(f"the fused-loss path did not run K1, the loss kernel and K2 "
+                                 f"once on every step: {tl}")
         log(f"main path, fused loss (K3): {fp['wall_s']:.1f} s wall; "
             f"train_loss {[round(r['train_loss'], 6) for r in fp['train']]}")
         log(f"  launches: training {tl}, eval {fp['eval_launches']}")
@@ -599,15 +624,18 @@ def main() -> int:
             f"{fp['eval']['test_image_psnr']:.3f}")
 
         hp_run = drive_main_path(workdir, ["--use_fused_loss", "true",
-                                           "--use_motion_hull", "true"], 3)
+                                           "--use_motion_hull", "true", *HULL_RUN_ARGS], 3)
         hull = hp_run["run"]["setup"]["hull"]
         tl = hp_run["train_launches"]
-        if hull is None or tl["fused_train_loss"] != 3:
+        if hull is None or tl["fused_train_loss"] != 3 or tl["fused_field_fwd"] != 3:
             raise AssertionError(f"the hull run did not carve a hull or run K3: {tl}")
         if not all(r["train_hull_s_l1"] >= 0 for r in hp_run["train"]):
             raise AssertionError("hull run: train_hull_s_l1 missing")
         occupied = float((hull.grid > 0.5).float().mean())
-        log(f"hull run: res {hull.grid.shape[0]}, occupied {occupied:.4f}; train_loss "
+        if not occupied > 0:
+            raise AssertionError("hull run: the carved hull has no voxel above 0.5")
+        log(f"hull run (SYNTH-FOVHC 96^3, {hp_run['wall_s']:.1f} s wall with its dataset build): "
+            f"res {hull.grid.shape[0]}, occupied share {occupied:.6f}; train_loss "
             f"{[round(r['train_loss'], 6) for r in hp_run['train']]}; gated eval "
             f"test_image_psnr {hp_run['eval']['test_image_psnr']:.3f}; launches {tl}")
 
@@ -645,14 +673,15 @@ def main() -> int:
          "ms": kc["k2_ms"], "plain_ms": kc["k2_plain_ms"],
          **bound_keys(bd["k2"]),
          "library_ms": None},
-        {"name": "fused_train_loss + fused_field_bwd (K3)", "route": "cuda",
+        {"name": "fused_field_fwd + fused_train_loss + fused_field_bwd (K3)", "route": "cuda",
          "source": "nerfca_tpu_torch/csrc/fused_train.cu",
          "replaces": "nerfca_tpu/ops/pallas/fused_train.py:607",
          "launches": launches["fused_train_loss"], "max_abs_err": k3["err"],
          "max_err_of_leaf_scale": k3["norm"], "loss_rel_err": k3["loss_rel"],
          "term_rel_err": k3["term_rel"],
          "limit": f"loss and terms rel {LOSS_REL}, grads {K2_REL} of leaf scale",
-         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "loss_kernel_ms": k3["loss_kernel_ms"],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "forward_ms": k3["forward_ms"],
+         "loss_phase_ms": k3["loss_phase_ms"],
          "ms_hull": k3["ms_hull"], "plain_ms_hull": k3["plain_ms_hull"],
          **bound_keys(bd["k3"]),
          "library_ms": None},

@@ -3,8 +3,10 @@
 // K1 (fused_field_fwd) replaces nerfca_tpu/ops/pallas/fused_field.py::_fwd_kernel
 // (pallas_call in _fused_core_fwd_impl). K2 (fused_field_bwd + fused_field_reduce)
 // replaces ::_bwd_kernel (pallas_call in _fused_core_bwd), the custom VJP of K1.
-// The encode and forward device code lives in field_common.cuh, shared with
-// the fused-loss kernel in fused_train.cu.
+// Both run their matrix products through the same device code below (the
+// weight ring, mma_layer_fwd, store_relu_frag); the encoding lives in
+// field_common.cuh. The fused-loss step (fused_train.cu) takes its forward
+// from K1.
 //
 // What they compute, per point i = r * S + s of a ray batch:
 //   x = o[r] + z[r, s] * d[r]                      (never materialized in HBM)
@@ -20,22 +22,25 @@
 // a 512,000-point train step is ~155 GFLOP forward and ~3x that backward,
 // against a few bytes of HBM traffic per point.
 //
-// K1 runs its MACs as f32 FMAs on the CUDA cores (exact f32 like the
-// reference) and is limited by shared-memory load bandwidth: each warp owns
-// 8 points x 128 neurons and reads float4 activations (broadcast) and weight
-// rows per k-step; a 64-point tile and one layer's weight live in shared
-// memory.
-//
-// K2 runs its three products (the forward recompute, dX of the hidden
-// layers, dW of every layer) on the tensor cores with mma.sync in 3xTF32
+// Both run their products on the tensor cores with mma.sync in 3xTF32
 // (field_mma.cuh): three TF32 products per f32 product keep near-f32
-// accuracy, so its bound is 3 x 465.7 GFLOP at 495 TFLOP/s, ~2.8 ms at the
-// flagship step, against ~7 ms for f32 FMAs. The encoding, the output layer,
-// the bias sums and the latent cotangent stay on the CUDA cores in exact
-// f32. A tile is 128 points, which halves per point what K2 moves besides
-// the MACs: the weights (streamed from L2 through a two-chunk cp.async ring
-// that overlaps the next 64 rows' copy with the current ones' products)
-// and the read-modify-write of the CTA's gradient partial after each
+// accuracy. K1's bound is then 3 x 155.2 GFLOP at 495 TFLOP/s, ~0.94 ms at
+// the flagship step (2.3 ms for f32 FMAs on the CUDA cores); K2 runs three
+// products (the forward recompute, dX of the hidden layers, dW of every
+// layer), ~2.8 ms against ~7 ms for f32 FMAs.
+//
+// K1 gives each CTA one field on one tile of K1_TP = 128 points; its weights
+// stream through the same two-chunk cp.async ring as K2's in chunks of
+// K1_WCH = 32 rows, so two CTAs fit on an SM and one CTA's encoding and
+// weight waits run under the other's products. The output layer runs on the
+// CUDA cores in f32.
+//
+// In K2 the encoding, the output layer, the bias sums and the latent
+// cotangent stay on the CUDA cores in exact f32. A tile is 128 points,
+// which halves per point what K2 moves besides the MACs: the weights
+// (streamed from L2 through a two-chunk cp.async ring that overlaps the
+// next 64 rows' copy with the current ones' products) and the
+// read-modify-write of the CTA's gradient partial after each
 // layer. Residual activations go to a per-CTA scratch in global memory
 // (262 KB at the flagship widths), written and read back within one tile,
 // so no [points, 128] array per layer is ever stored. What bounds K2 is the
@@ -45,7 +50,8 @@
 // (8 warps per SM). wgmma, TMA and warp specialisation are later work.
 // The short loop for work on these kernels is chip_smoke.check_kernels()
 // on the card (build, errors and times at the flagship shapes);
-// scripts/k2_variants.py splits K2's time by phase.
+// scripts/k2_variants.py splits K2's time by phase, scripts/k1_variants.py
+// times K1 at two tile sizes and without parts of its work.
 //
 // Determinism: K2 writes per-CTA gradient partials (each CTA owns its slice,
 // updated in program order by the same thread every time) and
@@ -63,21 +69,6 @@
 
 #include "field_common.cuh"
 #include "field_mma.cuh"
-
-__global__ void __launch_bounds__(NTHREADS, 2)
-fwd_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, float* out_s, float* out_t) {
-  extern __shared__ float4 smem4[];
-  float* H = reinterpret_cast<float*>(smem4);
-  float* Ws = H + TP * LDH;
-  int* phase_sm = reinterpret_cast<int*>(Ws + KMAX * LDW);
-  const long n_pts = (long)r.n_rays * r.n_samples;
-  const long tile0 = (long)blockIdx.x * TP;
-  float acc[8][4];
-  field_forward(fs, r, tile0, H, Ws, phase_sm, acc, nullptr);
-  field_output(fs, acc, tile0, n_pts, out_s);
-  field_forward(ft, r, tile0, H, Ws, phase_sm, acc, nullptr);
-  field_output(ft, acc, tile0, n_pts, out_t);
-}
 
 // Offsets (floats) of one field's gradient block inside a CTA partial.
 struct GradLayout {
@@ -129,9 +120,11 @@ __device__ __forceinline__ int round8(int k) { return (k + 7) & ~7; }
 // for the forward, then the hidden layers again, last to first, for dX.
 // Chunk i lives in buffer i & 1. The forward takes one chunk at a time and
 // copies the next while it computes; dX takes a layer's two halves at once,
-// and the next layer's pair is copied while dW and db run.
+// and the next layer's pair is copied while dW and db run. K1 streams the
+// forward's chunks alone, of C = K1_WCH rows (the ring functions take the
+// chunk's rows C as a template argument, WCH unless given).
 struct WeightRing {
-  float* buf;  // [2][WCH][LDW]
+  float* buf;  // [2][C][LDW]
   int n_in;    // chunks of the input layer
   int total;
   int next;    // chunk to compute next
@@ -139,19 +132,21 @@ struct WeightRing {
 };
 
 // Starts the copy of chunk i into its buffer (not committed).
+template <int C = WCH>
 __device__ __forceinline__ void ring_copy(const FieldArgs& f, const WeightRing& w, int i) {
+  constexpr int per = WIDTH / C;  // chunks of a hidden layer
   const float* src;
-  int rows = WCH;
+  int rows = C;
   if (i < w.n_in) {
-    src = f.w0 + (long)WCH * i * WIDTH;
-    rows = min(WCH, f.enc + f.n_lat - WCH * i);
+    src = f.w0 + (long)C * i * WIDTH;
+    rows = min(C, f.enc + f.n_lat - C * i);
   } else {
     const int j = i - w.n_in;
-    const int layer = j < 2 * f.n_hidden ? j / 2 : 2 * f.n_hidden - 1 - j / 2;
-    src = f.wh + (long)layer * WIDTH * WIDTH + (long)(j & 1) * WCH * WIDTH;
+    const int layer = j < per * f.n_hidden ? j / per : 2 * f.n_hidden - 1 - j / per;
+    src = f.wh + (long)layer * WIDTH * WIDTH + (long)(j & (per - 1)) * C * WIDTH;
   }
-  float* dst = w.buf + (i & 1) * WCH * LDW;
-  for (int q = threadIdx.x; q < WCH * (WIDTH / 4); q += NTHREADS) {
+  float* dst = w.buf + (i & 1) * C * LDW;
+  for (int q = threadIdx.x; q < C * (WIDTH / 4); q += NTHREADS) {
     const int row = q / (WIDTH / 4), c4 = q - row * (WIDTH / 4);
     float* d = dst + row * LDW + 4 * c4;
     if (row < rows) {
@@ -162,16 +157,19 @@ __device__ __forceinline__ void ring_copy(const FieldArgs& f, const WeightRing& 
   }
 }
 
-// Starts a field's sequence; the ring and every buffer must be free.
-__device__ __forceinline__ WeightRing ring_begin(const FieldArgs& f, float* buf) {
+// Starts a field's sequence (K1's stops after the hidden layers' forward);
+// the ring and every buffer must be free.
+template <int C = WCH>
+__device__ __forceinline__ WeightRing ring_begin(const FieldArgs& f, float* buf,
+                                                 bool backward = true) {
   WeightRing w;
   w.buf = buf;
-  w.n_in = (round8(f.enc + f.n_lat) + WCH - 1) / WCH;
-  w.total = w.n_in + 4 * f.n_hidden;
+  w.n_in = (round8(f.enc + f.n_lat) + C - 1) / C;
+  w.total = w.n_in + (backward ? 2 : 1) * (WIDTH / C) * f.n_hidden;
   w.next = 0;
   w.issued = 1;
   __syncthreads();
-  ring_copy(f, w, 0);
+  ring_copy<C>(f, w, 0);
   cp_async_commit();
   return w;
 }
@@ -179,13 +177,14 @@ __device__ __forceinline__ WeightRing ring_begin(const FieldArgs& f, float* buf)
 // Forward: waits for chunk next (the only copy in flight), starts the copy
 // of the one after it into the buffer every warp has just finished with,
 // and returns chunk next.
+template <int C = WCH>
 __device__ __forceinline__ const float* ring_acquire(const FieldArgs& f, WeightRing& w) {
   cp_async_wait<0>();
   __syncthreads();
   const int i = w.next++;
-  if (w.issued < w.total) ring_copy(f, w, w.issued++);
+  if (w.issued < w.total) ring_copy<C>(f, w, w.issued++);
   cp_async_commit();
-  return w.buf + (i & 1) * WCH * LDW;
+  return w.buf + (i & 1) * C * LDW;
 }
 
 // dX: waits for every copy in flight; chunks next and next + 1 (a layer's
@@ -208,30 +207,33 @@ __device__ __forceinline__ void ring_top_up(const FieldArgs& f, WeightRing& w) {
   }
 }
 
-// acc = bias + H[:, :k_pad] W for this warp's MT x 16 points and 64 outputs,
-// the weight taken chunk by chunk from the ring.
+// acc = bias + H[:, :k_pad] W for this warp's M x 16 points and 64 outputs
+// (a tile of 64 M points: warp w owns points 16 M (w & 3) + 0..16 M - 1 and
+// outputs 64 (w >> 2) + 0..63), the weight taken chunk by chunk (C rows)
+// from the ring.
+template <int M, int C = WCH>
 __device__ __forceinline__ void mma_layer_fwd(const FieldArgs& f, WeightRing& ring,
                                               const float* H, const float* bias, int k_pad,
-                                              float (&acc)[MT][8][4]) {
+                                              float (&acc)[M][8][4]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
-  const int row0 = (BTP / 4) * (warp & 3), col0 = 64 * (warp >> 2);
+  const int row0 = 16 * M * (warp & 3), col0 = 64 * (warp >> 2);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const float b0 = bias[col0 + 8 * j + 2 * t], b1 = bias[col0 + 8 * j + 2 * t + 1];
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
+    for (int i = 0; i < M; ++i) {
       acc[i][j][0] = b0; acc[i][j][1] = b1; acc[i][j][2] = b0; acc[i][j][3] = b1;
     }
   }
-  for (int kc = 0; kc < k_pad; kc += WCH) {
-    const float* W = ring_acquire(f, ring);
-    const int kn = min(WCH, k_pad - kc);
+  for (int kc = 0; kc < k_pad; kc += C) {
+    const float* W = ring_acquire<C>(f, ring);
+    const int kn = min(C, k_pad - kc);
 #pragma unroll 2
     for (int kk = 0; kk < kn; kk += 8) {
-      FragA a[MT];
+      FragA a[M];
       FragB b[8];
 #pragma unroll
-      for (int i = 0; i < MT; ++i) a[i] = load_a<true>(H + (row0 + 16 * i) * LDH + kc + kk, LDH, 1);
+      for (int i = 0; i < M; ++i) a[i] = load_a<true>(H + (row0 + 16 * i) * LDH + kc + kk, LDH, 1);
 #pragma unroll
       for (int j = 0; j < 8; ++j) b[j] = load_b<true>(W + kk * LDW + col0 + 8 * j, LDW, 1);
       mma_3xtf32(acc, a, b);
@@ -240,11 +242,12 @@ __device__ __forceinline__ void mma_layer_fwd(const FieldArgs& f, WeightRing& ri
 }
 
 // dst[p][n] = relu(acc) for this warp's block (row stride ld).
-__device__ __forceinline__ void store_relu_frag(float* dst, int ld, const float acc[MT][8][4]) {
+template <int M>
+__device__ __forceinline__ void store_relu_frag(float* dst, int ld, const float (&acc)[M][8][4]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row0 = (BTP / 4) * (warp & 3), col0 = 64 * (warp >> 2);
+  const int row0 = 16 * M * (warp & 3), col0 = 64 * (warp >> 2);
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int i = 0; i < M; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       float* d = dst + (long)(row0 + 16 * i + g) * ld + col0 + 8 * j + 2 * t;
@@ -557,7 +560,72 @@ __global__ void reduce_kernel(const float* partials, long part_stride, int n_par
   out[i] = s;
 }
 
-// H, D, the weight ring, g_sm, dlat_sm, phase_sm: 211,968 bytes of the 232,448 a block may use
+// ---------------------------------------------------------------------------
+// K1 on the tensor cores: K2's forward without the residual stores. CTA 2t
+// runs the static field and CTA 2t + 1 the temporal field on the tile of
+// K1_TP points at t * K1_TP: encode, the input and hidden layers as 3xTF32
+// mma.sync (mma_layer_fwd, weights through the ring in chunks of K1_WCH
+// rows), then the output layer out[i] = bo + sum_n wo[n] relu(h_L[i][n]) on
+// the CUDA cores in f32, a warp per point, for the points that exist.
+
+#define K1_TP 128            // K1 points per tile
+#define K1_WCH 32            // weight rows per K1 ring chunk
+
+// shared memory of a K1 CTA: H, the weight ring, phase_sm
+constexpr int k1_smem(int np, int c) { return (np * LDH + 2 * c * LDW) * 4 + np * 4; }
+
+// two CTAs per SM where their shared memory fits (1 KB of each is reserved)
+template <int M, int C>
+__global__ void __launch_bounds__(NTHREADS, 2 * (k1_smem(64 * M, C) + 1024) <= 233472 ? 2 : 1)
+fwd_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, float* out_s, float* out_t) {
+  constexpr int NP = 64 * M;
+  extern __shared__ float4 smem4[];
+  float* H = reinterpret_cast<float*>(smem4);
+  float* ring_buf = H + NP * LDH;
+  int* phase_sm = reinterpret_cast<int*>(ring_buf + 2 * C * LDW);
+  const bool temporal = blockIdx.x & 1;
+  const FieldArgs& f = temporal ? ft : fs;
+  const long n_pts = (long)r.n_rays * r.n_samples;
+  const long tile0 = (long)(blockIdx.x >> 1) * NP;
+  WeightRing ring = ring_begin<C>(f, ring_buf, false);
+#pragma unroll
+  for (int h = 0; h < M; ++h)
+    encode_tile(f, r, tile0 + h * TP, H + h * TP * LDH, phase_sm + h * TP);
+  const int k0 = f.enc + f.n_lat, k4 = round4(k0), k_pad = round8(k0);
+  // the mma steps are 8 deep: zero the columns encode_tile leaves
+  for (int t = threadIdx.x; t < NP * (k_pad - k4); t += NTHREADS) {
+    const int p = t / (k_pad - k4);
+    H[p * LDH + k4 + t - p * (k_pad - k4)] = 0.f;
+  }
+  float acc[M][8][4];
+  mma_layer_fwd<M, C>(f, ring, H, f.b0, k_pad, acc);  // its first barrier publishes H
+  for (int l = 0; l < f.n_hidden; ++l) {
+    __syncthreads();  // every read of H is done
+    store_relu_frag(H, LDH, acc);
+    mma_layer_fwd<M, C>(f, ring, H, f.bh + l * WIDTH, WIDTH, acc);
+  }
+  __syncthreads();
+  store_relu_frag(H, LDH, acc);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float wo[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wo[j] = f.wo[lane + 32 * j];
+  const float bo = f.bo[0];
+  float* out = temporal ? out_t : out_s;
+  for (int p = warp; p < NP; p += NTHREADS / 32) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s = fmaf(H[p * LDH + lane + 32 * j], wo[j], s);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0 && tile0 + p < n_pts) out[tile0 + p] = s + bo;
+  }
+}
+
+// K1: 105,984 bytes, two CTAs per SM; K2: H, D, the weight ring, g_sm,
+// dlat_sm, phase_sm (211,968 of the 232,448 bytes a block may use)
+static const int FWD_SMEM = k1_smem(K1_TP, K1_WCH);
 static const int BWD_SMEM =
     (BTP * LDH + BTP * LDD + 2 * WCH * LDW + BTP + BTP * MAX_LAT) * 4 + BTP * 4;
 
@@ -575,14 +643,15 @@ long fused_field_grad_size(const FieldArgs* fs, const FieldArgs* ft, int n_phase
 
 int fused_field_fwd(const FieldArgs* fs, const FieldArgs* ft, const RayArgs* r,
                     float* out_s, float* out_t, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       FWD_SMEM);
+  cudaError_t e = cudaFuncSetAttribute(fwd_kernel<K1_TP / 64, K1_WCH>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
   if (e != cudaSuccess) return (int)e;
   const long n_pts = (long)r->n_rays * r->n_samples;
-  const long n_tiles = (n_pts + TP - 1) / TP;
+  const long n_tiles = (n_pts + K1_TP - 1) / K1_TP;
   if (n_tiles == 0) return 0;
-  fwd_kernel<<<(unsigned)n_tiles, NTHREADS, FWD_SMEM, (cudaStream_t)stream>>>(
-      *fs, *ft, *r, out_s, out_t);
+  fwd_kernel<K1_TP / 64, K1_WCH>
+      <<<(unsigned)(2 * n_tiles), NTHREADS, FWD_SMEM, (cudaStream_t)stream>>>(*fs, *ft, *r,
+                                                                              out_s, out_t);
   return (int)cudaGetLastError();
 }
 

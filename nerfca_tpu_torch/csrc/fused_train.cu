@@ -1,12 +1,13 @@
 // Fused-loss train kernel for Hopper (sm_90a), plain C interface.
 //
-// K3 (fused_train_loss + terms_kernel, then K2 fused_field_bwd from
-// fused_field.cu) replaces nerfca_tpu/ops/pallas/fused_train.py::_train_kernel
-// (pallas_call in fused_train_loss_and_grads): the whole coarse composite
-// step. This file holds its first half. One CTA per ray:
-//   1. the forward of both fields over the ray's S samples in 64-point tiles
-//      (the device code of K1, field_common.cuh); the raw densities stay in
-//      shared memory;
+// K3 (K1 fused_field_fwd, then fused_train_loss + terms_kernel, then K2
+// fused_field_bwd; K1 and K2 live in fused_field.cu) replaces
+// nerfca_tpu/ops/pallas/fused_train.py::_train_kernel (pallas_call in
+// fused_train_loss_and_grads): the whole coarse composite step. K1 runs the
+// forward of both fields over the batch's R * S points in point tiles (3xTF32
+// on the tensor cores, no per-ray padding) and writes the raw densities,
+// 2 x 4 B per point. This file holds the loss phase. One CTA per ray:
+//   1. the ray's raw densities into shared memory;
 //   2. the loss phase: sigma = 1e-2 act(raw) (times the motion-hull gate on
 //      the dynamic field), sd = sigma * dist, the per-ray sums, the pixel
 //      term, the blend-ratio entropy, both masked ray entropies, occlusion,
@@ -21,21 +22,22 @@
 // K2 then backpropagates the cotangents into every weight gradient and the
 // latent-table gradient, deterministically.
 //
-// What bounds it: the forward is the same ~155 GFLOP of f32 FMAs per
-// 512,000-point step as K1 (compute bound, on the CUDA cores), plus 2.4% for
-// the 12 padded points of the ray's last tile at S = 500; the loss phase is a
-// few dozen flops and three transcendentals per sample. The forward is run
-// twice per step (here and inside K2), as on the two-kernel path; what goes
-// away is the loss battery's ~100 small launches and its autograd graph.
+// What bounds it: a few dozen flops and three transcendentals per sample
+// and 16 B of HBM traffic per sample (two raw densities in, two cotangents
+// out), a small share of the step next to the forward (K1) and K2. The TPU
+// kernel keeps the raw densities in VMEM because of Pallas's grid; here the
+// round trip through HBM lets the step run K1's forward code. The forward is
+// run twice per step (K1, then inside K2), as on the two-kernel path; what
+// goes away is the loss battery's ~100 small launches and its autograd graph.
 //
 // Clips take JAX's derivative (jnp.clip is maximum-then-minimum): 0.5 when
 // the value sits on a bound. The build uses accurate math and -fmad=false
 // (no fast-math, no flush-to-zero), so the 1e-19 and 1e-10 guards hold.
 
+#include <cuda_runtime.h>
 #include <math.h>
 
-#include "field_common.cuh"
-
+#define NTHREADS 256
 #define TERMS 16
 #define MAX_SAMPLES 1024
 
@@ -92,12 +94,11 @@ struct Sample {
   float dist, gate, occl, da_s, da_t, ss, st, sds, sdt, den, bw, u, b, rev, lb, lr;
 };
 
-__device__ __forceinline__ Sample sample_at(const RayArgs& r, const LossArgs& la,
+__device__ __forceinline__ Sample sample_at(const float* z, int S, const LossArgs& la,
                                             const float* raw_s, const float* raw_t, long ray0,
                                             int j) {
   Sample q;
-  const int S = r.n_samples;
-  q.dist = j < S - 1 ? r.z[j + 1] - r.z[j] : 1e-10f;
+  q.dist = j < S - 1 ? z[j + 1] - z[j] : 1e-10f;
   q.gate = la.gate != nullptr ? la.gate[ray0 + j] : 1.f;
   q.occl = la.occl[j];
   const float a_s = activation(raw_s[j], la.activation, &q.da_s);
@@ -139,36 +140,29 @@ __device__ __forceinline__ void block_reduce(float (&v)[NV], float* red) {
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(NTHREADS, 2)
-loss_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, LossArgs la, float* g_s, float* g_t,
-            float* partials) {
-  extern __shared__ float4 smem4[];
-  float* H = reinterpret_cast<float*>(smem4);
-  float* Ws = H + TP * LDH;
-  int* phase_sm = reinterpret_cast<int*>(Ws + KMAX * LDW);
-  float* raw_s = reinterpret_cast<float*>(phase_sm + TP);
-  float* raw_t = raw_s + r.n_samples;
-  const int S = r.n_samples;
+// z: the shared [S] depths; raw_s_all, raw_t_all: [R * S] raw densities (K1).
+__global__ void __launch_bounds__(NTHREADS)
+loss_kernel(const float* z, int S, LossArgs la, const float* raw_s_all, const float* raw_t_all,
+            float* g_s, float* g_t, float* partials) {
+  extern __shared__ float smem[];
+  float* raw_s = smem;
+  float* raw_t = raw_s + S;
+  float* red = raw_t + S;  // 9 x NTHREADS floats of reduction scratch
   const long ray = blockIdx.x;
   const long ray0 = ray * S;
   const int tid = threadIdx.x;
 
-  // 1. forward of both fields; a tile past the ray's end computes points of
-  //    the next ray (or masked ones) and keeps only the ray's own
-  float acc[8][4];
-  for (int t0 = 0; t0 < S; t0 += TP) {
-    field_forward(fs, r, ray0 + t0, H, Ws, phase_sm, acc, nullptr);
-    field_output(fs, acc, t0, S, raw_s);
-    field_forward(ft, r, ray0 + t0, H, Ws, phase_sm, acc, nullptr);
-    field_output(ft, acc, t0, S, raw_t);
+  // 1. the ray's raw densities
+  for (int j = tid; j < S; j += NTHREADS) {
+    raw_s[j] = raw_s_all[ray0 + j];
+    raw_t[j] = raw_t_all[ray0 + j];
   }
-  __syncthreads();  // raw_s / raw_t complete; H and Ws are free
-  float* red = H;   // 9 x NTHREADS floats of reduction scratch
+  __syncthreads();
 
   // 2a. per-ray sums that need no normalization
   float v[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -INFINITY, -INFINITY};
   for (int j = tid; j < S; j += NTHREADS) {
-    const Sample q = sample_at(r, la, raw_s, raw_t, ray0, j);
+    const Sample q = sample_at(z, S, la, raw_s, raw_t, ray0, j);
     v[0] += q.sds;                                  // sum_s
     v[1] += q.sdt;                                  // sum_t
     v[2] += q.sds * q.sds;                          // l2
@@ -186,7 +180,7 @@ loss_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, LossArgs la, float* g_s, floa
   // 2b. ray entropies and the dynamic entropy's sum_i q_i p_i
   float e[3] = {0.f, 0.f, 0.f};
   for (int j = tid; j < S; j += NTHREADS) {
-    const Sample q = sample_at(r, la, raw_s, raw_t, ray0, j);
+    const Sample q = sample_at(z, S, la, raw_s, raw_t, ray0, j);
     const float p_s = q.sds / d_s, p_t = q.sdt / d_t;
     const float pl_s = logf(p_s + 1e-10f), pl_t = logf(p_t + 1e-10f);
     e[0] += -(p_s * pl_s);
@@ -227,7 +221,7 @@ loss_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, LossArgs la, float* g_s, floa
   const float d_prime = sum_t >= 1e-15f ? clip_lo_grad(sum_t, la.clip_thr) : 0.f;
   const float c_f = la.lw[0] / la.n_samples_total;
   for (int j = tid; j < S; j += NTHREADS) {
-    const Sample q = sample_at(r, la, raw_s, raw_t, ray0, j);
+    const Sample q = sample_at(z, S, la, raw_s, raw_t, ray0, j);
     const float p_t = q.sdt / d_t;
     const float q_t = -(logf(p_t + 1e-10f) + p_t / (p_t + 1e-10f));
     const float g_sd_t = g_pix + c_t * (q_t - d_prime * e[2]) / d_t + la.lw[2] * q.occl / R;
@@ -278,22 +272,22 @@ extern "C" {
 
 int fused_train_terms(int) { return TERMS; }
 
-// g_s, g_t: [R * S] cotangent outputs; partials: [R, TERMS] scratch;
-// terms: [TERMS] output. The depths must be the shared [S] vector.
-int fused_train_loss(const FieldArgs* fs, const FieldArgs* ft, const RayArgs* r,
-                     const LossArgs* la, float* g_s, float* g_t, float* partials, float* terms,
-                     void* stream) {
-  if (r->n_samples < 2 || r->n_samples > MAX_SAMPLES || r->z_stride != 0 || r->n_rays < 1)
-    return (int)cudaErrorInvalidValue;
+// Shared memory of one loss-kernel CTA for rays of n_samples samples.
+int fused_train_smem_bytes(int n_samples) { return (2 * n_samples + 9 * NTHREADS) * 4; }
+
+// z: the shared [S] depths; raw_s, raw_t: [R * S] raw densities (K1's
+// output); g_s, g_t: [R * S] cotangent outputs; partials: [R, TERMS]
+// scratch; terms: [TERMS] output.
+int fused_train_loss(const LossArgs* la, const float* z, int n_rays, int n_samples,
+                     const float* raw_s, const float* raw_t, float* g_s, float* g_t,
+                     float* partials, float* terms, void* stream) {
+  if (n_samples < 2 || n_samples > MAX_SAMPLES || n_rays < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int smem = FWD_SMEM + 2 * r->n_samples * 4;
-  cudaError_t e = cudaFuncSetAttribute(loss_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       smem);
+  loss_kernel<<<n_rays, NTHREADS, fused_train_smem_bytes(n_samples), st>>>(
+      z, n_samples, *la, raw_s, raw_t, g_s, g_t, partials);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  loss_kernel<<<r->n_rays, NTHREADS, smem, st>>>(*fs, *ft, *r, *la, g_s, g_t, partials);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  terms_kernel<<<1, 32, 0, st>>>(partials, r->n_rays, *la, terms);
+  terms_kernel<<<1, 32, 0, st>>>(partials, n_rays, *la, terms);
   return (int)cudaGetLastError();
 }
 

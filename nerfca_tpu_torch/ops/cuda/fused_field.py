@@ -5,12 +5,14 @@ K1 ``fused_field_fwd`` replaces ``nerfca_tpu/ops/pallas/fused_field.py::
 _fwd_kernel`` and K2 ``fused_field_bwd`` replaces ``::_bwd_kernel``, the
 custom VJP of K1. Both live in ``nerfca_tpu_torch/csrc/fused_field.cu``;
 the source note there says what bounds them on the H100 and how the
-design keeps every activation out of HBM. K1 runs f32 FMAs on the CUDA
-cores over 64-point tiles; K2 runs its matrix products on the tensor cores
-in 3xTF32 (``mma.sync``, ``csrc/field_mma.cuh``) over 128-point tiles. The
-kernels take the ray form (origins, directions, per-ray or shared depths,
-per-ray phases, the latent table) and build points and latents themselves,
-so no ``[R*S, 3]`` or ``[N, 8]`` array is ever materialized.
+design keeps every activation out of HBM. Both run their matrix products
+on the tensor cores in 3xTF32 (``mma.sync``, ``csrc/field_mma.cuh``)
+through the same forward code, both over 128-point tiles: K1 one field
+per CTA, two CTAs per SM; K2 one CTA per SM. The fused-loss step
+(``fused_train.py``) takes its forward from K1. The kernels take the ray
+form (origins, directions, per-ray or shared depths, per-ray phases, the
+latent table) and build points and latents themselves, so no ``[R*S, 3]``
+or ``[N, 8]`` array is ever materialized.
 
 Dispatch: a CPU tensor takes :func:`plain_composite_fields_rays` (encode +
 MLP in torch, gradients from autograd); a CUDA tensor launches the kernels
@@ -37,7 +39,7 @@ from nerfca_tpu_torch.ops.cuda import build
 
 WIDTH = 128
 ROW_STRIDE = 140  # LDH in the source
-BWD_TILE_POINTS = 128  # BTP in the source: K2's tile (K1 and the loss kernel use 64)
+BWD_TILE_POINTS = 128  # BTP in the source: K2's tile (K1's is K1_TP there)
 MAX_ENCODED = 128
 MAX_LAT = 8
 MAX_PHASES = 16

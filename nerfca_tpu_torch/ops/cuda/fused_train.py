@@ -5,16 +5,18 @@ K3 replaces ``nerfca_tpu/ops/pallas/fused_train.py::_train_kernel``
 (``pallas_call`` in ``fused_train_loss_and_grads``): the whole coarse
 composite step, from the encoded points through both MLPs, the motion-hull
 gate, the Beer-Lambert render and the full loss battery to every parameter
-gradient. On the card it runs in two launches:
+gradient. On the card it runs in three launches:
 
-1. ``fused_train_loss`` (``csrc/fused_train.cu``): one CTA per ray runs
-   the forward of both fields over the ray's samples (K1's device code),
-   keeps the raw densities in shared memory, forms the per-ray sums in a
+1. K1 (``fused_field_fwd``): the forward of both fields over the batch's
+   ``R * S`` points, 3xTF32 on the tensor cores, into two ``[R * S]`` raw
+   densities;
+2. ``fused_train_loss`` (``csrc/fused_train.cu``): one CTA per ray reads
+   the ray's raw densities into shared memory, forms the per-ray sums in a
    fixed order in exact f32, writes the ray's 13 term partials and the
    hand-derived cotangents ``dL/draw_s``, ``dL/draw_t``; a one-block
    reduction sums the partials over rays in order and forms the loss;
-2. K2 (``fused_field_bwd``, unchanged) backpropagates those cotangents
-   into every weight gradient and the latent-table gradient.
+3. K2 (``fused_field_bwd``) backpropagates those cotangents into every
+   weight gradient and the latent-table gradient.
 
 The TPU kernel differentiates its loss with an in-kernel ``jax.vjp``;
 here the cotangent is derived by hand (:func:`loss_cotangents_plain`
@@ -23,7 +25,8 @@ writes the same math as tensor ops, and the CPU tests hold it against
 
 Dispatch: CPU tensors take :func:`plain_train_loss_and_grads`; CUDA
 tensors launch the kernels or raise. ``LAUNCHES["fused_train_loss"]``
-grows by one at each launch of the loss kernel and nowhere else.
+grows by one at each launch of the loss kernel and nowhere else; a step
+also counts one K1 and one K2 launch in ``fused_field.LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ TERM_NAMES = ("pixel_loss", "favor_s", "s_entropy", "s_entropy_sum", "d_entropy"
               "d_entropy_sum", "occl", "l1", "l2", "blendw", "sigma_s_max", "sigma_d_max",
               "hull_s_l1")
 ACTIVATIONS = ("softplus", "sigmoid", "clamp")
-MAX_SAMPLES = 1024  # the ray's raw densities live in shared memory
+MAX_SAMPLES = 1024  # the loss kernel keeps a ray's raw densities in shared memory
 
 LAUNCHES = {"fused_train_loss": 0}
 
@@ -283,9 +286,10 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = build.load("fused_train")
         ptr = ctypes.POINTER
-        lib.fused_train_loss.argtypes = [ptr(ff.FieldArgs), ptr(ff.FieldArgs), ptr(ff.RayArgs),
-                                         ptr(LossArgs), ctypes.c_void_p, ctypes.c_void_p,
-                                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        lib.fused_train_loss.argtypes = [ptr(LossArgs), ctypes.c_void_p, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                         ctypes.c_void_p, ctypes.c_void_p]
         lib.fused_train_loss.restype = ctypes.c_int
         lib.fused_train_terms.argtypes = [ctypes.c_int]
         lib.fused_train_terms.restype = ctypes.c_int
@@ -309,21 +313,20 @@ def loss_args(pixels, weights, initial_intensities, gate, occl, loss_weights_vec
         int(gate is not None))
 
 
-def fused_train_loss(pack_s, pack_t, origins, directions, z, phases, latents, largs: LossArgs):
-    """Launch K3's loss kernel and its term reduction: ``(terms [16],
-    dL/draw_s [R*S], dL/draw_t [R*S])``."""
-    dev = origins.device
-    n = origins.shape[0] * z.shape[0]
+def fused_train_loss(raw_s, raw_t, z, largs: LossArgs):
+    """Launch K3's loss kernel and its term reduction on K1's ``[R*S]`` raw
+    densities and the shared ``[S]`` depths: ``(terms [16], dL/draw_s
+    [R*S], dL/draw_t [R*S])``."""
+    dev, n, s = raw_s.device, raw_s.numel(), z.shape[0]
     g_s = torch.empty(n, device=dev)
     g_t = torch.empty(n, device=dev)
-    partials = torch.empty(origins.shape[0] * TERMS, device=dev)
+    partials = torch.empty(n // s * TERMS, device=dev)
     terms = torch.empty(TERMS, device=dev)
-    rays = ff._ray_args(origins, directions, z, phases, latents)
     LAUNCHES["fused_train_loss"] += 1
     ff._check(_lib().fused_train_loss(
-        ctypes.byref(pack_s.args), ctypes.byref(pack_t.args), ctypes.byref(rays),
-        ctypes.byref(largs), g_s.data_ptr(), g_t.data_ptr(), partials.data_ptr(),
-        terms.data_ptr(), ff._stream()), "fused_train_loss")
+        ctypes.byref(largs), z.data_ptr(), n // s, s, raw_s.data_ptr(), raw_t.data_ptr(),
+        g_s.data_ptr(), g_t.data_ptr(), partials.data_ptr(), terms.data_ptr(), ff._stream()),
+        "fused_train_loss")
     return terms, g_s, g_t
 
 
@@ -382,8 +385,8 @@ def fused_train_loss_and_grads(params_s, params_t, origins, directions, z, ray_p
     occl = occlusion_mask(z, hp).contiguous()
     largs = loss_args(pixels, weights, initial_intensities, gate, occl, loss_weights_vec, hp,
                       total_rays if total_rays is not None else r, s)
-    terms, g_s, g_t = fused_train_loss(pack_s, pack_t, origins, directions, z, phases, latents,
-                                       largs)
+    raw_s, raw_t = ff.fused_field_fwd(pack_s, pack_t, origins, directions, z, phases, latents)
+    terms, g_s, g_t = fused_train_loss(raw_s, raw_t, z, largs)
     flat = ff.fused_field_bwd(pack_s, pack_t, origins, directions, z, phases, latents, g_s, g_t)
     n_phases = latents.shape[0]
     size_s = pack_s.grad_layout(n_phases)["size"]

@@ -205,7 +205,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default="float32",
                    help="matmul dtype for field MLPs: float32 | bfloat16")
     p.add_argument("--mesh_shape", type=str, default=None,
-                   help="data-parallel mesh, e.g. '4' or '2x4' (None = all devices)")
+                   help="accepted for config compatibility: the port trains on "
+                        "one card and ignores it (no data-parallel mesh yet)")
     p.add_argument("--use_pallas", type=_bool, default=False,
                    help="run both fields through the CUDA field kernels "
                         "(K1 forward, K2 backward)")
@@ -222,7 +223,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--early_stop_patience", type=int, default=0,
                    help="stop when the selection metric (best_metric) has "
                         "not improved for this many in-loop evals (0 = "
-                        "off); a final checkpoint is still saved")
+                        "off); not ported yet: a value > 0 raises "
+                        "NotImplementedError")
     p.add_argument("--ray_jitter_perc", type=float, default=0.0,
                    help="sub-pixel ray jitter as a fraction of the pixel "
                         "footprint (1.0 = full pixel cone); anti-"
@@ -230,7 +232,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pallas_vmem_mb", type=int, default=0,
                    help="accepted for config compatibility (TPU knob)")
     p.add_argument("--pallas_bf16_residuals", type=_bool, default=False,
-                   help="accepted for config compatibility (TPU knob)")
+                   help="bf16 residual storage in the fused-loss step; not "
+                        "ported yet: true raises NotImplementedError")
     p.add_argument("--steps_per_chunk", type=int, default=None,
                    help="train steps between metric read-backs "
                         "(default 100, clamped to divide display_every)")
@@ -279,9 +282,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint-best selection metric: image_psnr = "
                         "selection-view PSNR; separated_psnr = same, but "
                         "checkpoints whose selection-view dyn_corr >= "
-                        "--sep_corr_threshold always dominate ones below it")
+                        "--sep_corr_threshold always dominate ones below it. "
+                        "Acts only with --early_stop_patience, which is not "
+                        "ported yet")
     p.add_argument("--sep_corr_threshold", type=float, default=0.5,
-                   help="dyn_corr gate for --best_metric separated_psnr")
+                   help="dyn_corr gate for --best_metric separated_psnr; acts "
+                        "only with --early_stop_patience, which is not ported "
+                        "yet")
     p.add_argument("--log_dir_root", type=str, default="cases")
     p.add_argument("--data_root", type=str, default="data")
     p.add_argument("--seed", type=int, default=0)

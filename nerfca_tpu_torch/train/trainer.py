@@ -170,6 +170,9 @@ def prepare_composite(args, device: torch.device) -> dict:
     """Dataset, device arrays, state and the step function."""
     if args.resume_from:
         raise NotImplementedError("--resume_from: checkpoints are not ported yet")
+    if args.early_stop_patience > 0:
+        raise NotImplementedError("--early_stop_patience: the patience stop and the "
+                                  "checkpoint selection it keeps are not ported yet")
     paths = dataset_paths(args, args.data_root)
     if (not os.path.isfile(paths.general) or not os.path.isfile(paths.train)
             or args.regenerate_data or args.only_prepare_data):
@@ -277,6 +280,7 @@ def train_composite(args=None, argv=None, max_steps: Optional[int] = None) -> di
             tms = [tm] + [eval_view(v, step)[1] for v in test_views[1:]]
             tm = {k: float(np.mean([t[k] for t in tms])) for k in tms[0]
                   if all(k in t for t in tms)}
+            tm["step"] = step  # as nerfca_tpu/train/trainer.py records it
             for i, t in enumerate(tms):
                 for key in ("test_image_psnr", "test_dyn_corr"):
                     if key in t:

@@ -1,5 +1,5 @@
-"""The CUDA field kernels K1/K2 against their plain PyTorch version on the
-card. Imports torch only (the machine with the card has no JAX), so it runs
+"""The CUDA kernels K1/K2 and K3's loss kernel against their plain PyTorch
+versions on the card. Imports torch only (the machine with the card has no JAX), so it runs
 there without this directory's conftest:
 
     python -m pytest --noconftest -o "markers=gpu: needs a CUDA device" tests/test_torch_gpu.py -q
@@ -111,6 +111,33 @@ def test_kernels_match_plain_other_configs(dev, enc, basis, layers):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shared_z", [False, True])
+@pytest.mark.parametrize("s", [2, 63, 64, 65, 127, 128, 129, 500, 1024])
+def test_forward_matches_plain_at_tile_edges(dev, shared_z, s):
+    # K1's 64-point tiles: 3 rays of s samples, a partial last tile unless
+    # 3 s is a multiple of 64, rays that start inside a tile
+    args, _ = make(dev, r=3, s=s, shared_z=shared_z)
+    before = ff.LAUNCHES["fused_field_fwd"]
+    with torch.no_grad():
+        got = ff.fused_composite_fields_rays(*args)
+        want = ff.plain_composite_fields_rays(*args)
+    assert ff.LAUNCHES["fused_field_fwd"] == before + 1
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= K1_ATOL
+
+
+@pytest.mark.gpu
+def test_forward_is_deterministic(dev):
+    args, _ = make(dev, r=200, s=77)
+    with torch.no_grad():
+        first = ff.fused_composite_fields_rays(*args)
+        again = ff.fused_composite_fields_rays(*args)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
 def test_backward_is_deterministic(dev):
     args, leaves = make(dev, r=200, s=64)
     first, cot = check(args, leaves)
@@ -141,7 +168,7 @@ def test_wrapper_checks_inputs(dev):
 K3_REL = 1e-3
 
 
-def k3_inputs(dev, r=37, s=100, hull=False, seed=0):
+def k3_inputs(dev, r=37, s=100, hull=False, seed=0, act="softplus"):
     from nerfca_tpu_torch.ops.hull import MotionHull
     from nerfca_tpu_torch.train.step import CompositeHParams
 
@@ -159,20 +186,19 @@ def k3_inputs(dev, r=37, s=100, hull=False, seed=0):
                           torch.tensor([0.25, -0.1, 0.0], device=dev))
     hp = CompositeHParams(entro_mask_thre=1e-4, entro_use_weighting=True,
                           entro_weighted_thresh=0.03, occl_reg_perc=0.2, use_pallas=True,
-                          use_fused_loss=True)
+                          use_fused_loss=True, output_activation=act)
     lw = [1e-3, 1e-3, 1e-3, 1e-4, 1e-3 if hull else 0.0]
     p_s, p_t, o, d, z, ph, cfg_s, cfg_t, w_s, w_t = args
     return (p_s, p_t, o, d, z, ph, pixels, weights, i0, cfg_s, cfg_t, w_s, w_t, lw, hp), gate
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("hull", [False, True])
-def test_fused_train_matches_plain(dev, hull):
+def check_k3(args, h):
+    """K3 against its plain version: one launch each of K1, the loss kernel
+    and K2; loss and terms rel K3_REL, grads by K2's rule."""
     from nerfca_tpu_torch.ops.cuda import fused_train as ft
     from nerfca_tpu_torch.ops.hull import hull_gate_rays
 
-    args, h = k3_inputs(dev, hull=hull)
-    if hull:
+    if h is not None:
         gate = hull_gate_rays(h, args[2], args[3], args[4])
         empty = int((gate.sum(-1) == 0).sum())
         assert 0 < empty < gate.shape[0]
@@ -180,13 +206,13 @@ def test_fused_train_matches_plain(dev, hull):
     k_loss, k_terms, k_gs, k_gt = ft.fused_train_loss_and_grads(*args, hull=h)
     assert ft.LAUNCHES["fused_train_loss"] == before[0]["fused_train_loss"] + 1
     assert ff.LAUNCHES["fused_field_bwd"] == before[1]["fused_field_bwd"] + 1
-    assert ff.LAUNCHES["fused_field_fwd"] == before[1]["fused_field_fwd"]
+    assert ff.LAUNCHES["fused_field_fwd"] == before[1]["fused_field_fwd"] + 1
     p_loss, p_terms, p_gs, p_gt = ft.plain_train_loss_and_grads(*args, hull=h)
     torch.cuda.synchronize()
     assert abs(float(k_loss) - float(p_loss)) <= K3_REL * abs(float(p_loss))
     for k in p_terms:
         assert abs(float(k_terms[k]) - float(p_terms[k])) <= K3_REL * abs(float(p_terms[k])), k
-    assert (float(k_terms["hull_s_l1"]) > 0) == hull
+    assert (float(k_terms["hull_s_l1"]) > 0) == (h is not None)
     k_leaves = [t for tree in (k_gs, k_gt) for _, t in param_items({"g": tree})]
     p_leaves = [t for tree in (p_gs, p_gt) for _, t in param_items({"g": tree})]
     top = max(float(b.abs().max()) for b in p_leaves)
@@ -196,10 +222,26 @@ def test_fused_train_matches_plain(dev, hull):
 
 
 @pytest.mark.gpu
-def test_fused_train_cotangents_match_plain(dev):
-    # the loss kernel's own outputs: the hand-derived cotangents against the
-    # plain version's on the kernel's raw densities (K1), within 1e-3 of
-    # each tensor's scale, and the terms
+@pytest.mark.parametrize("hull", [False, True])
+def test_fused_train_matches_plain(dev, hull):
+    check_k3(*k3_inputs(dev, hull=hull))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,hull", [(2, False), (129, False), (129, True), (1024, False),
+                                    (1024, True)])
+@pytest.mark.parametrize("act", ["softplus", "sigmoid", "clamp"])
+def test_fused_train_matches_plain_at_edges(dev, act, s, hull):
+    # the shortest and longest rays K3 takes and rays that end one point
+    # into a K1 tile, every activation, with and without a gate that leaves
+    # some rays empty (two shared depths may both miss the gate's grid, so
+    # the shortest ray runs ungated)
+    check_k3(*k3_inputs(dev, s=s, hull=hull, act=act))
+
+
+def loss_kernel_inputs(dev):
+    """K1's raw densities and the loss kernel's arguments for 64 gated rays
+    of 500 samples; the tensors the arguments point to are kept alive."""
     from nerfca_tpu_torch.ops.cuda import fused_train as ft
     from nerfca_tpu_torch.ops.hull import hull_gate_rays
 
@@ -207,18 +249,42 @@ def test_fused_train_cotangents_match_plain(dev):
     p_s, p_t, o, d, z, ph, pixels, weights, i0, cfg_s, cfg_t, w_s, w_t, lw, hp = args
     pack_s = ff._Pack(cfg_s, ff._leaves(p_s), w_s, dev)
     pack_t = ff._Pack(cfg_t, ff._leaves(p_t), w_t, dev)
-    ph32 = ph.to(torch.int32)
-    lat = p_t["latents"].detach()
+    with torch.no_grad():
+        raw_s, raw_t = ff.fused_field_fwd(pack_s, pack_t, o, d, z, ph.to(torch.int32),
+                                          p_t["latents"].detach())
     gate = hull_gate_rays(h, o, d, z).contiguous()
     occl = ft.occlusion_mask(z, hp).contiguous()
     largs = ft.loss_args(pixels, weights, i0, gate, occl, lw, hp, o.shape[0], z.shape[0])
-    terms, g_s, g_t = ft.fused_train_loss(pack_s, pack_t, o, d, z, ph32, lat, largs)
-    with torch.no_grad():
-        raw_s, raw_t = ff.fused_field_fwd(pack_s, pack_t, o, d, z, ph32, lat)
-    r, s = o.shape[0], z.shape[0]
+    return dict(raw_s=raw_s, raw_t=raw_t, z=z, largs=largs, gate=gate, occl=occl,
+                batch=(pixels, weights, i0), lw=lw, hp=hp)
+
+
+@pytest.mark.gpu
+def test_fused_train_cotangents_match_plain(dev):
+    # the loss kernel's own outputs: the hand-derived cotangents against the
+    # plain version's on the kernel's raw densities (K1), within 1e-3 of
+    # each tensor's scale, and the terms
+    from nerfca_tpu_torch.ops.cuda import fused_train as ft
+
+    li = loss_kernel_inputs(dev)
+    raw_s, raw_t, z, gate = li["raw_s"], li["raw_t"], li["z"], li["gate"]
+    terms, g_s, g_t = ft.fused_train_loss(raw_s, raw_t, z, li["largs"])
+    pixels, weights, i0 = li["batch"]
+    r, s = gate.shape
     p_terms, pg_s, pg_t = ft.loss_cotangents_plain(raw_s.view(r, s), raw_t.view(r, s), z, pixels,
-                                                  weights, i0, lw, hp, gate=gate)
+                                                  weights, i0, li["lw"], li["hp"], gate=gate)
     torch.cuda.synchronize()
     for a, b in ((g_s, pg_s), (g_t, pg_t)):
         assert float((a.view(r, s) - b).abs().max()) <= 1e-3 * float(b.abs().max())
     assert torch.allclose(terms, p_terms, rtol=K3_REL, atol=0)
+
+
+@pytest.mark.gpu
+def test_loss_kernel_is_deterministic(dev):
+    from nerfca_tpu_torch.ops.cuda import fused_train as ft
+
+    li = loss_kernel_inputs(dev)
+    first = ft.fused_train_loss(li["raw_s"], li["raw_t"], li["z"], li["largs"])
+    again = ft.fused_train_loss(li["raw_s"], li["raw_t"], li["z"], li["largs"])
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)

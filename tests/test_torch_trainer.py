@@ -109,6 +109,44 @@ def test_resume_raises_not_implemented(tmp_path):
                             "--log_dir_root", str(tmp_path / "c")])
 
 
+def test_early_stop_patience_raises_not_implemented(tmp_path):
+    # the patience stop needs the checkpoint selection, which is not ported:
+    # the flag raises instead of training on to n_iters
+    with pytest.raises(NotImplementedError, match="early_stop_patience"):
+        run_composite.main(["--config", SMALL, "--platform", "cpu",
+                            "--early_stop_patience", "3",
+                            "--data_root", str(tmp_path / "d"),
+                            "--log_dir_root", str(tmp_path / "c")])
+
+
+@pytest.mark.parametrize("flag,says", [
+    ("--early_stop_patience", "raises NotImplementedError"),
+    ("--best_metric", "only with --early_stop_patience"),
+    ("--sep_corr_threshold", "only with --early_stop_patience"),
+    ("--pallas_bf16_residuals", "raises NotImplementedError"),
+    ("--mesh_shape", "ignores it"),
+])
+def test_help_says_what_unported_flags_do(flag, says):
+    action = next(a for a in tcfg.build_parser()._actions if flag in a.option_strings)
+    assert says in " ".join(action.help.split())
+
+
+def test_multi_view_eval_record_carries_the_step(tmp_path):
+    # several selection views: the eval record is their mean, and carries
+    # the step inside it as the JAX trainer's does (nerfca_tpu/train/
+    # trainer.py sets tm["step"])
+    out = run_composite.main([
+        "--config", SMALL, "--platform", "cpu", "--n_iters", "1", "--display_every", "2",
+        "--selection_view", "0,0;90,0", "--data_root", str(tmp_path / "data"),
+        "--log_dir_root", str(tmp_path / "cases"), *FAST_DATA,
+    ])
+    assert out["last_eval"]["step"] == 2
+    assert "test_image_psnr_sel1" in out["last_eval"]
+    with open(os.path.join(out["log_dir"], "metrics.jsonl")) as f:
+        evals = [r for r in map(json.loads, f) if "test_image_psnr" in r]
+    assert len(evals) == 1 and evals[0]["step"] == 2
+
+
 def test_resolve_pallas_support_downgrades_with_warning():
     kw = dict(num_filters=128, pos_enc_basis=4)
     ok = {"static": FieldConfig(**kw),
