@@ -17,13 +17,13 @@ Parameter layout: the same tree as the JAX package, ``{"early": [{"w",
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nerfca_tpu_torch.ops import prng
 from nerfca_tpu_torch.ops.encoding import encoded_feature_count, posenc
 
 Params = Dict[str, Any]
@@ -68,43 +68,44 @@ def _check_ported(cfg: FieldConfig) -> None:
         raise NotImplementedError("fourier encoding is not ported yet")
 
 
-def _init_linear(gen, fan_in: int, fan_out: int, use_bias: bool, device) -> Params:
+def _init_linear(key, fan_in: int, fan_out: int, use_bias: bool, device) -> Params:
     """Uniform(-1/sqrt(fan_in), 1/sqrt(fan_in)) weight and bias, the
-    ``nn.Linear`` default; weight stored ``[out, in]``."""
-    bound = 1.0 / math.sqrt(fan_in)
-
-    def uniform(*shape):
-        u = torch.rand(shape, generator=gen, dtype=torch.float32)
-        return (u * (2 * bound) - bound).to(device)
-
-    layer = {"w": uniform(fan_out, fan_in)}
+    ``nn.Linear`` default, drawn as the JAX package draws them (the weight
+    as ``[in, out]``, stored transposed)."""
+    bound = np.float32(1.0) / np.sqrt(np.float32(fan_in))
+    wkey, bkey = prng.split(key)
+    w = prng.uniform(wkey, (fan_in, fan_out), -bound, bound)
+    layer = {"w": torch.from_numpy(w.T.copy()).to(device)}
     if use_bias:
-        layer["b"] = uniform(fan_out)
+        layer["b"] = torch.from_numpy(prng.uniform(bkey, (fan_out,), -bound, bound)).to(device)
     return layer
 
 
-def _init_mlp(gen, cfg: FieldConfig, device) -> Params:
+def _init_mlp(key, cfg: FieldConfig, device) -> Params:
     _check_ported(cfg)
+    keys = iter(prng.split(key, cfg.num_early_layers + cfg.num_late_layers + 3))
     f_in, width = cfg.input_features, cfg.num_filters
-    early = [_init_linear(gen, f_in, width, cfg.use_bias, device)]
+    early = [_init_linear(next(keys), f_in, width, cfg.use_bias, device)]
     for _ in range(cfg.num_early_layers):
-        early.append(_init_linear(gen, width, width, cfg.use_bias, device))
+        early.append(_init_linear(next(keys), width, width, cfg.use_bias, device))
     return {"early": early,
-            "out": _init_linear(gen, width, cfg.num_output_channels, cfg.use_bias, device)}
+            "out": _init_linear(next(keys), width, cfg.num_output_channels, cfg.use_bias, device)}
 
 
-def init_static_field(gen: torch.Generator, cfg: FieldConfig, device=None) -> Params:
-    """Initialize a static field from a (CPU) ``torch.Generator``."""
-    return _init_mlp(gen, cfg, device)
+def init_static_field(key, cfg: FieldConfig, device=None) -> Params:
+    """Initialize a static field from an ``ops/prng.py`` key: the params the
+    JAX package's ``init_static_field`` draws from the same key."""
+    return _init_mlp(key, cfg, device)
 
 
-def init_temporal_field(gen: torch.Generator, cfg: FieldConfig, device=None) -> Params:
-    """Initialize a temporal field including its Uniform[0,1) latent table."""
+def init_temporal_field(key, cfg: FieldConfig, device=None) -> Params:
+    """Initialize a temporal field including its Uniform[0,1) latent table
+    (from ``fold_in(key, 0x71)``, as the JAX package draws it)."""
     if not cfg.use_time_latents:
         raise ValueError("temporal field requires use_time_latents=True")
-    params = _init_mlp(gen, cfg, device)
-    params["latents"] = torch.rand((NUM_CARDIAC_PHASES, cfg.num_time_dim), generator=gen,
-                                   dtype=torch.float32).to(device)
+    params = _init_mlp(key, cfg, device)
+    latents = prng.uniform(prng.fold_in(key, 0x71), (NUM_CARDIAC_PHASES, cfg.num_time_dim))
+    params["latents"] = torch.from_numpy(latents).to(device)
     return params
 
 

@@ -223,8 +223,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--early_stop_patience", type=int, default=0,
                    help="stop when the selection metric (best_metric) has "
                         "not improved for this many in-loop evals (0 = "
-                        "off); not ported yet: a value > 0 raises "
-                        "NotImplementedError")
+                        "off); a final checkpoint is still saved")
     p.add_argument("--ray_jitter_perc", type=float, default=0.0,
                    help="sub-pixel ray jitter as a fraction of the pixel "
                         "footprint (1.0 = full pixel cone); anti-"
@@ -282,18 +281,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint-best selection metric: image_psnr = "
                         "selection-view PSNR; separated_psnr = same, but "
                         "checkpoints whose selection-view dyn_corr >= "
-                        "--sep_corr_threshold always dominate ones below it. "
-                        "Acts only with --early_stop_patience, which is not "
-                        "ported yet")
+                        "--sep_corr_threshold always dominate ones below it")
     p.add_argument("--sep_corr_threshold", type=float, default=0.5,
-                   help="dyn_corr gate for --best_metric separated_psnr; acts "
-                        "only with --early_stop_patience, which is not ported "
-                        "yet")
+                   help="dyn_corr gate for --best_metric separated_psnr")
     p.add_argument("--log_dir_root", type=str, default="cases")
     p.add_argument("--data_root", type=str, default="data")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile_steps", type=int, default=0,
-                   help="accepted for config compatibility (no profiler yet)")
+                   help="capture a torch.profiler trace for the first N steps "
+                        "(under <log_dir>/profile)")
     p.add_argument("--render_views", type=str, default="",
                    help="semicolon-separated theta,phi,phase triplets (run_render)")
     p.add_argument("--render_spin", type=int, default=0,

@@ -14,9 +14,11 @@ one of three paths:
   - otherwise both fields and the loss in plain torch autograd.
 
 An optional motion hull (``ops/hull.py``) gates the dynamic density on
-every path. The step is split so tests can inject the batch and the depths
-(:func:`composite_grads`, :func:`_fused_loss_metrics_grads`), since torch
-and JAX random numbers never agree. Metrics stay on the device as 0-d
+every path. The step draws its random numbers on the host as the JAX step
+draws them (``ops/prng.py``, :func:`step_draws`), so a seed gives the JAX
+run's batches, jitter and depths; the step is also split so tests can
+inject the batch and the depths (:func:`composite_grads`,
+:func:`_fused_loss_metrics_grads`). Metrics stay on the device as 0-d
 tensors; the trainer reads them back once per chunk. Not ported yet: the
 fine pass, bf16 compute and residuals, and AdamW decay.
 """
@@ -30,7 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from nerfca_tpu_torch.models.fields import FieldConfig
+from nerfca_tpu_torch.models.fields import FieldConfig, params_from_jax, params_to_jax
 from nerfca_tpu_torch.ops.cuda.fused_field import (
     fused_composite_fields_rays,
     plain_composite_fields_rays,
@@ -42,6 +44,7 @@ from nerfca_tpu_torch.ops.cuda.fused_train import (
 from nerfca_tpu_torch.ops.encoding import (
     free_window_alpha, free_window_mask, nerfies_alpha, nerfies_window,
 )
+from nerfca_tpu_torch.ops import prng
 from nerfca_tpu_torch.ops.hull import hull_gate_rays
 from nerfca_tpu_torch.ops.losses import composite_losses, weighted_mse
 from nerfca_tpu_torch.ops.render import render_transmission_composite
@@ -114,10 +117,10 @@ def window_alpha(cfg: FieldConfig, step: int) -> float:
     return 0.0
 
 
-def jitter_directions(d: torch.Tensor, jitter: float, generator=None, u=None) -> torch.Tensor:
+def jitter_directions(d: torch.Tensor, jitter: float, u: torch.Tensor) -> torch.Tensor:
     """Perturb ray directions ``d [n, 3]`` by a uniform offset in
-    ``[-jitter/2, jitter/2]`` along two axes perpendicular to each ray.
-    ``u [n, 2]`` injects the uniforms."""
+    ``[-jitter/2, jitter/2]`` along two axes perpendicular to each ray;
+    ``u [n, 2]`` holds the uniforms in [0, 1)."""
     up = torch.where(
         torch.abs(d[:, 2:3]) < 0.9,
         torch.tensor([0.0, 0.0, 1.0], dtype=d.dtype, device=d.device),
@@ -127,8 +130,6 @@ def jitter_directions(d: torch.Tensor, jitter: float, generator=None, u=None) ->
     e1 = e1 / torch.linalg.norm(e1, dim=-1, keepdim=True)
     e2 = torch.linalg.cross(d, e1)
     e2 = e2 / torch.linalg.norm(e2, dim=-1, keepdim=True)
-    if u is None:
-        u = torch.rand((d.shape[0], 2), generator=generator, dtype=d.dtype, device=d.device)
     u = (u - 0.5) * jitter
     return d + u[:, 0:1] * e1 + u[:, 1:2] * e2
 
@@ -145,18 +146,67 @@ def batch_from_ids(rays: torch.Tensor, phases: torch.Tensor, idx: torch.Tensor) 
     }
 
 
-def sample_ray_batch(generator, rays, phases, var_ids, non_var_ids, hp: CompositeHParams) -> dict:
-    """On-device batch sampling with replacement, with ``nb_var_rays`` rays
-    from the high-variance id set and the rest from its complement."""
-    n, dev = hp.img_sample_size, rays.device
-    if hp.nb_var_rays > 0 and var_ids is not None:
-        nv = hp.nb_var_rays
-        iv = torch.randint(0, var_ids.shape[0], (nv,), generator=generator, device=dev)
-        inv = torch.randint(0, non_var_ids.shape[0], (n - nv,), generator=generator, device=dev)
-        idx = torch.cat([var_ids[iv], non_var_ids[inv]])
+def step_draws(rng: np.ndarray, hp: CompositeHParams, n_var_ids: int, n_non_var_ids: int,
+               n_rays: int, n_samples: int) -> tuple:
+    """One train step's random numbers, drawn as the JAX step draws them
+    (``nerfca_tpu/train/step.py:663-682``) through ``ops/prng.py``: the
+    next key; the batch's positions, the first ``nb_var_rays`` into the
+    high-variance ids and the rest into their complement (with replacement;
+    into all rays without the split); the jitter uniforms ``[n, 2]`` (None
+    without jitter); the depth uniforms ``[n_samples]``. All bits come from
+    one numpy pass."""
+    rng, k_sample, k_depth, k_fine = prng.split(rng, 4)
+    n, nv = hp.img_sample_size, hp.nb_var_rays
+    if nv > 0:
+        k_var, k_non_var = prng.split(k_sample)
+        draws = [(k_var, nv, n_var_ids), (k_non_var, n - nv, n_non_var_ids)]
     else:
-        idx = torch.randint(0, rays.shape[0], (n,), generator=generator, device=dev)
+        draws = [(k_sample, n, n_rays)]
+    segments = []
+    for k, size, _ in draws:  # randint: high words, then low words
+        segments += [(kk, size) for kk in prng.split(k)]
+    if hp.ray_jitter > 0:
+        segments.append((prng.fold_in(k_fine, 1), 2 * n))
+    segments.append((k_depth, n_samples))
+    words = prng.bits_segments(segments)
+    positions, start = [], 0
+    for _, size, span in draws:
+        high, low = words[start:start + size], words[start + size:start + 2 * size]
+        positions.append(prng.randint_from_bits(high, low, span))
+        start += 2 * size
+    u = None
+    if hp.ray_jitter > 0:
+        u = prng.uniform_from_bits(words[start:start + 2 * n]).reshape(n, 2)
+        start += 2 * n
+    return rng, np.concatenate(positions), u, prng.uniform_from_bits(words[start:])
+
+
+def sample_ray_batch(rays, phases, var_ids, non_var_ids, positions: torch.Tensor,
+                     hp: CompositeHParams) -> dict:
+    """The ray batch at ``positions`` (from :func:`step_draws`): the first
+    ``nb_var_rays`` index the high-variance id set, the rest its complement;
+    without the split they index the rays."""
+    if hp.nb_var_rays > 0:
+        nv = hp.nb_var_rays
+        idx = torch.cat([var_ids[positions[:nv]], non_var_ids[positions[nv:]]])
+    else:
+        idx = positions
     return batch_from_ids(rays, phases, idx)
+
+
+def to_device(device: torch.device, ints: np.ndarray, *floats) -> tuple:
+    """``ints`` (as int64) and each f32 array of ``floats`` on ``device``,
+    through one pinned, non-blocking copy on a card."""
+    buf = np.concatenate([ints.astype(np.int32)] + [f.astype(np.float32).ravel().view(np.int32)
+                                                    for f in floats])
+    t = torch.from_numpy(buf)
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    out, start = [t[:len(ints)].long()], len(ints)
+    for f in floats:
+        out.append(t[start:start + f.size].view(torch.float32).reshape(f.shape))
+        start += f.size
+    return tuple(out)
 
 
 def loss_weights(step: int, hp: CompositeHParams) -> dict:
@@ -299,6 +349,20 @@ def param_items(params) -> list:
     return items
 
 
+def params_from_leaves(params, leaves) -> dict:
+    """A tree shaped as ``params`` holding ``leaves`` (``param_items`` order)."""
+    it = iter(leaves)
+    out = {}
+    for group in sorted(params):
+        p = params[group]
+        g = {"early": [{k: next(it) for k in sorted(layer)} for layer in p["early"]],
+             "out": {k: next(it) for k in sorted(p["out"])}}
+        if "latents" in p:
+            g["latents"] = next(it)
+        out[group] = g
+    return out
+
+
 def composite_grads(params, batch, depth_values, step: int, cfgs, hp: CompositeHParams,
                     hull=None):
     """Loss, metrics and the gradient of every leaf (``param_items`` order)
@@ -386,6 +450,32 @@ def init_opt_state(params) -> dict:
             "nu": [torch.zeros_like(t) for t in leaves]}
 
 
+def opt_state_from_jax(adam_state, device=None) -> dict:
+    """optax's Adam state -> the port's ``opt_state``. ``adam_state`` is a
+    ``ScaleByAdamState`` (``count``, ``mu``, ``nu`` over the JAX param
+    tree) or the whole ``optax.adam`` chain state that holds one."""
+    if not hasattr(adam_state, "mu"):
+        adam_state = next(s for s in adam_state if hasattr(s, "mu"))
+
+    def flat(tree):
+        return [t for _, t in param_items({k: params_from_jax(v, device)
+                                           for k, v in tree.items()})]
+
+    return {"count": int(np.asarray(adam_state.count)), "mu": flat(adam_state.mu),
+            "nu": flat(adam_state.nu)}
+
+
+def opt_state_to_jax(opt_state: dict, params) -> dict:
+    """Inverse of :func:`opt_state_from_jax`: ``count`` (int32) and ``mu``/
+    ``nu`` as JAX-layout numpy trees, the fields of optax's
+    ``ScaleByAdamState``. ``params`` gives the tree's shape."""
+    def tree(leaves):
+        return {k: params_to_jax(v) for k, v in params_from_leaves(params, leaves).items()}
+
+    return {"count": np.int32(opt_state["count"]), "mu": tree(opt_state["mu"]),
+            "nu": tree(opt_state["nu"])}
+
+
 @torch.no_grad()
 def adam_update(params, opt_state: dict, grads, tx: AdamConfig, step: int,
                 hp: CompositeHParams) -> None:
@@ -413,10 +503,13 @@ def adam_update(params, opt_state: dict, grads, tx: AdamConfig, step: int,
 
 @dataclasses.dataclass
 class TrainState:
+    """Params, Adam state, step and the ``ops/prng.py`` key (``uint32[2]``)
+    the next step draws from."""
+
     params: dict
     opt_state: dict
     step: int
-    generator: torch.Generator
+    rng: np.ndarray
 
 
 def make_composite_train_step(cfgs: dict, hp: CompositeHParams, tx: AdamConfig,
@@ -440,13 +533,19 @@ def make_composite_train_step(cfgs: dict, hp: CompositeHParams, tx: AdamConfig,
     grads_fn = _fused_loss_metrics_grads if fused else composite_grads
 
     def train_step(state: TrainState, rays, phases, var_ids, non_var_ids, hull=None):
-        gen = state.generator
-        batch = sample_ray_batch(gen, rays, phases, var_ids, non_var_ids, hp)
-        if hp.ray_jitter > 0:
-            batch["directions"] = jitter_directions(batch["directions"], hp.ray_jitter, gen)
+        state.rng, positions, u, t = step_draws(
+            state.rng, hp, var_ids.shape[0], non_var_ids.shape[0], rays.shape[0],
+            depth_values_base.shape[0])
+        if u is None:
+            positions, t = to_device(rays.device, positions, t)
+        else:
+            positions, t, u = to_device(rays.device, positions, t, u)
+        batch = sample_ray_batch(rays, phases, var_ids, non_var_ids, positions, hp)
+        if u is not None:
+            batch["directions"] = jitter_directions(batch["directions"], hp.ray_jitter, u)
         batch["initial_intensities"] = torch.full(
             (hp.img_sample_size,), initial_intensity, device=rays.device)
-        z = stratify_depths(depth_values_base, gen)
+        z = stratify_depths(depth_values_base, t_rand=t)
         _, metrics, grads = grads_fn(state.params, batch, z, state.step, cfgs, hp, hull=hull)
         adam_update(state.params, state.opt_state, grads, tx, state.step, hp)
         state.step += 1

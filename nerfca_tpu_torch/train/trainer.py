@@ -4,10 +4,12 @@
 The dataset is built when absent, loaded once and moved to the device; the
 train loop runs in chunks of steps whose metrics stay on the device and are
 read back once per chunk; the selection view is rendered at
-``display_every`` boundaries. With ``--use_motion_hull`` the hull is carved
-from the training views' variance maps after the dataset is loaded and
-gates every train step and eval render. Checkpoints are not ported yet:
-saves are skipped (said once) and ``--resume_from`` raises.
+``display_every`` boundaries and feeds checkpoint-best selection and the
+patience stop; checkpoints go under the run's log dir every
+``save_every`` steps, at a stop and at the end (``train/checkpoint.py``),
+and ``--resume_from`` restores the full state. With ``--use_motion_hull``
+the hull is carved from the training views' variance maps after the
+dataset is loaded and gates every train step and eval render.
 """
 
 from __future__ import annotations
@@ -25,10 +27,12 @@ from nerfca_tpu_torch.data.dataset import build_dataset, dataset_paths, parse_se
 from nerfca_tpu_torch.data.loader import denormalize_image, load_dataset
 from nerfca_tpu_torch.geometry.rays import detector_rays
 from nerfca_tpu_torch.models.fields import FieldConfig, init_static_field, init_temporal_field
-from nerfca_tpu_torch.ops.hull import hull_from_args
+from nerfca_tpu_torch.ops import prng
+from nerfca_tpu_torch.ops.hull import hull_args_record, hull_from_args
 from nerfca_tpu_torch.ops.cuda.fused_field import kernel_supported
 from nerfca_tpu_torch.ops.sampling import linspace_depths, stratify_depths
 from nerfca_tpu_torch.train import evaluation
+from nerfca_tpu_torch.train.checkpoint import CheckpointManager, load_checkpoint
 from nerfca_tpu_torch.train.config import parse_args
 from nerfca_tpu_torch.train.logging import MetricsLogger, make_log_dir
 from nerfca_tpu_torch.train.step import (
@@ -166,13 +170,20 @@ def _chunk_size(args) -> int:
     return chunk
 
 
+def _init_composite_state(args, cfgs, tx, device) -> TrainState:
+    """A fresh state, drawn as the JAX trainer draws it from ``--seed``
+    (``ops/prng.py``): the params from the first two of eight keys, the
+    step's key the last, zero Adam moments. ``tx`` is the optimizer the
+    state is for; the port's Adam state does not depend on its settings."""
+    keys = prng.split(prng.key(args.seed), 8)
+    params = {"static": init_static_field(keys[0], cfgs["static"], device),
+              "temp": init_temporal_field(keys[1], cfgs["temp"], device)}
+    return TrainState(params=params, opt_state=init_opt_state(params), step=0, rng=keys[7])
+
+
 def prepare_composite(args, device: torch.device) -> dict:
-    """Dataset, device arrays, state and the step function."""
-    if args.resume_from:
-        raise NotImplementedError("--resume_from: checkpoints are not ported yet")
-    if args.early_stop_patience > 0:
-        raise NotImplementedError("--early_stop_patience: the patience stop and the "
-                                  "checkpoint selection it keeps are not ported yet")
+    """Dataset, device arrays, state (restored with ``--resume_from``) and
+    the step function."""
     paths = dataset_paths(args, args.data_root)
     if (not os.path.isfile(paths.general) or not os.path.isfile(paths.train)
             or args.regenerate_data or args.only_prepare_data):
@@ -194,11 +205,9 @@ def prepare_composite(args, device: torch.device) -> dict:
     hp = resolve_pallas_support(hp, cfgs)
     tx = make_optimizer(args.lr, args.lr_end_factor, args.lr_decay_steps,
                         weight_decay=args.weight_decay)
-    init_gen = torch.Generator().manual_seed(args.seed)
-    params = {"static": init_static_field(init_gen, cfgs["static"], device),
-              "temp": init_temporal_field(init_gen, cfgs["temp"], device)}
-    state = TrainState(params=params, opt_state=init_opt_state(params), step=0,
-                       generator=torch.Generator(device=device).manual_seed(args.seed))
+    state = _init_composite_state(args, cfgs, tx, device)
+    if args.resume_from:
+        state = load_checkpoint(args.resume_from, state)
     depth_values = linspace_depths(info["near_thresh"], info["far_thresh"],
                                    args.depth_samples_per_ray_coarse, device=device)
     train_step = make_composite_train_step(cfgs, hp, tx, depth_values, max_pixel_value)
@@ -244,6 +253,92 @@ def _run_chunk(train_step, state, dd, n_now: int, hull=None) -> dict:
     return out
 
 
+def selection_metric(last_eval: dict, best_metric: str, sep_corr_threshold: float):
+    """The scalar checkpoint-best retention keys on (and the patience stop
+    watches): the selection-view image PSNR, with checkpoints whose
+    selection-view ``dyn_corr`` is below ``sep_corr_threshold`` docked 1000
+    under ``best_metric == "separated_psnr"`` (PSNRs live in [0, ~50], so
+    the two tiers never interleave). None before the first eval."""
+    metric = last_eval.get("test_image_psnr")
+    if metric is not None and best_metric == "separated_psnr":
+        corr = last_eval.get("test_dyn_corr")
+        if corr is not None and corr < sep_corr_threshold:
+            metric = metric - 1000.0
+    return metric
+
+
+def _chunked_train_loop(args, logger, log_dir, state, dd, train_step, chunk: int,
+                        n_total: int, *, eval_fn=None, save_fn=None, early_stop_fn=None,
+                        hull=None):
+    """Run chunks of steps to ``n_total``: per-step logging at ``log_every``
+    granularity, the optional early stop, the non-finite abort, the eval at
+    ``display_every`` boundaries (an ``eval_fn`` returning True stops the
+    run), checkpoints at ``save_every`` boundaries, at a stop and at the
+    end, and the ``--profile_steps`` window of ``torch.profiler`` from the
+    first chunk, its trace under ``<log_dir>/profile``. ``train_time``
+    excludes the eval and the save (the JAX loop's includes them)."""
+    start_step = state.step
+    stop = False
+    loop_info = {"diverged_at": None, "diverged_terms": None}
+    profile_left = args.profile_steps
+    prof = None
+    if profile_left > 0:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if dd["rays"].is_cuda:
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+    t_start = time.time()
+    step = start_step
+    while step < n_total and not stop:
+        n_now = min(chunk, n_total - step)
+        metrics = _run_chunk(train_step, state, dd, n_now, hull=hull)
+        chunk_time = time.time() - t_start
+        for i in range(n_now):
+            if (step + i) % args.log_every == 0:
+                rec = {k: v[i] for k, v in metrics.items()}
+                rec["train_time"] = chunk_time / n_now
+                logger.log(rec, step=step + i)
+        if early_stop_fn is not None:
+            stop = early_stop_fn(metrics, step, n_now)
+        # non-finite abort: a diverged run never recovers
+        if not np.isfinite(metrics["train_loss"]).all():
+            first_bad = int(np.argmax(~np.isfinite(metrics["train_loss"])))
+            loop_info["diverged_at"] = step + first_bad
+            loop_info["diverged_terms"] = sorted(k for k, v in metrics.items()
+                                                 if not np.isfinite(v[first_bad]))
+            print(f"ABORT at step {step + first_bad}: non-finite train_loss "
+                  f"(non-finite terms: {loop_info['diverged_terms']})")
+            stop = True
+        step += n_now
+        if prof is not None and step - start_step >= profile_left:
+            _save_trace(prof, log_dir, start_step, step)
+            prof = None
+        if eval_fn is not None and (step % args.display_every == 0 or stop):
+            # an eval_fn may request a stop (metric-patience early stop); the
+            # save below then still fires, capturing the final state
+            if eval_fn(state, step) and not stop:
+                print(f"Early stop at step {step}: eval patience exhausted")
+                stop = True
+        if save_fn is not None and (step % args.save_every == 0 or stop or step >= n_total):
+            save_fn(state, step)
+        t_start = time.time()
+    if prof is not None:  # the run ended inside the window
+        _save_trace(prof, log_dir, start_step, step)
+    loop_info["final_step"] = step
+    return state, loop_info
+
+
+def _save_trace(prof, log_dir: str, start: int, end: int) -> None:
+    """Stop ``prof`` and write its trace to ``<log_dir>/profile``."""
+    prof.stop()
+    trace_dir = os.path.join(log_dir, "profile")
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(trace_dir, f"steps-{start}-{end}.json"))
+
+
 def train_composite(args=None, argv=None, max_steps: Optional[int] = None) -> dict:
     """The ``run_composite`` entry point. Returns the final state + summary."""
     if args is None:
@@ -252,17 +347,32 @@ def train_composite(args=None, argv=None, max_steps: Optional[int] = None) -> di
     log_dir = make_log_dir(args.log_dir_root, args.data_name, "-composite")
     logger = MetricsLogger(log_dir, use_wandb=args.use_wandb, config=vars(args))
     setup = prepare_composite(args, device)
-    state, dd = setup["state"], setup["device_data"]
     hp, cfgs = setup["hp"], setup["cfgs"]
     test_views = setup["test_views"]
-    chunk = setup["chunk_size"]
-    # the reference jitters the eval depths once before the loop
-    test_depths = stratify_depths(
-        setup["depth_values"], torch.Generator(device=device).manual_seed(args.seed + 1))
+    # the reference jitters the eval depths once before the loop (from
+    # PRNGKey(seed + 1) in the JAX trainer)
+    n_samples = setup["depth_values"].shape[0]
+    test_depths = stratify_depths(setup["depth_values"], t_rand=torch.from_numpy(
+        prng.uniform(prng.key(args.seed + 1), (n_samples,))).to(device))
     n_total = (max_steps if max_steps is not None else args.n_iters) + 1
-    print("checkpoints are not ported yet: no checkpoint will be saved")
 
-    def eval_view(view, step):
+    def early_stop_fn(metrics, step, n_now):
+        # early stop (run_composite.py:310-312)
+        hit = (((metrics["train_d_entropy_loss"] < EARLY_STOP_EPS)
+                | (metrics["train_favor_s_loss"] < EARLY_STOP_EPS))
+               & (np.arange(step, step + n_now) >= args.static_pos_enc_window_decay_steps))
+        if hit.any():
+            print(f"Early stop at step {step + int(np.argmax(hit))}")
+            return True
+        return False
+
+    last_eval: dict = {}  # feeds best-by-metric checkpoint retention
+    best_seen = [float("-inf"), 0]  # [best selection metric, stale evals]
+
+    def _selection_metric():
+        return selection_metric(last_eval, args.best_metric, args.sep_corr_threshold)
+
+    def eval_view(state, view, step):
         render = evaluation.render_test_view(
             state.params, view["origins"], view["directions"], view["phases"], test_depths,
             step, cfgs, hp, setup["max_pixel_value"], hull=setup["hull"])
@@ -274,10 +384,10 @@ def train_composite(args=None, argv=None, max_steps: Optional[int] = None) -> di
             tm["test_dyn_corr"] = evaluation.pearson_corr(pred_dyn, view["dyn_gt"])
         return render, tm
 
-    def eval_fn(step):
-        render, tm = eval_view(test_views[0], step)
+    def eval_fn(state, step):
+        render, tm = eval_view(state, test_views[0], step)
         if len(test_views) > 1:
-            tms = [tm] + [eval_view(v, step)[1] for v in test_views[1:]]
+            tms = [tm] + [eval_view(state, v, step)[1] for v in test_views[1:]]
             tm = {k: float(np.mean([t[k] for t in tms])) for k in tms[0]
                   if all(k in t for t in tms)}
             tm["step"] = step  # as nerfca_tpu/train/trainer.py records it
@@ -285,6 +395,7 @@ def train_composite(args=None, argv=None, max_steps: Optional[int] = None) -> di
                 for key in ("test_image_psnr", "test_dyn_corr"):
                     if key in t:
                         tm[f"{key}_sel{i}"] = t[key]
+        last_eval.update(tm)
         logger.log(tm, step=step)
         view = test_views[0]
         w, h = view["shape"]
@@ -299,42 +410,34 @@ def train_composite(args=None, argv=None, max_steps: Optional[int] = None) -> di
         }, step)
         print(f"step {step}: test_loss={tm['test_loss']:.6f} "
               f"test_psnr={tm['test_psnr']:.3f} image_psnr={tm['test_image_psnr']:.3f}")
-        return tm
+        if args.early_stop_patience > 0:
+            metric = _selection_metric()
+            if metric is not None and metric > best_seen[0]:
+                best_seen[0], best_seen[1] = metric, 0
+            else:
+                best_seen[1] += 1
+            # under checkpoint-best retention, post-peak steps are waste at
+            # the 4-view operating point (memorization collapse)
+            return best_seen[1] >= args.early_stop_patience
+        return False
 
-    last_eval: dict = {}
-    diverged_at, diverged_terms = None, None
-    step = state.step
-    t_start = time.time()
-    stop = False
-    while step < n_total and not stop:
-        n_now = min(chunk, n_total - step)
-        metrics = _run_chunk(setup["train_step"], state, dd, n_now, hull=setup["hull"])
-        chunk_time = time.time() - t_start
-        t_start = time.time()
-        for i in range(n_now):
-            if (step + i) % args.log_every == 0:
-                rec = {k: v[i] for k, v in metrics.items()}
-                rec["train_time"] = chunk_time / n_now
-                logger.log(rec, step=step + i)
-        # early stop (run_composite.py:310-312)
-        hit = (((metrics["train_d_entropy_loss"] < EARLY_STOP_EPS)
-                | (metrics["train_favor_s_loss"] < EARLY_STOP_EPS))
-               & (np.arange(step, step + n_now) >= args.static_pos_enc_window_decay_steps))
-        if hit.any():
-            print(f"Early stop at step {step + int(np.argmax(hit))}")
-            stop = True
-        if not np.isfinite(metrics["train_loss"]).all():
-            first_bad = int(np.argmax(~np.isfinite(metrics["train_loss"])))
-            diverged_at = step + first_bad
-            diverged_terms = sorted(k for k, v in metrics.items()
-                                    if not np.isfinite(v[first_bad]))
-            print(f"ABORT at step {diverged_at}: non-finite train_loss "
-                  f"(non-finite terms: {diverged_terms})")
-            stop = True
-        step += n_now
-        if test_views and (step % args.display_every == 0 or stop):
-            last_eval = eval_fn(step)
-            t_start = time.time()  # train_time excludes the eval render
+    ckpt_mgr = CheckpointManager(log_dir, keep_last_n=args.keep_last_n_checkpoints)
+
+    def save_fn(state, step):
+        ckpt_mgr.save(state, cfgs, run_metadata={
+            "data_name": args.data_name,
+            "step": int(state.step),
+            # the hull gate is part of the model: offline eval rebuilds it
+            # from this record, not from its own CLI defaults
+            "hull": hull_args_record(args),
+        }, metric=_selection_metric())
+
+    state, loop_info = _chunked_train_loop(
+        args, logger, log_dir, setup["state"], setup["device_data"], setup["train_step"],
+        setup["chunk_size"], n_total, eval_fn=eval_fn if test_views else None,
+        save_fn=save_fn, early_stop_fn=early_stop_fn, hull=setup["hull"])
     logger.close()
-    return {"state": state, "log_dir": log_dir, "setup": setup, "diverged_at": diverged_at,
-            "diverged_terms": diverged_terms, "final_step": step, "last_eval": last_eval}
+    return {"state": state, "log_dir": log_dir, "setup": setup,
+            "diverged_at": loop_info["diverged_at"],
+            "diverged_terms": loop_info["diverged_terms"],
+            "final_step": loop_info["final_step"], "last_eval": last_eval}

@@ -10,6 +10,7 @@ import torch
 from nerfca_tpu.models import fields as jf
 from nerfca_tpu.ops.encoding import free_window_mask
 from nerfca_tpu_torch.models import fields as tf
+from nerfca_tpu_torch.ops import prng
 
 
 def cfgs(basis=4, layers=2, width=128, enc="free_windowed"):
@@ -42,8 +43,8 @@ def test_config_fields_match():
 
 def test_init_shapes_and_bounds():
     _, _, cs, ct = cfgs(basis=12, layers=4)
-    g = torch.Generator().manual_seed(0)
-    ps, pt = tf.init_static_field(g, cs), tf.init_temporal_field(g, ct)
+    keys = prng.split(prng.key(0))
+    ps, pt = tf.init_static_field(keys[0], cs), tf.init_temporal_field(keys[1], ct)
     assert ps["early"][0]["w"].shape == (128, 75)  # [out, in]
     assert pt["early"][0]["w"].shape == (128, 83)
     assert len(pt["early"]) == 5 and pt["out"]["w"].shape == (1, 128)

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from nerfca_tpu_torch.models.fields import FieldConfig, init_static_field, init_temporal_field
+from nerfca_tpu_torch.ops import prng
 from nerfca_tpu_torch.ops.cuda import fused_field as ff
 from nerfca_tpu_torch.ops.encoding import free_window_mask, nerfies_window
 from nerfca_tpu_torch.train.step import param_items
@@ -35,9 +36,9 @@ def make(dev, r=37, s=100, basis=12, layers=4, enc="free_windowed", seed=0, shar
     kw = dict(num_early_layers=layers, num_filters=128, pos_enc=enc, pos_enc_basis=basis,
               pos_enc_window_start=1, pos_enc_window_decay_steps=100)
     cfg_s, cfg_t = FieldConfig(**kw), FieldConfig(use_time_latents=True, num_time_dim=8, **kw)
-    gen = torch.Generator().manual_seed(seed)
-    params = {"static": init_static_field(gen, cfg_s, dev),
-              "temp": init_temporal_field(gen, cfg_t, dev)}
+    keys = prng.split(prng.key(seed))
+    params = {"static": init_static_field(keys[0], cfg_s, dev),
+              "temp": init_temporal_field(keys[1], cfg_t, dev)}
     leaves = [t.requires_grad_(True) for _, t in param_items(params)]
     g = torch.Generator(device=dev).manual_seed(seed)
     o = torch.tensor([[0.05, -0.1, -4.5]], device=dev).repeat(r, 1)

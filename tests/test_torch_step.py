@@ -209,15 +209,27 @@ def test_jitter_directions_with_injected_uniforms():
                                js.jitter_directions(key, jnp.asarray(d), 4e-4), atol=1e-6)
 
 
-def test_sample_ray_batch_layout():
+@pytest.mark.parametrize("nb_var_rays", [3, 0])
+def test_sample_ray_batch_layout(nb_var_rays):
+    # the step's draws from a key give the JAX step's batch from that key
+    # (nerfca_tpu/train/step.py:663-665), bit for bit, in the same layout
     rays = torch.arange(40 * 12, dtype=torch.float32).reshape(40, 4, 3)
     phases = torch.arange(40, dtype=torch.int32) % 10
-    hp = hparams(ts, img_sample_size=8, nb_var_rays=3)
+    hp = hparams(ts, img_sample_size=8, nb_var_rays=nb_var_rays)
     var_ids = torch.tensor([1, 5, 7])
     non_var = torch.tensor([i for i in range(40) if i not in (1, 5, 7)])
-    b = ts.sample_ray_batch(torch.Generator().manual_seed(0), rays, phases, var_ids, non_var, hp)
+    key = jax.random.PRNGKey(3)
+    _, pos, _, _ = ts.step_draws(np.asarray(jax.random.key_data(key)), hp, 3, 37, 40, 48)
+    b = ts.sample_ray_batch(rays, phases, var_ids, non_var, torch.tensor(pos), hp)
+    jb = js.sample_ray_batch(jax.random.split(key, 4)[1], jnp.asarray(rays.numpy()),
+                             jnp.asarray(phases.numpy()), jnp.asarray(var_ids.numpy()),
+                             jnp.asarray(non_var.numpy()),
+                             hparams(js, img_sample_size=8, nb_var_rays=nb_var_rays))
+    for k, v in jb.items():
+        np.testing.assert_array_equal(b[k].numpy(), np.asarray(v), err_msg=k)
     idx = (b["origins"][:, 0] / 12).long()
-    assert set(idx[:3].tolist()) <= {1, 5, 7} and not set(idx[3:].tolist()) & {1, 5, 7}
+    if nb_var_rays:
+        assert set(idx[:3].tolist()) <= {1, 5, 7} and not set(idx[3:].tolist()) & {1, 5, 7}
     torch.testing.assert_close(b["directions"], rays[idx][:, 1])
     torch.testing.assert_close(b["pixels"], rays[idx][:, 2, 0])
     torch.testing.assert_close(b["weights"], rays[idx][:, 3, 0])

@@ -102,27 +102,11 @@ def test_platform_cuda_raises_without_a_gpu(tmp_path):
                             "--log_dir_root", str(tmp_path / "c")])
 
 
-def test_resume_raises_not_implemented(tmp_path):
-    with pytest.raises(NotImplementedError):
-        run_composite.main(["--config", SMALL, "--platform", "cpu", "--resume_from", "x",
-                            "--data_root", str(tmp_path / "d"),
-                            "--log_dir_root", str(tmp_path / "c")])
-
-
-def test_early_stop_patience_raises_not_implemented(tmp_path):
-    # the patience stop needs the checkpoint selection, which is not ported:
-    # the flag raises instead of training on to n_iters
-    with pytest.raises(NotImplementedError, match="early_stop_patience"):
-        run_composite.main(["--config", SMALL, "--platform", "cpu",
-                            "--early_stop_patience", "3",
-                            "--data_root", str(tmp_path / "d"),
-                            "--log_dir_root", str(tmp_path / "c")])
-
-
 @pytest.mark.parametrize("flag,says", [
-    ("--early_stop_patience", "raises NotImplementedError"),
-    ("--best_metric", "only with --early_stop_patience"),
-    ("--sep_corr_threshold", "only with --early_stop_patience"),
+    ("--early_stop_patience", "a final checkpoint is still saved"),
+    ("--best_metric", "always dominate ones below it"),
+    ("--sep_corr_threshold", "dyn_corr gate for --best_metric separated_psnr"),
+    ("--profile_steps", "torch.profiler trace for the first N steps"),
     ("--pallas_bf16_residuals", "raises NotImplementedError"),
     ("--mesh_shape", "ignores it"),
 ])
