@@ -11,7 +11,10 @@
    latents, every band open) and times both with CUDA events: K1 and K2,
    then K3 (``fused_train_loss_and_grads``: K1, the loss kernel, K2)
    without and with a random motion-hull gate that leaves some rays empty,
-   and K3's forward and loss phase apart;
+   and K3's forward and loss phase apart; then the static method's
+   entries at ``configs/3d.txt``'s field on the same points:
+   ``fused_static_field`` (the one-field K1/K2) and the two-field point
+   form ``fused_composite_fields``, timed in turns with the composite K1/K2;
 4. drives the main paths through ``nerfca_tpu_torch.train.run_composite.main``,
    each with the launch counts set to 0 just before and read just after:
    a. the two-kernel step (``configs/composite.txt --use_pallas true``):
@@ -30,6 +33,13 @@
       views of evaluate.json and ``run_render`` of two views of
       checkpoint-best; checkpoint-1000 must pass the quality gate
       (``GATE_PSNR``, ``GATE_DYN_CORR``), printed beside the JAX record;
+   d. the static 3-D method through ``run_nerf.main`` on ``configs/3d.txt``
+      (its own one-phase 128^3 dataset, ``STATIC_STEPS`` steps): the
+      one-field K1 and K2 once a step and nothing else; the train loss and
+      ``test_image_psnr`` at steps 0, 100, 200 beside the JAX record
+      (``JAX_STATIC``), gated (``GATE_STATIC_LOSS0_REL``,
+      ``GATE_STATIC_PSNR_DB``); the entries against their twins at the
+      trained state; the warm step, kernels and plain, and the eval view;
 5. times the warm flagship step and eval render on the flagship dataset,
    in turns: K3, K1+K2, plain, K3+hull (the clean-protocol hull), then in
    the reverse order;
@@ -84,6 +94,20 @@ GATE_DYN_CORR = 0.90
 # the JAX records printed beside the port's
 JAX_40VIEW = os.path.join(REPO, "artifacts", "round5", "clean_protocol_multisel.json")
 JAX_SELECTION = os.path.join(REPO, "artifacts", "round4", "clean_protocol", "metrics.jsonl")
+
+# the static 3-D method (phase 4d): configs/3d.txt as written, cut to
+# STATIC_STEPS steps, held against the JAX record of the same command
+# (scripts/static_3d_jax_record.py: JAX's run_nerf on the CPU, plain field)
+STATIC_CONFIG = os.path.join(REPO, "configs", "3d.txt")
+STATIC_STEPS, STATIC_EVERY = 200, 100
+JAX_STATIC = os.path.join(REPO, "artifacts", "port", "static_3d_jax-200.json")
+# Gates against that record, set before the first run on the card and not
+# moved after it: the step-0 train loss (same params, batch and depths;
+# only K1's f32 sums differ; the composite's agreed to 1.3e-5) and the
+# step-200 test_image_psnr of the first test view (200 Adam steps of f32
+# rounding apart).
+GATE_STATIC_LOSS0_REL = 1e-4
+GATE_STATIC_PSNR_DB = 1.0
 
 
 def log(msg: str) -> None:
@@ -156,6 +180,18 @@ def cuda_time_ms(fn, iters: int = 5, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def wall_ms(fn, n: int) -> float:
+    """Host-clock ms per call of ``fn`` over ``n`` synchronized calls."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
 
 
 def launch_counts() -> dict:
@@ -375,17 +411,19 @@ def check_step_loss(seed: int = 0) -> float:
     return rel
 
 
-def counted_run(argv: list) -> dict:
-    """``run_composite.main(argv)`` with the launch counts set to 0 just
-    before and read just after, the eval renders' launches and times apart
-    and the time inside the train chunks summed (each chunk ends in a
-    read-back of its metrics, so its host time covers its device work)."""
+def counted_run(argv: list, static: bool = False) -> dict:
+    """``run_composite.main(argv)`` (``run_nerf.main`` with ``static``) with
+    the launch counts set to 0 just before and read just after, the eval
+    renders' launches and times apart and the time inside the train chunks
+    summed (each chunk ends in a read-back of its metrics, so its host time
+    covers its device work)."""
     import torch
 
-    from nerfca_tpu_torch.train import evaluation, run_composite, trainer
+    from nerfca_tpu_torch.train import evaluation, run_composite, run_nerf, trainer
 
     info = {"eval_launches": {}, "eval_ms": [], "train_s": 0.0, "train_steps": 0}
-    render, run_chunk = evaluation.render_test_view, trainer._run_chunk
+    render_name = "render_static_test_view" if static else "render_test_view"
+    render, run_chunk = getattr(evaluation, render_name), trainer._run_chunk
 
     def counted_render(*a, **k):
         torch.cuda.synchronize()
@@ -404,16 +442,18 @@ def counted_run(argv: list) -> dict:
         info["train_steps"] += n_now
         return out
 
-    evaluation.render_test_view, trainer._run_chunk = counted_render, timed_chunk
+    setattr(evaluation, render_name, counted_render)
+    trainer._run_chunk = timed_chunk
     try:
         reset_launch_counts()
         t0 = time.perf_counter()
-        out = run_composite.main(argv)
+        out = (run_nerf if static else run_composite).main(argv)
         torch.cuda.synchronize()
         info["wall_s"] = time.perf_counter() - t0
         total = launch_counts()
     finally:
-        evaluation.render_test_view, trainer._run_chunk = render, run_chunk
+        setattr(evaluation, render_name, render)
+        trainer._run_chunk = run_chunk
     with open(os.path.join(out["log_dir"], "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
     info.update(run=out, launches=total, train=[r for r in records if "train_loss" in r],
@@ -689,8 +729,6 @@ def steady_state_times(run: dict, hull, n_steps: int = 10, warmup: int = 3) -> d
     """Flagship step and eval-render times (ms) on a main path's dataset and
     state, once warm, path by path in turns and then in the reverse order;
     host clock around synchronized work."""
-    import torch
-
     from nerfca_tpu_torch.train import evaluation
     from nerfca_tpu_torch.train.step import make_composite_train_step
 
@@ -698,14 +736,6 @@ def steady_state_times(run: dict, hull, n_steps: int = 10, warmup: int = 3) -> d
     dd, cfgs, view = setup["device_data"], setup["cfgs"], setup["test_views"][0]
     paths = {"k3": (True, True, None), "k1k2": (True, False, None),
              "plain": (False, False, None), "k3_hull": (True, True, hull)}
-
-    def wall_ms(fn, n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0) / n
 
     times: dict = {}
     order = list(paths)
@@ -731,19 +761,23 @@ def steady_state_times(run: dict, hull, n_steps: int = 10, warmup: int = 3) -> d
 
 
 def profile_k3_step(run: dict, n_steps: int = 3) -> dict:
-    """Device time by kernel over ``n_steps`` warm K3 steps (torch.profiler),
-    per step, with the window's wall time and the device's busy share."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """:func:`profile_steps` of warm K3 steps on a main path's state."""
     from nerfca_tpu_torch.train.step import make_composite_train_step
 
-    setup, state = run["setup"], run["state"]
-    dd = setup["device_data"]
+    setup = run["setup"]
     hp = dataclasses.replace(setup["hp"], use_pallas=True, use_fused_loss=True)
     step = make_composite_train_step(setup["cfgs"], hp, setup["tx"], setup["depth_values"],
                                      setup["max_pixel_value"])
+    return profile_steps(step, run["state"], setup["device_data"], n_steps)
+
+
+def profile_steps(step, state, dd: dict, n_steps: int = 3) -> dict:
+    """Device time by kernel over ``n_steps`` warm steps of ``step``
+    (torch.profiler), per step, with the window's wall time and the
+    device's busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     def run_steps(n):
         for _ in range(n):
@@ -770,6 +804,254 @@ def profile_k3_step(run: dict, n_steps: int = 3) -> dict:
             "busy_share": busy_ms / (wall_us / n_steps / 1e3), "n_kernels_per_step":
             sum(r[2] for r in rows),
             "top": [[name[:60], round(ms, 4), count] for name, ms, count in rows[:8]]}
+
+
+def static_cfg():
+    """The static field of ``configs/3d.txt``."""
+    from nerfca_tpu_torch.train.config import parse_args
+    from nerfca_tpu_torch.train.trainer import static_config_from_args
+
+    return static_config_from_args(parse_args(["--config", STATIC_CONFIG]))
+
+
+def check_static_entries(params_static=None, window=None, n_rays: int = 1024,
+                         n_samples: int = 500, seed: int = 0, timed: bool = True) -> dict:
+    """The static method's entries against their plain twins at the full
+    shapes of ``configs/3d.txt`` (``n_rays`` x ``n_samples`` points of the
+    flagship view): ``fused_static_field`` (the one-field K1/K2) on
+    ``params_static`` (the seed's initial field when None) under ``window``
+    (every band open when None), and the two-field point form
+    ``fused_composite_fields`` (the flagship pair) against
+    ``plain_composite_fields``. Forward within K1_ATOL, gradients by K2's
+    rule. With ``timed``, CUDA-event times of the one-field K1 and K2, of
+    the point form's K1 and K2 and of the composite ray-form K1 and K2 on
+    the same points, in turns and then in the reverse order, with the plain
+    twins. Raises on a disagreement."""
+    import torch
+
+    from nerfca_tpu_torch.models.fields import init_static_field
+    from nerfca_tpu_torch.ops import prng
+    from nerfca_tpu_torch.ops.cuda import fused_field as ff
+    from nerfca_tpu_torch.train.step import param_items
+
+    dev = torch.device("cuda")
+    cfg = static_cfg()
+    if params_static is None:
+        params_static = init_static_field(prng.key(seed), cfg, dev)
+    if window is None:
+        window = torch.ones(cfg.pos_enc_basis, device=dev)
+    def leaf(t):
+        return t.detach().clone().requires_grad_(True)
+
+    params_static = {"early": [{k: leaf(v) for k, v in layer.items()}
+                               for layer in params_static["early"]],
+                     "out": {k: leaf(v) for k, v in params_static["out"].items()}}
+    names, leaves = zip(*param_items({"static": params_static}))
+    origins, dirs, z, phases = flagship_rays(n_rays, n_samples, seed + 4, dev)
+    with torch.no_grad():
+        pts = ff._points(origins, dirs, z).contiguous()
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    cot = torch.randn(n_rays, n_samples, 1, generator=g, device=dev)
+
+    def fwd_bwd(fn, *args):
+        out = fn(*args)
+        return out, torch.autograd.grad((out * cot).sum(), leaves)
+
+    k_out, k_g = fwd_bwd(ff.fused_static_field, params_static, pts, cfg, window)
+    p_out, p_g = fwd_bwd(ff.plain_static_field, params_static, pts, cfg, window)
+    torch.cuda.synchronize()
+    k1_err = float((k_out - p_out).detach().abs().max())
+    if not (math.isfinite(k1_err) and k1_err <= K1_ATOL):
+        raise AssertionError(f"fused_static_field disagrees: {k1_err:.3e} > {K1_ATOL}")
+    k2_err, k2_norm, worst = leaf_errors(names, k_g, p_g)
+    res = {"k1_err": k1_err, "k2_err": k2_err, "k2_norm": k2_norm, "k2_worst": worst,
+           "param_floats": sum(t.numel() for t in leaves)}
+
+    # the point form with both flagship fields on the same points
+    cfg_s, cfg_t = flagship_cfgs()
+    fp = flagship_params(seed + 6, dev)
+    f_names, f_leaves = zip(*param_items(fp))
+    for t in f_leaves:
+        t.requires_grad_(True)
+    pph = phases[:, None].expand(n_rays, n_samples)
+    w12 = torch.ones(12, device=dev)
+    pargs = (fp["static"], fp["temp"], pts, pph, cfg_s, cfg_t, w12, w12)
+    cot2 = torch.randn(2, n_rays, n_samples, 1, generator=g, device=dev)
+
+    def fwd_bwd2(fn):
+        out = fn(*pargs)
+        return out, torch.autograd.grad((out[0] * cot2[0]).sum() + (out[1] * cot2[1]).sum(),
+                                        f_leaves)
+
+    kp_out, kp_g = fwd_bwd2(ff.fused_composite_fields)
+    pp_out, pp_g = fwd_bwd2(ff.plain_composite_fields)
+    torch.cuda.synchronize()
+    res["point_k1_err"] = max(float((a - b).detach().abs().max())
+                              for a, b in zip(kp_out, pp_out))
+    if not (math.isfinite(res["point_k1_err"]) and res["point_k1_err"] <= K1_ATOL):
+        raise AssertionError(f"point form disagrees: {res['point_k1_err']:.3e} > {K1_ATOL}")
+    res["point_k2_err"], res["point_k2_norm"], res["point_k2_worst"] = leaf_errors(
+        f_names, kp_g, pp_g)
+    res["point_param_floats"] = sum(t.numel() for t in f_leaves)
+    if not timed:
+        return res
+
+    # the launch functions on packed inputs, as check_kernels times them
+    pack = ff._Pack(cfg, ff._leaves(params_static), window, dev)
+    pack_s = ff._Pack(cfg_s, ff._leaves(fp["static"]), w12, dev)
+    pack_t = ff._Pack(cfg_t, ff._leaves(fp["temp"]), w12, dev)
+    n = n_rays * n_samples
+    po, pd = pts.reshape(n, 3), torch.zeros(n, 3, device=dev)
+    z0 = torch.zeros(1, device=dev)
+    zero_ph, lat0 = torch.zeros(n, dtype=torch.int32, device=dev), torch.zeros(1, 8, device=dev)
+    pph32 = pph.reshape(n).to(torch.int32).contiguous()
+    ph32 = phases.to(torch.int32)
+    lat = fp["temp"]["latents"].detach()
+    g1 = cot.reshape(n).contiguous()
+    g2 = [c.reshape(n).contiguous() for c in cot2]
+    loss_p = (ff.plain_static_field(params_static, pts, cfg, window) * cot).sum()
+
+    def plain_fwd():
+        with torch.no_grad():
+            return ff.plain_static_field(params_static, pts, cfg, window)
+
+    def point_plain_fwd():
+        with torch.no_grad():
+            return ff.plain_composite_fields(*pargs)
+
+    fns = {
+        "static_k1": lambda: ff.fused_field_fwd(pack, None, po, pd, z0, zero_ph, lat0),
+        "static_k2": lambda: ff.fused_field_bwd(pack, None, po, pd, z0, zero_ph, lat0, g1, None),
+        "point_k1": lambda: ff.fused_field_fwd(pack_s, pack_t, po, pd, z0, pph32, lat),
+        "point_k2": lambda: ff.fused_field_bwd(pack_s, pack_t, po, pd, z0, pph32, lat, *g2),
+        "composite_k1": lambda: ff.fused_field_fwd(pack_s, pack_t, origins, dirs, z, ph32, lat),
+        "composite_k2": lambda: ff.fused_field_bwd(pack_s, pack_t, origins, dirs, z, ph32, lat,
+                                                   *g2),
+        "static_plain_fwd": plain_fwd,
+        "point_plain_fwd": point_plain_fwd,
+        "static_plain_bwd": lambda: torch.autograd.grad(loss_p, leaves, retain_graph=True),
+    }
+    times: dict = {}
+    for name in list(fns) + list(fns)[::-1]:
+        times.setdefault(name, []).append(cuda_time_ms(fns[name], iters=10))
+    res["ms"] = times
+    return res
+
+
+def static_phase(workdir: str) -> dict:
+    """Phase 4d: the static 3-D method through ``run_nerf.main`` on
+    ``configs/3d.txt`` at full width with ``--use_pallas true`` (its own
+    one-phase 128^3 dataset, ``STATIC_STEPS`` steps, an eval every
+    ``STATIC_EVERY``), launch counts set to 0 just before and read just
+    after: the one-field K1 and K2 once a step, no composite launch and no
+    K3. Then the step-0 eval (the seed's initial field, as the trainer's
+    eval scores it), the entries against their twins at the trained state,
+    and the warm step, kernels against plain, and the eval view, in turns.
+    Raises on any failure."""
+    import torch
+
+    from nerfca_tpu_torch.models.fields import init_static_field
+    from nerfca_tpu_torch.ops import prng
+    from nerfca_tpu_torch.train import evaluation
+    from nerfca_tpu_torch.train.step import field_window, make_static_train_step
+
+    argv = ["--config", STATIC_CONFIG, "--use_pallas", "true", "--platform", "cuda",
+            "--n_iters", str(STATIC_STEPS), "--display_every", str(STATIC_EVERY), "--seed", "0",
+            "--log_every", "1", "--data_root", os.path.join(workdir, "data-static"),
+            "--log_dir_root", os.path.join(workdir, "cases-static")]
+    res = counted_run(argv, static=True)
+    out, tl = res["run"], res["train_launches"]
+    n_total = STATIC_STEPS + 1
+    if out["diverged_at"] is not None or out["final_step"] != n_total:
+        raise AssertionError(f"static: diverged at {out['diverged_at']}, final step "
+                             f"{out['final_step']}")
+    if len(res["train"]) != n_total or not all(math.isfinite(r["train_loss"])
+                                               for r in res["train"]):
+        raise AssertionError(f"static: {len(res['train'])} logged steps, not all finite")
+    if (tl["fused_static_field_fwd"] != n_total or tl["fused_static_field_bwd"] != n_total
+            or tl["fused_field_fwd"] or tl["fused_field_bwd"] or tl["fused_train_loss"]):
+        raise AssertionError(f"static: expected the one-field K1 and K2 once a step and no "
+                             f"other launch: {tl}")
+    if [r["step"] for r in res["evals"]] != list(range(STATIC_EVERY, n_total, STATIC_EVERY)):
+        raise AssertionError(f"static: evals at {[r['step'] for r in res['evals']]}")
+
+    setup, state = out["setup"], out["state"]
+    cfg, view = setup["cfg"], setup["test_view"]
+    w, h = view["shape"]
+    gt = view["image"].cpu().numpy()
+
+    def eval_psnr(params, step):
+        render = evaluation.render_static_test_view(
+            params, view["origins"], view["directions"], setup["test_depths"], step, cfg,
+            setup["hp"], setup["max_pixel_value"])
+        pred = render["pix_static"].cpu().numpy()
+        return evaluation.image_psnr(pred.reshape(w, h), gt.reshape(w, h))
+
+    init = {"static": init_static_field(prng.key(0), cfg, torch.device("cuda"))}
+    psnr = {0: eval_psnr(init, 0), **{r["step"]: r["test_image_psnr"] for r in res["evals"]}}
+    loss = {r["step"]: r["train_loss"] for r in res["train"]}
+    with open(os.path.join(out["log_dir"], "checkpoint", "metadata.json")) as f:
+        meta = json.load(f)
+    if list(meta["field_configs"]) != ["static"] or meta["run"]["step"] != n_total:
+        raise AssertionError(f"static: checkpoint metadata {meta}")
+
+    trained = check_static_entries(state.params["static"],
+                                   field_window(cfg, state.step, torch.device("cuda")),
+                                   timed=False)
+
+    dd = setup["device_data"]
+    paths = {"kernels": True, "plain": False}
+    steady: dict = {}
+    for path in list(paths) + list(paths)[::-1]:
+        hp = dataclasses.replace(setup["hp"], use_pallas=paths[path])
+        step = make_static_train_step(cfg, hp, setup["tx"], setup["depth_values"],
+                                      setup["max_pixel_value"])
+
+        def train_step():
+            step(state, dd["rays"], dd["phases"], dd["var_ids"], dd["non_var_ids"])
+
+        wall_ms(train_step, 3)
+        steady.setdefault(f"step_ms_{path}", []).append(wall_ms(train_step, 10))
+        steady.setdefault("eval_ms", []).append(
+            wall_ms(lambda: eval_psnr(state.params, state.step), 1))
+    prof = profile_steps(make_static_train_step(cfg, setup["hp"], setup["tx"],
+                                                setup["depth_values"], setup["max_pixel_value"]),
+                         state, dd)
+    return {"res": res, "loss": loss, "psnr": psnr, "trained": trained, "steady": steady,
+            "profile": prof,
+            "n_total": n_total, "meta_run": meta["run"],
+            "rays": int(dd["rays"].shape[0]), "view": [w, h]}
+
+
+def report_static(sp: dict, card: str) -> bool:
+    """Print phase 4d beside the JAX record; True when both gates pass."""
+    with open(JAX_STATIC) as f:
+        rec = json.load(f)
+    res, loss, psnr = sp["res"], sp["loss"], sp["psnr"]
+    log(f"static 3-D method (configs/3d.txt, run_nerf, {STATIC_STEPS} steps; {card}): "
+        f"{res['wall_s']:.1f} s wall with the dataset build ({sp['rays']} rays, view "
+        f"{sp['view']}); {res['train_steps']} steps in {res['train_s']:.2f} s of train chunks "
+        f"({1e3 * res['train_s'] / res['train_steps']:.2f} ms a step, first chunk included); "
+        f"in-loop evals {[round(m, 1) for m in res['eval_ms']]} ms")
+    log(f"  launches: training {res['train_launches']}, in-loop evals {res['eval_launches']}")
+    for s in sorted(int(k) for k in rec["train_loss"]):
+        log(f"  step {s}: train_loss {loss[s]:.7g} (JAX {rec['train_loss'][str(s)]:.7g}), "
+            f"test_image_psnr {psnr[s]:.4f} dB (JAX {rec['test_image_psnr'][str(s)]:.4f})")
+    loss0_rel = abs(loss[0] - rec["train_loss"]["0"]) / abs(rec["train_loss"]["0"])
+    last = STATIC_STEPS
+    psnr_gap = abs(psnr[last] - rec["test_image_psnr"][str(last)])
+    passed = loss0_rel <= GATE_STATIC_LOSS0_REL and psnr_gap <= GATE_STATIC_PSNR_DB
+    tr = sp["trained"]
+    log(f"  at the trained state: fused_static_field max abs err {tr['k1_err']:.3e} (limit "
+        f"{K1_ATOL}), grads max abs err {tr['k2_err']:.3e}, worst leaf {tr['k2_worst']} at "
+        f"{tr['k2_norm']:.3e} of its scale (limit {K2_REL}); point form {tr['point_k1_err']:.3e}"
+        f" / {tr['point_k2_norm']:.3e}")
+    log(f"  steady state in turns, kernels / plain then reversed: {json.dumps(sp['steady'])}")
+    log(f"  profile of 3 static kernel steps: {json.dumps(sp['profile'])}")
+    log(f"  gates against the JAX record: step-0 train_loss rel {loss0_rel:.3e} <= "
+        f"{GATE_STATIC_LOSS0_REL} and step-{last} test_image_psnr gap {psnr_gap:.4f} dB <= "
+        f"{GATE_STATIC_PSNR_DB}: {'passed' if passed else 'FAILED'}")
+    return passed
 
 
 def field_macs(cfg) -> int:
@@ -806,6 +1088,20 @@ def bounds(shapes: dict) -> dict:
         "k3": ("K1 then K2 3xTF32 mma.sync on the tensor cores, the loss kernel between",
                3 * fwd, tc_s(3 * fwd), ray_bytes + 12 * r + 4 * n + 8 * n_par + 64),
     }
+    # the point-form entries, on materialized points (12 bytes a point in,
+    # phases 4 more for the pair): the static field alone (one-field K1 and
+    # K2) and the flagship pair
+    if "static_param_floats" in shapes:
+        fwd1 = 2 * field_macs(static_cfg()) * n
+        p1, p2 = shapes["static_param_floats"], shapes["point_param_floats"]
+        work["static_k1"] = ("3xTF32 mma.sync on the tensor cores", fwd1, tc_s(fwd1),
+                             12 * n + 4 * p1 + 4 * n)
+        work["static_k2"] = ("3xTF32 mma.sync on the tensor cores", 3 * fwd1, tc_s(3 * fwd1),
+                             12 * n + 4 * n + 8 * p1)
+        work["point_k1"] = ("3xTF32 mma.sync on the tensor cores", fwd, tc_s(fwd),
+                            16 * n + 4 * p2 + 8 * n)
+        work["point_k2"] = ("3xTF32 mma.sync on the tensor cores", 3 * fwd, tc_s(3 * fwd),
+                            16 * n + 8 * n + 8 * p2)
     out = {}
     for k, (route, flops, t_ops, nbytes) in work.items():
         t_bytes = nbytes / PEAK_BYTES
@@ -868,6 +1164,16 @@ def main() -> int:
         f"terms, cotangents) {k3['loss_phase_ms']:.3f} ms ({card})")
     rel = check_step_loss()
     log(f"flagship step loss, kernels vs plain: rel diff {rel:.3e} (limit {LOSS_REL})")
+    se = check_static_entries()
+    log(f"fused_static_field (one-field K1/K2, configs/3d.txt's field, initial params, every "
+        f"band open) vs plain_static_field: max abs err {se['k1_err']:.3e} (limit {K1_ATOL}); "
+        f"grads max abs err {se['k2_err']:.3e}, worst leaf {se['k2_worst']} at "
+        f"{se['k2_norm']:.3e} of its scale (limit {K2_REL})")
+    log(f"fused_composite_fields (point form, flagship pair) vs plain_composite_fields: max abs "
+        f"err {se['point_k1_err']:.3e}; grads {se['point_k2_err']:.3e}, worst leaf "
+        f"{se['point_k2_worst']} at {se['point_k2_norm']:.3e} of its scale")
+    log(f"static / point-form / composite K1 and K2 in turns then reversed, CUDA events, "
+        f"1024 x 500 points ({card}): {json.dumps(se['ms'])}")
 
     with tempfile.TemporaryDirectory() as workdir:
         mp = drive_main_path(workdir, [], 6)
@@ -900,13 +1206,18 @@ def main() -> int:
             raise AssertionError("clean protocol: checkpoint-1000 is under the quality gate")
         hull = cp["hull"]
 
+        sp = static_phase(workdir)
+        if not report_static(sp, card):
+            raise AssertionError("static: the run is outside the gates against the JAX record")
+
     steady = steady_state_times(fp["run"], hull)
     log(f"steady state in turns, K3 / K1+K2 / plain / K3+hull then reversed ({card}): "
         f"{json.dumps(steady)}")
     prof = profile_k3_step(fp["run"])
     log(f"profile of 3 K3 steps ({card}): {json.dumps(prof)}")
 
-    bd = bounds(kc["shapes"])
+    bd = bounds({**kc["shapes"], "static_param_floats": se["param_floats"],
+                 "point_param_floats": se["point_param_floats"]})
     for k, b in bd.items():
         log(f"{k.upper()} runs {b['route']}: bound {b['bound_ms']:.3f} ms ({b['bound_by']}); "
             f"all f32 on the CUDA cores {b['bound_ms_f32_cuda_cores']:.3f} ms, all 3xTF32 on "
@@ -917,7 +1228,11 @@ def main() -> int:
                 "bound_ms_f32_cuda_cores": b["bound_ms_f32_cuda_cores"],
                 "bound_ms_3xtf32_tensor_cores": b["bound_ms_3xtf32_tensor_cores"]}
 
-    launches, clean = fp["launches"], cp["res"]["launches"]
+    launches, clean, static = fp["launches"], cp["res"]["launches"], sp["res"]["launches"]
+
+    def mean(name):
+        return sum(se["ms"][name]) / len(se["ms"][name])
+
     kernels = [
         {"name": "fused_field_fwd (K1)", "route": "cuda",
          "source": "nerfca_tpu_torch/csrc/fused_field.cu",
@@ -948,6 +1263,34 @@ def main() -> int:
          "loss_phase_ms": k3["loss_phase_ms"],
          "ms_hull": k3["ms_hull"], "plain_ms_hull": k3["plain_ms_hull"],
          **bound_keys(bd["k3"]),
+         "library_ms": None},
+        {"name": "fused_static_field forward (K1 one field, fwd_kernel<2, 32, 1>)",
+         "route": "cuda", "source": "nerfca_tpu_torch/csrc/fused_field.cu",
+         "replaces": "nerfca_tpu/ops/pallas/fused_field.py:803",
+         "launches": static["fused_static_field_fwd"], "max_abs_err": se["k1_err"],
+         "max_abs_err_trained": sp["trained"]["k1_err"], "limit": f"abs {K1_ATOL}",
+         "ms": mean("static_k1"), "plain_ms": mean("static_plain_fwd"),
+         **bound_keys(bd["static_k1"]), "library_ms": None},
+        {"name": "fused_static_field backward (K2 one field, bwd_kernel<1>)", "route": "cuda",
+         "source": "nerfca_tpu_torch/csrc/fused_field.cu",
+         "replaces": "nerfca_tpu/ops/pallas/fused_field.py:803",
+         "launches": static["fused_static_field_bwd"], "max_abs_err": se["k2_err"],
+         "max_err_of_leaf_scale": se["k2_norm"],
+         "max_err_of_leaf_scale_trained": sp["trained"]["k2_norm"],
+         "limit": f"{K2_REL} of leaf scale", "ms": mean("static_k2"),
+         "plain_ms": mean("static_plain_bwd"), **bound_keys(bd["static_k2"]),
+         "library_ms": None},
+        {"name": "fused_composite_fields point form (K1 + K2 over one-sample rays)",
+         "route": "cuda", "source": "nerfca_tpu_torch/csrc/fused_field.cu",
+         "replaces": "nerfca_tpu/ops/pallas/fused_field.py:741",
+         # fused_static_field is the point form without a temporal field:
+         # the static path's point-form launches are all one-field
+         "launches": static["fused_static_field_fwd"],
+         "launches_two_fields": static["fused_field_fwd"], "max_abs_err": se["point_k1_err"],
+         "max_err_of_leaf_scale": se["point_k2_norm"], "limit": f"abs {K1_ATOL}; grads "
+         f"{K2_REL} of leaf scale", "ms": mean("point_k1"), "bwd_ms": mean("point_k2"),
+         "ray_form_ms": mean("composite_k1"), "ray_form_bwd_ms": mean("composite_k2"),
+         "plain_ms": mean("point_plain_fwd"), **bound_keys(bd["point_k1"]), "bwd_bound_ms": bd["point_k2"]["bound_ms"],
          "library_ms": None},
     ]
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")

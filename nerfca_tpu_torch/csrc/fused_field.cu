@@ -8,6 +8,11 @@
 // field_common.cuh. The fused-loss step (fused_train.cu) takes its forward
 // from K1.
 //
+// Both kernels are templated on the field count NF. NF == 2 is the composite
+// pair above; NF == 1 evaluates the static field alone (the field of the
+// static 3-D method), on half the CTAs, with the same code per CTA. A C
+// entry given ft == NULL launches NF == 1.
+//
 // What they compute, per point i = r * S + s of a ray batch:
 //   x = o[r] + z[r, s] * d[r]                      (never materialized in HBM)
 //   enc = [x, per band b: w[b] * sin(2^b x), w[b] * sin(2^b x + pi/2)]
@@ -91,7 +96,8 @@ __host__ __device__ inline GradLayout grad_layout(const FieldArgs& f, int n_phas
 
 // ---------------------------------------------------------------------------
 // K2 on the tensor cores. One CTA of 8 warps walks its tiles of BTP points
-// for one field (even CTAs the static field, odd ones the temporal field);
+// for one field (with two, even CTAs the static field and odd ones the
+// temporal field);
 // per tile it recomputes the forward, storing the residuals in its scratch,
 // then backpropagates. The three products run as 3xTF32 mma.sync
 // (field_mma.cuh), warp w owning a 32 x 64 block of each:
@@ -519,6 +525,7 @@ __device__ __forceinline__ void k2_backward(const FieldArgs& f, WeightRing& ring
   }
 }
 
+template <int NF>
 __global__ void __launch_bounds__(NTHREADS, 1)
 bwd_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, const float* g_s, const float* g_t,
            float* partials, long part_stride, float* scratch_all, long scratch_stride) {
@@ -533,15 +540,18 @@ bwd_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, const float* g_s, const float*
   const long n_tiles = (n_pts + BTP - 1) / BTP;
   float* part = partials + blockIdx.x * part_stride;
   float* scratch = scratch_all + blockIdx.x * scratch_stride;
-  // even CTAs take the static field, odd ones the temporal field, so a
-  // CTA's live gradient partial is one field's (~300 KB at the flagship
-  // widths, ~40 MB over 132 CTAs, against the 50 MB L2)
-  const bool temporal = blockIdx.x & 1;
+  // two fields (NF == 2): even CTAs take the static field, odd ones the
+  // temporal field, so a CTA's live gradient partial is one field's
+  // (~300 KB at the flagship widths, ~40 MB over 132 CTAs, against the
+  // 50 MB L2); one field (NF == 1): every CTA takes fs, and ft is unused
+  const bool temporal = NF == 2 && (blockIdx.x & 1);
   const FieldArgs& f = temporal ? ft : fs;
   const float* g = temporal ? g_t : g_s;
   float* fpart = part + (temporal ? grad_layout(fs, r.n_phases).size : 0);
+  const long first = NF == 2 ? blockIdx.x >> 1 : blockIdx.x;
+  const long stride = NF == 2 ? gridDim.x >> 1 : gridDim.x;
   float lat_acc = 0.f;
-  for (long tile = blockIdx.x >> 1; tile < n_tiles; tile += gridDim.x >> 1) {
+  for (long tile = first; tile < n_tiles; tile += stride) {
     WeightRing ring = ring_begin(f, ring_buf);
     k2_forward(f, r, g, tile * BTP, ring, H, D, phase_sm, g_sm, scratch);
     k2_backward(f, ring, r.n_phases, H, D, phase_sm, g_sm, dlat_sm, scratch, fpart, &lat_acc);
@@ -561,12 +571,14 @@ __global__ void reduce_kernel(const float* partials, long part_stride, int n_par
 }
 
 // ---------------------------------------------------------------------------
-// K1 on the tensor cores: K2's forward without the residual stores. CTA 2t
-// runs the static field and CTA 2t + 1 the temporal field on the tile of
-// K1_TP points at t * K1_TP: encode, the input and hidden layers as 3xTF32
-// mma.sync (mma_layer_fwd, weights through the ring in chunks of K1_WCH
-// rows), then the output layer out[i] = bo + sum_n wo[n] relu(h_L[i][n]) on
-// the CUDA cores in f32, a warp per point, for the points that exist.
+// K1 on the tensor cores: K2's forward without the residual stores. With
+// two fields (NF == 2) CTA 2t runs the static field and CTA 2t + 1 the
+// temporal field on the tile of K1_TP points at t * K1_TP; with one
+// (NF == 1) CTA t runs fs on tile t and writes out_s alone. Each CTA:
+// encode, the input and hidden layers as 3xTF32 mma.sync (mma_layer_fwd,
+// weights through the ring in chunks of K1_WCH rows), then the output layer
+// out[i] = bo + sum_n wo[n] relu(h_L[i][n]) on the CUDA cores in f32, a
+// warp per point, for the points that exist.
 
 #define K1_TP 128            // K1 points per tile
 #define K1_WCH 32            // weight rows per K1 ring chunk
@@ -575,7 +587,7 @@ __global__ void reduce_kernel(const float* partials, long part_stride, int n_par
 constexpr int k1_smem(int np, int c) { return (np * LDH + 2 * c * LDW) * 4 + np * 4; }
 
 // two CTAs per SM where their shared memory fits (1 KB of each is reserved)
-template <int M, int C>
+template <int M, int C, int NF>
 __global__ void __launch_bounds__(NTHREADS, 2 * (k1_smem(64 * M, C) + 1024) <= 233472 ? 2 : 1)
 fwd_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, float* out_s, float* out_t) {
   constexpr int NP = 64 * M;
@@ -583,10 +595,10 @@ fwd_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, float* out_s, float* out_t) {
   float* H = reinterpret_cast<float*>(smem4);
   float* ring_buf = H + NP * LDH;
   int* phase_sm = reinterpret_cast<int*>(ring_buf + 2 * C * LDW);
-  const bool temporal = blockIdx.x & 1;
+  const bool temporal = NF == 2 && (blockIdx.x & 1);
   const FieldArgs& f = temporal ? ft : fs;
   const long n_pts = (long)r.n_rays * r.n_samples;
-  const long tile0 = (long)(blockIdx.x >> 1) * NP;
+  const long tile0 = (long)(NF == 2 ? blockIdx.x >> 1 : blockIdx.x) * NP;
   WeightRing ring = ring_begin<C>(f, ring_buf, false);
 #pragma unroll
   for (int h = 0; h < M; ++h)
@@ -629,6 +641,36 @@ static const int FWD_SMEM = k1_smem(K1_TP, K1_WCH);
 static const int BWD_SMEM =
     (BTP * LDH + BTP * LDD + 2 * WCH * LDW + BTP + BTP * MAX_LAT) * 4 + BTP * 4;
 
+// The launches of one instantiation (NF fields; the C entries pick NF).
+template <int NF>
+static int launch_fwd(const FieldArgs& fs, const FieldArgs& ft, const RayArgs& r, float* out_s,
+                      float* out_t, cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(fwd_kernel<K1_TP / 64, K1_WCH, NF>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const long n_pts = (long)r.n_rays * r.n_samples;
+  const long n_tiles = (n_pts + K1_TP - 1) / K1_TP;
+  if (n_tiles == 0) return 0;
+  fwd_kernel<K1_TP / 64, K1_WCH, NF>
+      <<<(unsigned)(NF * n_tiles), NTHREADS, FWD_SMEM, st>>>(fs, ft, r, out_s, out_t);
+  return (int)cudaGetLastError();
+}
+
+template <int NF>
+static cudaError_t launch_bwd(const FieldArgs& fs, const FieldArgs& ft, const RayArgs& r,
+                              const float* g_s, const float* g_t, int n_ctas, float* partials,
+                              long part_stride, float* scratch, long scratch_stride,
+                              cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(bwd_kernel<NF>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
+  if (e != cudaSuccess) return e;
+  e = cudaMemsetAsync(partials, 0, sizeof(float) * part_stride * n_ctas, st);
+  if (e != cudaSuccess) return e;
+  bwd_kernel<NF><<<n_ctas, NTHREADS, BWD_SMEM, st>>>(fs, ft, r, g_s, g_t, partials,
+                                                     part_stride, scratch, scratch_stride);
+  return cudaGetLastError();
+}
+
 extern "C" {
 
 int fused_field_smem_bytes(int which) { return which == 0 ? FWD_SMEM : BWD_SMEM; }
@@ -636,41 +678,36 @@ int fused_field_smem_bytes(int which) { return which == 0 ? FWD_SMEM : BWD_SMEM;
 // Points per K2 tile (the wrapper sizes the residual scratch with it).
 int fused_field_bwd_tile_points() { return BTP; }
 
+// Every entry takes ft == NULL for one field: fs alone (the static field
+// of the static method), its block alone in the gradient.
+
 // Floats in one CTA's gradient partial (static block, then temporal block).
 long fused_field_grad_size(const FieldArgs* fs, const FieldArgs* ft, int n_phases) {
-  return grad_layout(*fs, n_phases).size + grad_layout(*ft, n_phases).size;
+  return grad_layout(*fs, n_phases).size + (ft ? grad_layout(*ft, n_phases).size : 0);
 }
 
+// out_t is unused with one field.
 int fused_field_fwd(const FieldArgs* fs, const FieldArgs* ft, const RayArgs* r,
                     float* out_s, float* out_t, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(fwd_kernel<K1_TP / 64, K1_WCH>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  const long n_pts = (long)r->n_rays * r->n_samples;
-  const long n_tiles = (n_pts + K1_TP - 1) / K1_TP;
-  if (n_tiles == 0) return 0;
-  fwd_kernel<K1_TP / 64, K1_WCH>
-      <<<(unsigned)(2 * n_tiles), NTHREADS, FWD_SMEM, (cudaStream_t)stream>>>(*fs, *ft, *r,
-                                                                              out_s, out_t);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  return ft ? launch_fwd<2>(*fs, *ft, *r, out_s, out_t, st)
+            : launch_fwd<1>(*fs, *fs, *r, out_s, out_t, st);
 }
 
 // partials: [n_ctas, part_stride] zero-initialized by this call;
-// scratch: [n_ctas, scratch_stride]; grads: [grad_size] output.
+// scratch: [n_ctas, scratch_stride]; grads: [grad_size] output. Two fields
+// need an even n_ctas; g_t is unused with one field.
 int fused_field_bwd(const FieldArgs* fs, const FieldArgs* ft, const RayArgs* r,
                     const float* g_s, const float* g_t, int n_ctas, float* partials,
                     long part_stride, float* scratch, long scratch_stride, float* grads,
                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = cudaFuncSetAttribute(bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       BWD_SMEM);
-  if (e != cudaSuccess) return (int)e;
   const long n = fused_field_grad_size(fs, ft, r->n_phases);
-  e = cudaMemsetAsync(partials, 0, sizeof(float) * part_stride * n_ctas, st);
-  if (e != cudaSuccess) return (int)e;
-  bwd_kernel<<<n_ctas, NTHREADS, BWD_SMEM, st>>>(*fs, *ft, *r, g_s, g_t, partials,
-                                                 part_stride, scratch, scratch_stride);
-  e = cudaGetLastError();
+  cudaError_t e =
+      ft ? launch_bwd<2>(*fs, *ft, *r, g_s, g_t, n_ctas, partials, part_stride, scratch,
+                         scratch_stride, st)
+         : launch_bwd<1>(*fs, *fs, *r, g_s, g_t, n_ctas, partials, part_stride, scratch,
+                         scratch_stride, st);
   if (e != cudaSuccess) return (int)e;
   reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(partials, part_stride, n_ctas,
                                                              n, grads);

@@ -1,5 +1,6 @@
-"""Fused encode -> MLP evaluation of both composite fields: CUDA kernels K1
-(forward) and K2 (its backward) with their plain PyTorch version.
+"""Fused encode -> MLP evaluation of the composite fields, or of the static
+field alone: CUDA kernels K1 (forward) and K2 (its backward) with their
+plain PyTorch version.
 
 K1 ``fused_field_fwd`` replaces ``nerfca_tpu/ops/pallas/fused_field.py::
 _fwd_kernel`` and K2 ``fused_field_bwd`` replaces ``::_bwd_kernel``, the
@@ -14,13 +15,27 @@ form (origins, directions, per-ray or shared depths, per-ray phases, the
 latent table) and build points and latents themselves, so no ``[R*S, 3]``
 or ``[N, 8]`` array is ever materialized.
 
-Dispatch: a CPU tensor takes :func:`plain_composite_fields_rays` (encode +
-MLP in torch, gradients from autograd); a CUDA tensor launches the kernels
-or raises. The kernels are built with ``nvcc`` into ``build/kernels/`` at
-first use (a plain C interface loaded with ``ctypes``; see ``build.py``).
+Entries, each with its plain twin:
+
+  - :func:`fused_composite_fields_rays`, the ray form (both fields);
+  - :func:`fused_composite_fields`, the point form: already-materialized
+    points ``[R, S, 3]`` with per-point phases, run as ``R*S`` rays of one
+    sample each (origin the point, direction 0, depth 0, so ``o + z*d`` is
+    the point bit for bit);
+  - :func:`fused_static_field`, the static method's field: the point form
+    with no temporal field, which launches the one-field instantiation of
+    K1 and K2 (``NF == 1`` in the source: half the CTAs of a composite
+    launch, the gradient the static block alone).
+
+Dispatch: CPU tensors take the plain twin (encode + MLP in torch, gradients
+from autograd); CUDA tensors launch the kernels or raise. The kernels are
+built with ``nvcc`` into ``build/kernels/`` at first use (a plain C
+interface loaded with ``ctypes``; see ``build.py``).
 
 Launch counts: ``LAUNCHES["fused_field_fwd"]`` / ``["fused_field_bwd"]``
-grow by one at each kernel launch and nowhere else.
+(two fields) and ``["fused_static_field_fwd"]`` /
+``["fused_static_field_bwd"]`` (one field) grow by one at each kernel
+launch and nowhere else.
 """
 
 from __future__ import annotations
@@ -45,7 +60,8 @@ MAX_LAT = 8
 MAX_PHASES = 16
 BWD_CTAS = 132  # fixed so the gradient reduction order never depends on the card
 
-LAUNCHES = {"fused_field_fwd": 0, "fused_field_bwd": 0}
+LAUNCHES = {"fused_field_fwd": 0, "fused_field_bwd": 0, "fused_static_field_fwd": 0,
+            "fused_static_field_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -85,6 +101,20 @@ def plain_composite_fields_rays(params_s, params_t, origins, directions, z, ray_
     raw_s = apply_static_field(params_s, pts, cfg_s, window=window_s)
     raw_t = apply_temporal_field(params_t, pts, phases, cfg_t, window=window_t)
     return raw_s, raw_t
+
+
+def plain_composite_fields(params_s, params_t, points, point_phases, cfg_s: FieldConfig,
+                           cfg_t: FieldConfig, window_s, window_t):
+    """Point form in torch: ``points [R, S, 3]``, integer ``point_phases
+    [R, S]`` -> two ``[R, S, 1]`` raw-density tensors."""
+    raw_s = apply_static_field(params_s, points, cfg_s, window=window_s)
+    raw_t = apply_temporal_field(params_t, points, point_phases.long(), cfg_t, window=window_t)
+    return raw_s, raw_t
+
+
+def plain_static_field(params, points, cfg: FieldConfig, window):
+    """The static field in torch: ``points [R, S, 3] -> [R, S, 1]``."""
+    return apply_static_field(params, points, cfg, window=window)
 
 
 # ---------------------------------------------------------------------------
@@ -218,34 +248,47 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def fused_field_fwd(pack_s: _Pack, pack_t: _Pack, origins, directions, z, phases, latents):
-    """Launch K1: two ``[R*S]`` raw-density vectors."""
+def _field_ptr(pack: Optional[_Pack]):
+    """A pack's FieldArgs for the C entries; None (NULL) for no field."""
+    return None if pack is None else ctypes.byref(pack.args)
+
+
+def fused_field_fwd(pack_s: _Pack, pack_t: Optional[_Pack], origins, directions, z, phases,
+                    latents):
+    """Launch K1: the ``[R*S]`` raw densities of the static field and of
+    the temporal field (None when ``pack_t`` is None: the one-field
+    launch)."""
     n = origins.shape[0] * z.shape[-1]
     out_s = torch.empty(n, device=origins.device)
-    out_t = torch.empty(n, device=origins.device)
+    out_t = None if pack_t is None else torch.empty(n, device=origins.device)
     rays = _ray_args(origins, directions, z, phases, latents)
-    LAUNCHES["fused_field_fwd"] += 1
-    _check(_lib().fused_field_fwd(ctypes.byref(pack_s.args), ctypes.byref(pack_t.args),
-                                  ctypes.byref(rays), out_s.data_ptr(), out_t.data_ptr(),
-                                  _stream()), "fused_field_fwd")
+    LAUNCHES["fused_field_fwd" if pack_t is not None else "fused_static_field_fwd"] += 1
+    _check(_lib().fused_field_fwd(ctypes.byref(pack_s.args), _field_ptr(pack_t),
+                                  ctypes.byref(rays), out_s.data_ptr(),
+                                  None if out_t is None else out_t.data_ptr(), _stream()),
+           "fused_field_fwd")
     return out_s, out_t
 
 
-def fused_field_bwd(pack_s: _Pack, pack_t: _Pack, origins, directions, z, phases, latents,
-                    g_s, g_t) -> torch.Tensor:
+def fused_field_bwd(pack_s: _Pack, pack_t: Optional[_Pack], origins, directions, z, phases,
+                    latents, g_s, g_t) -> torch.Tensor:
     """Launch K2 (+ its fixed-order reduction): the flat gradient vector,
-    static block then temporal block."""
+    static block then temporal block (the static block alone, and ``g_t``
+    unused, when ``pack_t`` is None)."""
     dev = origins.device
     n_phases = latents.shape[0]
     lib = _lib()
-    size = pack_s.grad_layout(n_phases)["size"] + pack_t.grad_layout(n_phases)["size"]
-    if lib.fused_field_grad_size(ctypes.byref(pack_s.args), ctypes.byref(pack_t.args),
+    packs = [pack_s] if pack_t is None else [pack_s, pack_t]
+    size = sum(p.grad_layout(n_phases)["size"] for p in packs)
+    if lib.fused_field_grad_size(ctypes.byref(pack_s.args), _field_ptr(pack_t),
                                  n_phases) != size:
         raise RuntimeError("gradient layout differs between the wrapper and the kernel")
     n_tiles = -(-origins.shape[0] * z.shape[-1] // BWD_TILE_POINTS)
-    # an even count: even CTAs take the static field, odd ones the temporal
-    n_ctas = max(2, min(BWD_CTAS, 2 * n_tiles))
-    n_hidden = max(pack_s.cfg.num_early_layers, pack_t.cfg.num_early_layers)
+    # two fields take an even count (even CTAs the static field, odd ones
+    # the temporal); one field any
+    nf = len(packs)
+    n_ctas = max(nf, min(BWD_CTAS, nf * n_tiles))
+    n_hidden = max(p.cfg.num_early_layers for p in packs)
     # residuals of one tile: the encoded input, then the input of each hidden
     # layer but the last (which stays in shared memory)
     scratch_stride = BWD_TILE_POINTS * (ROW_STRIDE + max(n_hidden - 1, 0) * WIDTH)
@@ -253,9 +296,10 @@ def fused_field_bwd(pack_s: _Pack, pack_t: _Pack, origins, directions, z, phases
     scratch = torch.empty(n_ctas * scratch_stride, device=dev)
     grads = torch.empty(size, device=dev)
     rays = _ray_args(origins, directions, z, phases, latents)
-    LAUNCHES["fused_field_bwd"] += 1
-    _check(lib.fused_field_bwd(ctypes.byref(pack_s.args), ctypes.byref(pack_t.args),
-                               ctypes.byref(rays), g_s.data_ptr(), g_t.data_ptr(), n_ctas,
+    LAUNCHES["fused_field_bwd" if pack_t is not None else "fused_static_field_bwd"] += 1
+    _check(lib.fused_field_bwd(ctypes.byref(pack_s.args), _field_ptr(pack_t),
+                               ctypes.byref(rays), g_s.data_ptr(),
+                               None if g_t is None else g_t.data_ptr(), n_ctas,
                                partials.data_ptr(), size, scratch.data_ptr(), scratch_stride,
                                grads.data_ptr(), _stream()), "fused_field_bwd")
     return grads
@@ -263,14 +307,22 @@ def fused_field_bwd(pack_s: _Pack, pack_t: _Pack, origins, directions, z, phases
 
 class FusedCompositeFields(torch.autograd.Function):
     """K1 forward, K2 backward. Gradients flow to every weight and bias of
-    both fields and to the latent table; the ray geometry is constant."""
+    both fields and to the latent table; the ray geometry is constant.
+    With ``cfg_t`` None the leaves are the static field's alone, the launch
+    is the one-field one, and the temporal output is None."""
+
+    @staticmethod
+    def _packs(cfg_s, cfg_t, leaves, windows, device):
+        n_s = 2 * (cfg_s.num_early_layers + 2)
+        pack_s = _Pack(cfg_s, leaves[:n_s], windows[0], device)
+        pack_t = None if cfg_t is None else _Pack(cfg_t, leaves[n_s:], windows[1], device)
+        return pack_s, pack_t
 
     @staticmethod
     def forward(ctx, cfg_s, cfg_t, origins, directions, z, phases, window_s, window_t,
                 latents, *leaves):
-        n_s = 2 * (cfg_s.num_early_layers + 2)
-        pack_s = _Pack(cfg_s, leaves[:n_s], window_s, origins.device)
-        pack_t = _Pack(cfg_t, leaves[n_s:], window_t, origins.device)
+        pack_s, pack_t = FusedCompositeFields._packs(cfg_s, cfg_t, leaves,
+                                                     (window_s, window_t), origins.device)
         out_s, out_t = fused_field_fwd(pack_s, pack_t, origins, directions, z, phases,
                                        latents.detach())
         ctx.cfgs = (cfg_s, cfg_t)
@@ -281,16 +333,17 @@ class FusedCompositeFields(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_s, g_t):
         origins, directions, z, phases, latents, *leaves = ctx.saved_tensors
-        cfg_s, cfg_t = ctx.cfgs
-        n_s = 2 * (cfg_s.num_early_layers + 2)
-        pack_s = _Pack(cfg_s, leaves[:n_s], ctx.windows[0], origins.device)
-        pack_t = _Pack(cfg_t, leaves[n_s:], ctx.windows[1], origins.device)
+        pack_s, pack_t = FusedCompositeFields._packs(*ctx.cfgs, leaves, ctx.windows,
+                                                     origins.device)
         flat = fused_field_bwd(pack_s, pack_t, origins, directions, z, phases,
-                               latents.detach(), g_s.contiguous(), g_t.contiguous())
+                               latents.detach(), g_s.contiguous(),
+                               None if pack_t is None else g_t.contiguous())
         n_phases = latents.shape[0]
         size_s = pack_s.grad_layout(n_phases)["size"]
         grads_s, _ = pack_s.leaf_grads(flat[:size_s], n_phases)
-        grads_t, d_lat = pack_t.leaf_grads(flat[size_s:], n_phases)
+        grads_t, d_lat = [], None
+        if pack_t is not None:
+            grads_t, d_lat = pack_t.leaf_grads(flat[size_s:], n_phases)
         return (None, None, None, None, None, None, None, None, d_lat, *grads_s, *grads_t)
 
 
@@ -302,10 +355,26 @@ def _leaf_shapes(cfg: FieldConfig) -> list:
     return shapes + [(1, WIDTH), (1,)]
 
 
+def _check_field(field: str, params, cfg: FieldConfig, window, dev) -> None:
+    """One field's config, parameters and window against the kernels'
+    envelope and layout (weights are repacked by _Pack, windows cast)."""
+    if not kernel_supported(cfg):
+        raise NotImplementedError(f"field config outside the CUDA kernel envelope: {cfg}")
+    leaves = _leaves(params)
+    shapes = [tuple(t.shape) for t in leaves]
+    if shapes != _leaf_shapes(cfg):
+        raise ValueError(f"{field} field parameters {shapes}, expected {_leaf_shapes(cfg)}")
+    for t in leaves:
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"{field} field parameters: expected float32 on {dev}, "
+                             f"got {t.dtype} on {t.device}")
+    basis = cfg.pos_enc_basis if cfg.pos_enc != "none" else 0
+    if window is not None and (window.device != dev or window.numel() != basis):
+        raise ValueError(f"{field} window: expected {basis} values on {dev}, "
+                         f"got {window.numel()} on {window.device}")
+
+
 def _check_inputs(params_s, params_t, origins, directions, z, cfg_s, cfg_t, windows):
-    for cfg in (cfg_s, cfg_t):
-        if not kernel_supported(cfg):
-            raise NotImplementedError(f"field config outside the CUDA kernel envelope: {cfg}")
     if not cfg_t.use_time_latents:
         raise ValueError("the temporal field needs time latents")
     dev = origins.device
@@ -314,21 +383,9 @@ def _check_inputs(params_s, params_t, origins, directions, z, cfg_s, cfg_t, wind
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous float32 tensor on {dev}, "
                              f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
-    # weights are repacked (transposed, contiguous) by _Pack, windows cast
     for field, params, cfg, window in (("static", params_s, cfg_s, windows[0]),
                                        ("temp", params_t, cfg_t, windows[1])):
-        leaves = _leaves(params)
-        shapes = [tuple(t.shape) for t in leaves]
-        if shapes != _leaf_shapes(cfg):
-            raise ValueError(f"{field} field parameters {shapes}, expected {_leaf_shapes(cfg)}")
-        for t in leaves:
-            if t.device != dev or t.dtype != torch.float32:
-                raise ValueError(f"{field} field parameters: expected float32 on {dev}, "
-                                 f"got {t.dtype} on {t.device}")
-        basis = cfg.pos_enc_basis if cfg.pos_enc != "none" else 0
-        if window is not None and (window.device != dev or window.numel() != basis):
-            raise ValueError(f"{field} window: expected {basis} values on {dev}, "
-                             f"got {window.numel()} on {window.device}")
+        _check_field(field, params, cfg, window, dev)
     r = origins.shape[0]
     if origins.shape != (r, 3) or directions.shape != (r, 3):
         raise ValueError("origins and directions must both be [R, 3]")
@@ -360,3 +417,73 @@ def fused_composite_fields_rays(params_s, params_t, origins, directions, z, ray_
         params_t["latents"], *_leaves(params_s), *_leaves(params_t),
     )
     return out_s.view(r, s, 1), out_t.view(r, s, 1)
+
+
+def _point_rays(points):
+    """Points ``[R, S, 3]`` as ``R*S`` rays of one sample: origins the
+    points (constant: no gradient flows to them, as in the JAX entry),
+    directions 0 and the shared depth 0, so the kernels' ``o + z*d`` is
+    each point bit for bit."""
+    origins = points.detach().reshape(-1, 3).contiguous()
+    return origins, torch.zeros_like(origins), torch.zeros(1, device=points.device)
+
+
+def _check_points(points) -> None:
+    if points.dim() != 3 or points.shape[-1] != 3:
+        raise ValueError(f"points must be [R, S, 3], got {tuple(points.shape)}")
+    if points.dtype != torch.float32:
+        raise ValueError(f"points: expected float32, got {points.dtype}")
+    if points.shape[0] * points.shape[1] >= 2**31:
+        raise ValueError("too many points for one launch")
+
+
+def fused_composite_fields(params_s, params_t, points, point_phases, cfg_s: FieldConfig,
+                           cfg_t: FieldConfig, window_s, window_t):
+    """Point-form entry: ``points [R, S, 3]`` and integer ``point_phases
+    [R, S]`` -> two ``[R, S, 1]`` raw-density tensors, differentiable
+    w.r.t. both parameter dicts (not the points). CPU tensors take
+    :func:`plain_composite_fields`; CUDA tensors the kernels, over the
+    points as ``R*S`` rays of one sample. Prefer the ray form where the
+    points lie on rays: it never materializes them."""
+    if points.device.type == "cpu":
+        return plain_composite_fields(params_s, params_t, points, point_phases, cfg_s, cfg_t,
+                                      window_s, window_t)
+    if points.device.type != "cuda":
+        raise ValueError(f"no field kernel for device {points.device}")
+    _check_points(points)
+    r, s, _ = points.shape
+    if tuple(point_phases.shape) != (r, s):
+        raise ValueError(f"point_phases must be [R, S] = {(r, s)}, got "
+                         f"{tuple(point_phases.shape)}")
+    origins, directions, z = _point_rays(points)
+    _check_inputs(params_s, params_t, origins, directions, z, cfg_s, cfg_t, (window_s, window_t))
+    phases = point_phases.to(device=points.device, dtype=torch.int32).reshape(-1).contiguous()
+    out_s, out_t = FusedCompositeFields.apply(
+        cfg_s, cfg_t, origins, directions, z, phases, window_s, window_t,
+        params_t["latents"], *_leaves(params_s), *_leaves(params_t),
+    )
+    return out_s.view(r, s, 1), out_t.view(r, s, 1)
+
+
+def fused_static_field(params, points, cfg: FieldConfig, window):
+    """The static method's field: ``points [R, S, 3] -> [R, S, 1]``,
+    differentiable w.r.t. ``params``. CPU tensors take
+    :func:`plain_static_field`; CUDA tensors the one-field K1/K2 over the
+    points as ``R*S`` rays of one sample (the point form with no temporal
+    field, where the JAX entry runs a zero dummy one)."""
+    if points.device.type == "cpu":
+        return plain_static_field(params, points, cfg, window)
+    if points.device.type != "cuda":
+        raise ValueError(f"no field kernel for device {points.device}")
+    _check_points(points)
+    r, s, _ = points.shape
+    origins, directions, z = _point_rays(points)
+    dev = points.device
+    _check_field("static", params, cfg, window, dev)
+    # the encoding reads a phase per ray even for a field without latents:
+    # every point takes phase 0 of a one-row table that is never read
+    phases = torch.zeros(r * s, dtype=torch.int32, device=dev)
+    latents = torch.zeros(1, MAX_LAT, device=dev)
+    out_s, _ = FusedCompositeFields.apply(cfg, None, origins, directions, z, phases, window,
+                                          None, latents, *_leaves(params))
+    return out_s.view(r, s, 1)

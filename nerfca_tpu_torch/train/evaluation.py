@@ -4,7 +4,9 @@
 The W*H rays of a view are rendered in tiles of 4096 rays (2,048,000 points
 per field-kernel launch at 500 samples), then the composite and the
 decomposed static-only / dynamic-only intensity maps are formed, plus the
-reference's test losses and pure image PSNR / SSIM.
+reference's test losses and pure image PSNR / SSIM. The static method's
+view (:func:`render_static_test_view`) is the single-field render of the
+static field in plain torch, as the JAX package renders it.
 """
 
 from __future__ import annotations
@@ -17,8 +19,10 @@ import torch
 from nerfca_tpu_torch.ops.hull import hull_gate_rays
 from nerfca_tpu_torch.ops.losses import composite_losses, weighted_mse
 from nerfca_tpu_torch.ops.render import render_transmission, render_transmission_composite
+from nerfca_tpu_torch.ops.cuda.fused_field import plain_static_field
 from nerfca_tpu_torch.train.step import (
-    CompositeHParams, evaluate_fields, field_window, loss_weights, regularized_loss,
+    CompositeHParams, StaticHParams, evaluate_fields, field_window, loss_weights,
+    regularized_loss,
 )
 
 
@@ -52,6 +56,30 @@ def render_test_view(params, test_origins, test_directions, test_phases, depth_v
                                            hp.output_activation)
     return {"pix": pix, "pix_static": pix_static, "pix_temp": pix_temp,
             "static_sigma": s_sig, "temp_sigma": t_sig, "dists": dists}
+
+
+@torch.no_grad()
+def render_static_test_view(params, test_origins, test_directions, depth_values, step: int,
+                            cfg, hp: StaticHParams, initial_intensity: float,
+                            tile: int = 4096) -> dict:
+    """One full test view of the static method
+    (``nerfca_tpu/train/evaluation.py:227-275``): ``pix_static``, the
+    single-field render of the static field, with its UNSCALED sigma and
+    the dists. The JAX package renders it through its composite renderer
+    beside a zero temporal field, on the plain path (its hyperparameters
+    there leave ``use_pallas`` off), and scores ``pix_static``, which that
+    field does not enter; this renders the static field alone, plain."""
+    window = field_window(cfg, step, test_origins.device)
+    parts = []
+    for start in range(0, test_origins.shape[0], tile):
+        o, d = test_origins[start:start + tile], test_directions[start:start + tile]
+        pts = o[:, None, :] + d[:, None, :] * depth_values[:, None]
+        parts.append(plain_static_field(params["static"], pts, cfg, window)[..., 0])
+    raw = torch.cat(parts)
+    i0 = torch.full((raw.shape[0],), initial_intensity, device=test_origins.device)
+    pix, sigma, dists = render_transmission(raw[..., None], i0, depth_values,
+                                            hp.output_activation)
+    return {"pix_static": pix, "static_sigma": sigma, "dists": dists}
 
 
 def test_metrics(render: dict, test_img_flat: torch.Tensor, step: int, hp: CompositeHParams,

@@ -1,0 +1,36 @@
+"""CLI driver for the static 3-D method (one cardiac phase) on PyTorch/CUDA:
+
+    python -m nerfca_tpu_torch.train.run_nerf --config configs/3d.txt --use_pallas true
+    python -m nerfca_tpu_torch.train.run_nerf --config ... --only_prepare_data true
+
+``--platform cpu`` runs on the CPU (plain torch in place of the kernels).
+Sweeps are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nerfca_tpu_torch.data.dataset import build_dataset
+from nerfca_tpu_torch.train.config import parse_args
+from nerfca_tpu_torch.train.trainer import resolve_device, train_static
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.only_prepare_data:
+        print("NOT TRAINING, JUST PREPROCESSING DATA")
+        args.data_time_range_end = args.data_time_range_start + 1
+        build_dataset(args, args.data_root, device=resolve_device(args.platform))
+        return None
+    if args.wandb_sweep_yaml:
+        raise NotImplementedError("sweeps are not ported yet")
+    if args.debug_mode:
+        print("DEBUG MODE ON")
+        with torch.autograd.detect_anomaly():
+            return train_static(args)
+    return train_static(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,5 @@
-"""The composite (4-D) train step, coarse pass (port of the composite part
-of ``nerfca_tpu/train/step.py``).
+"""The composite (4-D) train step, coarse pass, and the static (3-D) train
+step (port of ``nerfca_tpu/train/step.py``).
 
 One step: variance-oversampled ray batch -> optional sub-pixel ray jitter
 -> one shared stratified depth vector -> the loss and its gradients -> Adam
@@ -19,8 +19,14 @@ draws them (``ops/prng.py``, :func:`step_draws`), so a seed gives the JAX
 run's batches, jitter and depths; the step is also split so tests can
 inject the batch and the depths (:func:`composite_grads`,
 :func:`_fused_loss_metrics_grads`). Metrics stay on the device as 0-d
-tensors; the trainer reads them back once per chunk. Not ported yet: the
-fine pass, bf16 compute and residuals, and AdamW decay.
+tensors; the trainer reads them back once per chunk.
+
+The static step (:func:`make_static_train_step`, the ``run_nerf`` method)
+evaluates one field on the batch's materialized points, through the
+one-field K1/K2 with ``use_pallas`` (:func:`static_loss_fn`), and takes the
+pixel loss plus the occlusion loss; it draws three keys a step
+(:func:`static_step_draws`). Not ported yet: the fine pass, bf16 compute
+and residuals, and AdamW decay.
 """
 
 from __future__ import annotations
@@ -34,8 +40,13 @@ import torch
 
 from nerfca_tpu_torch.models.fields import FieldConfig, params_from_jax, params_to_jax
 from nerfca_tpu_torch.ops.cuda.fused_field import (
+    fused_composite_fields,
     fused_composite_fields_rays,
+    fused_static_field,
+    kernel_supported,
+    plain_composite_fields,
     plain_composite_fields_rays,
+    plain_static_field,
 )
 from nerfca_tpu_torch.ops.cuda.fused_train import (
     fused_train_loss_and_grads,
@@ -46,8 +57,8 @@ from nerfca_tpu_torch.ops.encoding import (
 )
 from nerfca_tpu_torch.ops import prng
 from nerfca_tpu_torch.ops.hull import hull_gate_rays
-from nerfca_tpu_torch.ops.losses import composite_losses, weighted_mse
-from nerfca_tpu_torch.ops.render import render_transmission_composite
+from nerfca_tpu_torch.ops.losses import composite_losses, occlusion_loss, weighted_mse
+from nerfca_tpu_torch.ops.render import render_transmission, render_transmission_composite
 from nerfca_tpu_torch.ops.sampling import stratify_depths
 from nerfca_tpu_torch.ops.schedules import linear_param_decay
 
@@ -156,6 +167,27 @@ def step_draws(rng: np.ndarray, hp: CompositeHParams, n_var_ids: int, n_non_var_
     without jitter); the depth uniforms ``[n_samples]``. All bits come from
     one numpy pass."""
     rng, k_sample, k_depth, k_fine = prng.split(rng, 4)
+    k_jitter = prng.fold_in(k_fine, 1) if hp.ray_jitter > 0 else None
+    return (rng, *_batch_depth_draws(k_sample, k_depth, k_jitter, hp, n_var_ids,
+                                     n_non_var_ids, n_rays, n_samples))
+
+
+def static_step_draws(rng: np.ndarray, hp: CompositeHParams, n_var_ids: int,
+                      n_non_var_ids: int, n_rays: int, n_samples: int) -> tuple:
+    """The static step's random numbers as the JAX static step draws them
+    (``nerfca_tpu/train/step.py:881-888``): a three-way split of the key
+    (next key, batch, depths), no jitter. Returns the next key, the batch's
+    positions and the depth uniforms."""
+    rng, k_sample, k_depth = prng.split(rng, 3)
+    positions, _, t = _batch_depth_draws(k_sample, k_depth, None, hp, n_var_ids,
+                                         n_non_var_ids, n_rays, n_samples)
+    return rng, positions, t
+
+
+def _batch_depth_draws(k_sample, k_depth, k_jitter, hp: CompositeHParams, n_var_ids: int,
+                       n_non_var_ids: int, n_rays: int, n_samples: int) -> tuple:
+    """Positions, jitter uniforms (None without ``k_jitter``) and depth
+    uniforms from their keys, in one numpy pass."""
     n, nv = hp.img_sample_size, hp.nb_var_rays
     if nv > 0:
         k_var, k_non_var = prng.split(k_sample)
@@ -165,8 +197,8 @@ def step_draws(rng: np.ndarray, hp: CompositeHParams, n_var_ids: int, n_non_var_
     segments = []
     for k, size, _ in draws:  # randint: high words, then low words
         segments += [(kk, size) for kk in prng.split(k)]
-    if hp.ray_jitter > 0:
-        segments.append((prng.fold_in(k_fine, 1), 2 * n))
+    if k_jitter is not None:
+        segments.append((k_jitter, 2 * n))
     segments.append((k_depth, n_samples))
     words = prng.bits_segments(segments)
     positions, start = [], 0
@@ -175,10 +207,10 @@ def step_draws(rng: np.ndarray, hp: CompositeHParams, n_var_ids: int, n_non_var_
         positions.append(prng.randint_from_bits(high, low, span))
         start += 2 * size
     u = None
-    if hp.ray_jitter > 0:
+    if k_jitter is not None:
         u = prng.uniform_from_bits(words[start:start + 2 * n]).reshape(n, 2)
         start += 2 * n
-    return rng, np.concatenate(positions), u, prng.uniform_from_bits(words[start:])
+    return np.concatenate(positions), u, prng.uniform_from_bits(words[start:])
 
 
 def sample_ray_batch(rays, phases, var_ids, non_var_ids, positions: torch.Tensor,
@@ -251,6 +283,19 @@ def evaluate_fields(params, origins, directions, depth_values, phases, windows, 
     fn = fused_composite_fields_rays if hp.use_pallas else plain_composite_fields_rays
     return fn(params["static"], params["temp"], origins, directions, depth_values, phases,
               cfgs["static"], cfgs["temp"], windows["static"], windows["temp"])
+
+
+def evaluate_composite(params, points, point_phases, cfgs: dict, windows,
+                       hp: CompositeHParams, suffix: str = ""):
+    """Both fields on ``points [R, S, 3]`` with per-point phases ``[R, S]``
+    (``nerfca_tpu/train/step.py:234-275``): the point-form kernels with
+    ``use_pallas`` when both configs of the pair ``suffix`` names lie in
+    the envelope, plain torch otherwise."""
+    cfg_s, cfg_t = cfgs["static" + suffix], cfgs["temp" + suffix]
+    use_kernels = hp.use_pallas and kernel_supported(cfg_s) and kernel_supported(cfg_t)
+    fn = fused_composite_fields if use_kernels else plain_composite_fields
+    return fn(params["static" + suffix], params["temp" + suffix], points, point_phases, cfg_s,
+              cfg_t, windows["static"], windows["temp"])
 
 
 def composite_forward(params, batch, depth_values, windows, cfgs, hp: CompositeHParams,
@@ -548,6 +593,93 @@ def make_composite_train_step(cfgs: dict, hp: CompositeHParams, tx: AdamConfig,
         z = stratify_depths(depth_values_base, t_rand=t)
         _, metrics, grads = grads_fn(state.params, batch, z, state.step, cfgs, hp, hull=hull)
         adam_update(state.params, state.opt_state, grads, tx, state.step, hp)
+        state.step += 1
+        return metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# The static (3-D, run_nerf) method
+
+
+@dataclasses.dataclass(frozen=True)
+class StaticHParams:
+    """Hyperparameters of the static single-field method (the JAX fields)."""
+
+    img_sample_size: int = 1024
+    nb_var_rays: int = 0
+    depth_samples_coarse: int = 500
+    output_activation: str = "softplus"
+    occl_weight_start: float = 1e-4
+    occl_reg_perc: float = 0.1
+    occl_front_only: bool = False
+    compute_dtype: str = "float32"
+    use_pallas: bool = False
+
+
+def static_loss_fn(params, batch, depth_values, step: int, cfg: FieldConfig,
+                   hp: StaticHParams):
+    """Pixel + occlusion loss of the static method and its metrics
+    (``nerfca_tpu/train/step.py:830-863``). The field runs on the batch's
+    points through the one-field kernels with ``use_pallas`` (plain torch on
+    CPU tensors or outside the envelope); the occlusion term takes the
+    UNSCALED sigma of the single-field renderer, as the reference does."""
+    window = field_window(cfg, step, batch["origins"].device)
+    pts = (batch["origins"][:, None, :]
+           + batch["directions"][:, None, :] * depth_values[:, None])
+    use_kernel = hp.use_pallas and kernel_supported(cfg)
+    raw = (fused_static_field if use_kernel else plain_static_field)(
+        params["static"], pts, cfg, window)
+    pix, sigma, dists = render_transmission(raw, batch["initial_intensities"], depth_values,
+                                            hp.output_activation)
+    pixel_loss = torch.mean(weighted_mse(pix, batch["pixels"], batch["weights"]))
+    occl = occlusion_loss(sigma, dists, hp.occl_reg_perc, front_only=hp.occl_front_only)
+    loss = pixel_loss + hp.occl_weight_start * occl
+    metrics = {
+        "train_loss": loss.detach(),
+        "train_psnr": -10.0 * torch.log10(loss.detach()),
+        "train_pixel_loss": pixel_loss.detach(),
+        "train_occl_loss": occl.detach(),
+        "train_static_windowed": window_alpha(cfg, step),
+    }
+    return loss, metrics
+
+
+def static_grads(params, batch, depth_values, step: int, cfg: FieldConfig, hp: StaticHParams):
+    """Loss, metrics and the gradient of every leaf (``param_items`` order)
+    for an injected batch and depths."""
+    leaves = [t for _, t in param_items(params)]
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, metrics = static_loss_fn(params, batch, depth_values, step, cfg, hp)
+    return loss.detach(), metrics, list(torch.autograd.grad(loss, leaves))
+
+
+def make_static_train_step(cfg: FieldConfig, hp: StaticHParams, tx: AdamConfig,
+                           depth_values_base: torch.Tensor, initial_intensity: float):
+    """Build ``train_step(state, rays, phases, var_ids, non_var_ids, hull=None)
+    -> metrics`` for the static method (``nerfca_tpu/train/step.py:866-902``);
+    it updates ``state`` in place. The batch is drawn under a composite
+    hyperparameter set that carries only the batch size and the
+    high-variance share; the method has no hull, no schedule of loss
+    weights and no freeze gate (``hull`` is accepted and ignored)."""
+    if hp.compute_dtype != "float32":
+        raise NotImplementedError("bf16 compute is not ported yet")
+    comp_hp = CompositeHParams(img_sample_size=hp.img_sample_size, nb_var_rays=hp.nb_var_rays)
+
+    def train_step(state: TrainState, rays, phases, var_ids, non_var_ids, hull=None):
+        del hull
+        state.rng, positions, t = static_step_draws(
+            state.rng, comp_hp, var_ids.shape[0], non_var_ids.shape[0], rays.shape[0],
+            depth_values_base.shape[0])
+        positions, t = to_device(rays.device, positions, t)
+        batch = sample_ray_batch(rays, phases, var_ids, non_var_ids, positions, comp_hp)
+        batch["initial_intensities"] = torch.full(
+            (hp.img_sample_size,), initial_intensity, device=rays.device)
+        z = stratify_depths(depth_values_base, t_rand=t)
+        _, metrics, grads = static_grads(state.params, batch, z, state.step, cfg, hp)
+        adam_update(state.params, state.opt_state, grads, tx, state.step, comp_hp)
         state.step += 1
         return metrics
 

@@ -1,5 +1,5 @@
-"""End-to-end composite trainer (port of the composite driver in
-``nerfca_tpu/train/trainer.py``).
+"""End-to-end trainers: the composite driver and the static (3-D) driver
+(port of ``nerfca_tpu/train/trainer.py``).
 
 The dataset is built when absent, loaded once and moved to the device; the
 train loop runs in chunks of steps whose metrics stay on the device and are
@@ -10,6 +10,9 @@ patience stop; checkpoints go under the run's log dir every
 and ``--resume_from`` restores the full state. With ``--use_motion_hull``
 the hull is carved from the training views' variance maps after the
 dataset is loaded and gates every train step and eval render.
+
+:func:`train_static` (the ``run_nerf`` method) trains one static field on a
+single-phase dataset through the same loop, scoring the first test view.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ from nerfca_tpu_torch.train.checkpoint import CheckpointManager, load_checkpoint
 from nerfca_tpu_torch.train.config import parse_args
 from nerfca_tpu_torch.train.logging import MetricsLogger, make_log_dir
 from nerfca_tpu_torch.train.step import (
-    CompositeHParams, TrainState, init_opt_state, make_composite_train_step, make_optimizer,
+    CompositeHParams, StaticHParams, TrainState, init_opt_state, make_composite_train_step,
+    make_optimizer, make_static_train_step,
 )
 
 EARLY_STOP_EPS = 1e-15
@@ -54,8 +58,8 @@ def resolve_device(platform: str) -> torch.device:
     raise ValueError(f"unknown platform {platform!r}")
 
 
-def field_configs_from_args(args) -> dict:
-    static = FieldConfig(
+def static_config_from_args(args) -> FieldConfig:
+    return FieldConfig(
         num_early_layers=args.static_num_early_layers,
         num_late_layers=args.static_num_late_layers,
         num_filters=args.static_num_filters,
@@ -68,6 +72,10 @@ def field_configs_from_args(args) -> dict:
         pos_enc_window_max=args.static_pos_enc_window_max,
         fourier_sigma=args.static_pos_enc_fourier_sigma,
     )
+
+
+def field_configs_from_args(args) -> dict:
+    static = static_config_from_args(args)
     temp = FieldConfig(
         num_early_layers=args.temp_num_early_layers,
         num_late_layers=args.temp_num_late_layers,
@@ -127,15 +135,38 @@ def composite_hparams_from_args(args) -> CompositeHParams:
     )
 
 
-def resolve_pallas_support(hp: CompositeHParams, cfgs: dict) -> CompositeHParams:
-    """Downgrade ``use_pallas`` to the plain torch path, with a warning,
-    when a field config falls outside the CUDA kernels' envelope."""
-    if not hp.use_pallas or all(kernel_supported(c) for c in cfgs.values()):
+def static_hparams_from_args(args) -> StaticHParams:
+    nb_var = 0
+    if args.var_sample_perc > 0:
+        nb_var = int((args.var_sample_perc / 100.0) * args.img_sample_size)
+    return StaticHParams(
+        img_sample_size=args.img_sample_size,
+        nb_var_rays=nb_var,
+        depth_samples_coarse=args.depth_samples_per_ray_coarse,
+        output_activation=args.output_activation,
+        occl_weight_start=args.occl_weight_start,
+        occl_reg_perc=args.occl_reg_perc,
+        occl_front_only=args.occl_front_only,
+        compute_dtype=args.compute_dtype,
+        use_pallas=args.use_pallas,
+    )
+
+
+def resolve_pallas_support(hp, cfgs):
+    """Downgrade ``use_pallas`` (and ``use_fused_loss``) to the plain torch
+    path, with a warning, when a field config falls outside the CUDA
+    kernels' envelope. ``cfgs``: the composite's dict of configs, or the
+    static trainer's single ``FieldConfig``."""
+    configs = cfgs.values() if isinstance(cfgs, dict) else [cfgs]
+    if not hp.use_pallas or all(kernel_supported(c) for c in configs):
         return hp
     warnings.warn("field config outside the CUDA field-kernel envelope (width 128, no "
                   "late layers, none/windowed encodings); falling back to the plain "
                   "torch path (use_pallas=False)")
-    return dataclasses.replace(hp, use_pallas=False, use_fused_loss=False)
+    kw = {"use_pallas": False}
+    if hasattr(hp, "use_fused_loss"):
+        kw["use_fused_loss"] = False
+    return dataclasses.replace(hp, **kw)
 
 
 def _variance_ray_split(rays: np.ndarray, var_sample_thre: float):
@@ -221,20 +252,23 @@ def prepare_composite(args, device: torch.device) -> dict:
             frac = float((hull.grid > 0.5).float().mean())
             print(f"motion hull carved: res={hull.grid.shape[0]} occupied={frac:.4f}")
 
-    def ids(a):
-        return torch.as_tensor(a if len(a) else np.zeros(1, np.int64), device=device)
-
-    device_data = {
-        "rays": torch.as_tensor(data.rays, device=device),
-        "phases": torch.as_tensor(data.phases, device=device),
-        "var_ids": ids(var_ids),
-        "non_var_ids": ids(non_var_ids),
-    }
+    device_data = _device_data(data, var_ids, non_var_ids, device)
     test_views = [_view_tensors(f, info, device) for f in data.test_frames]
     return {"device_data": device_data, "state": state, "cfgs": cfgs, "hp": hp, "tx": tx,
             "train_step": train_step, "depth_values": depth_values, "hull": hull,
             "max_pixel_value": max_pixel_value, "test_views": test_views,
             "chunk_size": _chunk_size(args)}
+
+
+def _device_data(data, var_ids, non_var_ids, device) -> dict:
+    """The ray table, phases and the two id sets on ``device`` (an empty id
+    set as one zero id, as the JAX trainer passes it)."""
+    def ids(a):
+        return torch.as_tensor(a if len(a) else np.zeros(1, np.int64), device=device)
+
+    return {"rays": torch.as_tensor(data.rays, device=device),
+            "phases": torch.as_tensor(data.phases, device=device),
+            "var_ids": ids(var_ids), "non_var_ids": ids(non_var_ids)}
 
 
 def _run_chunk(train_step, state, dd, n_now: int, hull=None) -> dict:
@@ -437,6 +471,94 @@ def train_composite(args=None, argv=None, max_steps: Optional[int] = None) -> di
         setup["chunk_size"], n_total, eval_fn=eval_fn if test_views else None,
         save_fn=save_fn, early_stop_fn=early_stop_fn, hull=setup["hull"])
     logger.close()
+    return {"state": state, "log_dir": log_dir, "setup": setup,
+            "diverged_at": loop_info["diverged_at"],
+            "diverged_terms": loop_info["diverged_terms"],
+            "final_step": loop_info["final_step"], "last_eval": last_eval}
+
+
+def train_static(args=None, argv=None, max_steps: Optional[int] = None) -> dict:
+    """The ``run_nerf`` entry point: one static field on one cardiac phase
+    (``nerfca_tpu/train/trainer.py:720-847``). Returns the final state and
+    a summary, with the run's ``setup``."""
+    if args is None:
+        args = parse_args(argv)
+    device = resolve_device(args.platform)
+    # the static method forces a single phase (run_nerf.py:61)
+    args.data_time_range_end = args.data_time_range_start + 1
+    log_dir = make_log_dir(args.log_dir_root, args.data_name, "-static")
+    logger = MetricsLogger(log_dir, use_wandb=args.use_wandb, config=vars(args))
+
+    paths = dataset_paths(args, args.data_root)
+    if (not os.path.isfile(paths.general) or not os.path.isfile(paths.train)
+            or args.regenerate_data):
+        build_dataset(args, args.data_root, device=device)
+    data = load_dataset(paths, args.weighted_loss_max, use_weighting=args.var_sample_perc > 0)
+    info = data.info
+    max_pixel_value = info["max_pixel_value"]
+
+    var_ids, non_var_ids = _variance_ray_split(data.rays, args.var_sample_thre)
+    hp = static_hparams_from_args(args)
+    if hp.nb_var_rays > 0 and len(var_ids) == 0:
+        hp = dataclasses.replace(hp, nb_var_rays=0)
+    cfg = static_config_from_args(args)
+    hp = resolve_pallas_support(hp, cfg)
+    tx = make_optimizer(args.lr, args.lr_end_factor, args.lr_decay_steps,
+                        weight_decay=args.weight_decay)
+    # the params are drawn from the seed's key itself, and that key is the
+    # first step's (the composite trainer splits it first)
+    key = prng.key(args.seed)
+    params = {"static": init_static_field(key, cfg, device)}
+    state = TrainState(params=params, opt_state=init_opt_state(params), step=0, rng=key)
+    if args.resume_from:
+        state = load_checkpoint(args.resume_from, state)
+    depth_values = linspace_depths(info["near_thresh"], info["far_thresh"],
+                                   args.depth_samples_per_ray_coarse, device=device)
+    train_step = make_static_train_step(cfg, hp, tx, depth_values, max_pixel_value)
+
+    device_data = _device_data(data, var_ids, non_var_ids, device)
+    # key selection on the first test frame only (reference behavior)
+    test_view = _view_tensors(data.test_frames[0], info, device) if data.test_frames else None
+    test_depths = stratify_depths(depth_values, t_rand=torch.from_numpy(prng.uniform(
+        prng.key(args.seed + 1), (depth_values.shape[0],))).to(device))
+    n_total = (max_steps if max_steps is not None else args.n_iters) + 1
+    last_eval: dict = {}  # feeds best-by-metric checkpoint retention
+
+    def eval_fn(state, step):
+        # in-loop test render (run_nerf.py:254-287)
+        render = evaluation.render_static_test_view(
+            state.params, test_view["origins"], test_view["directions"], test_depths, step,
+            cfg, hp, max_pixel_value)
+        w, h = test_view["shape"]
+        gt = test_view["image"].cpu().numpy()
+        pred = render["pix_static"].cpu().numpy()
+        pixel_loss = float(np.mean((pred - gt) ** 2))
+        tm = {"test_pixel_loss": pixel_loss,
+              "test_psnr": float(-10 * np.log10(pixel_loss)) if pixel_loss > 0 else float("inf"),
+              "test_image_psnr": evaluation.image_psnr(pred.reshape(w, h), gt.reshape(w, h))}
+        last_eval.update(tm)
+        logger.log(tm, step=step)
+        norm = evaluation.normalize01
+        logger.log_images({
+            "prediction": norm(pred.reshape(w, h)), "original": norm(gt.reshape(w, h)),
+            "difference": np.abs(norm(pred.reshape(w, h)) - norm(gt.reshape(w, h))),
+        }, step)
+        print(f"step {step}: test_psnr={tm['test_psnr']:.3f}")
+
+    ckpt_mgr = CheckpointManager(log_dir, keep_last_n=args.keep_last_n_checkpoints)
+
+    def save_fn(state, step):
+        ckpt_mgr.save(state, {"static": cfg},
+                      run_metadata={"data_name": args.data_name, "step": int(state.step)},
+                      metric=last_eval.get("test_image_psnr"))
+
+    state, loop_info = _chunked_train_loop(
+        args, logger, log_dir, state, device_data, train_step, _chunk_size(args), n_total,
+        eval_fn=eval_fn if test_view is not None else None, save_fn=save_fn)
+    logger.close()
+    setup = {"device_data": device_data, "cfg": cfg, "hp": hp, "tx": tx,
+             "depth_values": depth_values, "test_depths": test_depths,
+             "max_pixel_value": max_pixel_value, "test_view": test_view}
     return {"state": state, "log_dir": log_dir, "setup": setup,
             "diverged_at": loop_info["diverged_at"],
             "diverged_terms": loop_info["diverged_terms"],

@@ -1,0 +1,111 @@
+#!/usr/bin/env python3
+"""Compare the SASS of the field kernels with another copy of their source.
+
+    python3 scripts/sass_diff.py --parent <dir holding an older csrc/> [--out sass.json]
+
+Compiles ``fused_field.cu`` from ``nerfca_tpu_torch/csrc`` and from
+``--parent`` to cubins with the device flags of ``ops/cuda/build.py``
+(``sm_90a``, ``-O3``), disassembles both with ``cuobjdump -sass`` and
+compares each kernel of the parent with its counterpart here instruction by
+instruction (addresses and encodings dropped). A kernel that gained the
+field-count template parameter is paired by its other template arguments:
+``fwd_kernel<2, 32>`` with ``fwd_kernel<2, 32, 2>`` and ``bwd_kernel`` with
+``bwd_kernel<2>``, the two-field instantiations. Prints one JSON object
+(per kernel: identical or not, instruction counts, the first differing
+line; branch labels are renamed per kernel, since their numbers run across
+the whole cubin) and exits 1 when a pair differs. Needs ``nvcc`` and ``cuobjdump``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(REPO, "nerfca_tpu_torch", "csrc")
+CUDA_BIN = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin")
+# (kernel in the parent, its two-field counterpart here), as demangled names
+PAIRS = [("void fwd_kernel<2, 32>(", "void fwd_kernel<2, 32, 2>("),
+         ("bwd_kernel(", "void bwd_kernel<2>("),
+         ("reduce_kernel(", "reduce_kernel(")]
+
+
+def tool(name: str) -> str:
+    path = os.path.join(CUDA_BIN, name)
+    return path if os.path.isfile(path) else name
+
+
+def sass(csrc: str, workdir: str, tag: str) -> dict:
+    """Demangled kernel name -> its instructions, for fused_field.cu in csrc."""
+    cubin = os.path.join(workdir, f"{tag}.cubin")
+    subprocess.run([tool("nvcc"), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                    "-O3", "-cubin", "-o", cubin, os.path.join(csrc, "fused_field.cu")],
+                   check=True, capture_output=True, text=True)
+    dump = subprocess.run([tool("cuobjdump"), "-sass", cubin], check=True,
+                          capture_output=True, text=True).stdout
+    names = subprocess.run([tool("cu++filt")], input="\n".join(
+        re.findall(r"Function : (\S+)", dump)), capture_output=True, text=True).stdout.split("\n")
+    kernels, current = {}, None
+    mangled = iter(names)
+    for line in dump.splitlines():
+        if line.strip().startswith("Function :"):
+            # template arguments demangle as "(int)2": keep the value alone
+            current = next(mangled).strip().replace("(int)", "")
+            kernels[current] = []
+        elif current is not None:
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+            if m:
+                kernels[current].append(m.group(1))
+    return {k: relabel(v) for k, v in kernels.items()}
+
+
+def relabel(lines: list) -> list:
+    """Branch labels (``.L_x_N``, numbered across the whole cubin) renamed
+    in their order of first use within the kernel."""
+    seen: dict = {}
+
+    def sub(m):
+        return seen.setdefault(m.group(0), f".L{len(seen)}")
+
+    return [re.sub(r"\.L_x_\d+", sub, line) for line in lines]
+
+
+def find(kernels: dict, prefix: str) -> str:
+    hits = [k for k in kernels if k.startswith(prefix) or k.startswith("void " + prefix)]
+    if len(hits) != 1:
+        raise RuntimeError(f"{prefix!r} matches {hits} of {sorted(kernels)}")
+    return hits[0]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", required=True, help="directory holding the older fused_field.cu")
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args()
+    with tempfile.TemporaryDirectory() as work:
+        old, new = sass(args.parent, work, "parent"), sass(CSRC, work, "this")
+    result, same = {"kernels_here": sorted(new)}, True
+    for p_old, p_new in PAIRS:
+        a, b = old[find(old, p_old)], new[find(new, p_new)]
+        diff = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                    None if len(a) == len(b) else min(len(a), len(b)))
+        result[p_new.rstrip("(")] = {
+            "parent": find(old, p_old), "identical": diff is None,
+            "instructions": [len(a), len(b)],
+            "first_difference": None if diff is None else
+            [a[diff] if diff < len(a) else None, b[diff] if diff < len(b) else None]}
+        same = same and diff is None
+    print(json.dumps(result))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    return 0 if same else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

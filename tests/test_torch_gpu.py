@@ -289,3 +289,104 @@ def test_loss_kernel_is_deterministic(dev):
     again = ft.fused_train_loss(li["raw_s"], li["raw_t"], li["z"], li["largs"])
     for a, b in zip(first, again):
         assert torch.equal(a, b)
+
+
+# The static method's entries: the one-field K1/K2 (fused_static_field)
+# against plain_static_field by K1's and K2's rules, and the point form
+# against the ray form on the same points.
+
+
+def static_points(dev, r, s, seed=0, **kw):
+    """The static field's params, a window and the points ``[r, s, 3]`` of
+    ``make``'s rays, with the leaves to differentiate."""
+    args, _ = make(dev, r=r, s=s, seed=seed, **kw)
+    params, o, d, z, cfg, w = args[0], args[2], args[3], args[4], args[6], args[8]
+    leaves = [t for _, t in param_items({"static": params})]
+    with torch.no_grad():
+        pts = ff._points(o, d, z).contiguous()
+    return params, pts, cfg, w, leaves
+
+
+def check_static(params, pts, cfg, w, leaves):
+    before = dict(ff.LAUNCHES)
+    k_out = ff.fused_static_field(params, pts, cfg, w)
+    assert ff.LAUNCHES["fused_static_field_fwd"] == before["fused_static_field_fwd"] + 1
+    assert ff.LAUNCHES["fused_field_fwd"] == before["fused_field_fwd"]
+    p_out = ff.plain_static_field(params, pts, cfg, w)
+    assert k_out.shape == p_out.shape == (*pts.shape[:2], 1)
+    assert float((k_out - p_out).detach().abs().max()) <= K1_ATOL
+    cot = torch.randn_like(p_out)
+    k_g = torch.autograd.grad((k_out * cot).sum(), leaves)
+    assert ff.LAUNCHES["fused_static_field_bwd"] == before["fused_static_field_bwd"] + 1
+    assert ff.LAUNCHES["fused_field_bwd"] == before["fused_field_bwd"]
+    p_g = torch.autograd.grad((p_out * cot).sum(), leaves)
+    top = max(float(b.abs().max()) for b in p_g)
+    for a, b in zip(k_g, p_g):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= K2_REL * max(float(b.abs().max()), 1e-2 * top)
+    return k_out, k_g, cot
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,s,rem", [(1, 1, 1), (3, 43, 1), (3, 64, 64), (5, 51, 127),
+                                     (2, 50, 100), (37, 100, 116), (64, 500, 0)])
+def test_static_field_matches_plain_at_tile_edges(dev, r, s, rem):
+    # K1's and K2's 128-point tiles: the last holds 1, half a tile, all but
+    # one point, all of them, or the whole batch is under one tile
+    assert (r * s) % ff.BWD_TILE_POINTS == rem
+    check_static(*static_points(dev, r, s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("enc,basis,layers", [("none", 0, 1), ("nerfies_windowed", 5, 2),
+                                              ("free_windowed", 20, 0)])
+def test_static_field_matches_plain_other_configs(dev, enc, basis, layers):
+    # basis 20: 123 encoded rows, the input layer's second k-chunk in K2
+    check_static(*static_points(dev, 37, 100, enc=enc, basis=basis, layers=layers))
+
+
+@pytest.mark.gpu
+def test_static_field_is_deterministic(dev):
+    params, pts, cfg, w, leaves = static_points(dev, 200, 64)
+    out, g, cot = check_static(params, pts, cfg, w, leaves)
+    again = ff.fused_static_field(params, pts, cfg, w)
+    assert torch.equal(out, again)
+    for a, b in zip(g, torch.autograd.grad((again * cot).sum(), leaves)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,s", [(37, 100), (3, 43)])
+def test_point_form_equals_ray_form(dev, r, s):
+    # the same points in the same order: origin the point, direction and
+    # depth 0, so the kernels encode the same coordinates and every tile and
+    # CTA sums in the same order; outputs and gradients are bitwise equal
+    args, leaves = make(dev, r=r, s=s)
+    ps, pt, o, d, z, ph, cfg_s, cfg_t, w_s, w_t = args
+    with torch.no_grad():
+        pts = ff._points(o, d, z).contiguous()
+    pph = ph[:, None].expand(r, s)
+    cot = [torch.randn(r, s, 1, device=dev) for _ in range(2)]
+    ray_out, ray_g = grads(ff.fused_composite_fields_rays, args, leaves, cot)
+    before = ff.LAUNCHES["fused_field_fwd"]
+    pt_out, pt_g = grads(ff.fused_composite_fields, (ps, pt, pts, pph, cfg_s, cfg_t, w_s, w_t),
+                         leaves, cot)
+    assert ff.LAUNCHES["fused_field_fwd"] == before + 1
+    for a, b in zip(pt_out, ray_out):
+        assert torch.equal(a, b)
+    for a, b in zip(pt_g, ray_g):
+        assert torch.equal(a, b)
+    p_out = ff.plain_composite_fields(ps, pt, pts, pph, cfg_s, cfg_t, w_s, w_t)
+    for a, b in zip(pt_out, p_out):
+        assert float((a - b).detach().abs().max()) <= K1_ATOL
+
+
+@pytest.mark.gpu
+def test_static_entry_checks_inputs(dev):
+    params, pts, cfg, w, _ = static_points(dev, 4, 16)
+    with pytest.raises(ValueError):
+        ff.fused_static_field(params, pts.double(), cfg, w)
+    with pytest.raises(ValueError):
+        ff.fused_static_field(params, pts[..., :2], cfg, w)
+    with pytest.raises(NotImplementedError):
+        ff.fused_static_field(params, pts, dataclasses.replace(cfg, num_filters=64), w)
