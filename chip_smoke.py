@@ -15,6 +15,8 @@
    entries at ``configs/3d.txt``'s field on the same points:
    ``fused_static_field`` (the one-field K1/K2) and the two-field point
    form ``fused_composite_fields``, timed in turns with the composite K1/K2;
+   then the same K1/K2, K3 and static checks with every field on the
+   fourier encoding (basis 12, sigma 2: the kernels' FOURIER instantiations);
 4. drives the main paths through ``nerfca_tpu_torch.train.run_composite.main``,
    each with the launch counts set to 0 just before and read just after:
    a. the two-kernel step (``configs/composite.txt --use_pallas true``):
@@ -40,9 +42,22 @@
       (``JAX_STATIC``), gated (``GATE_STATIC_LOSS0_REL``,
       ``GATE_STATIC_PSNR_DB``); the entries against their twins at the
       trained state; the warm step, kernels and plain, and the eval view;
+   e. the fourier composite (``configs/composite.txt`` with both fields on
+      the fourier encoding, sigma 2, ``--use_fused_loss true``) on the
+      flagship dataset: 6 steps and one eval, K3 once a step;
+   f. ``configs/3d.txt --static_pos_enc fourier`` through ``run_nerf.main``
+      on phase d's dataset, ``FOURIER_STATIC_STEPS`` steps, under phase d's
+      gates against its own JAX record (``JAX_STATIC_FOURIER``);
+   g. data parallelism at the flagship widths: world 1 over NCCL in this
+      process (the sharded K3 entry equals K3 bitwise), then ``DP_WORLD``
+      ranks over gloo on the one card in spawned processes (the sharded K3
+      within K3's gate of the whole batch's, its parts timed, ``DP_STEPS``
+      data-parallel steps with the ranks' parameters bitwise equal and the
+      losses within ``LOSS_REL`` of the single-card steps);
 5. times the warm flagship step and eval render on the flagship dataset,
    in turns: K3, K1+K2, plain, K3+hull (the clean-protocol hull), then in
-   the reverse order;
+   the reverse order; the same for the fourier composite (K3, K1+K2,
+   plain);
 6. profiles three K3 steps with ``torch.profiler`` (device time by kernel);
 7. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
    and last the result line.
@@ -101,6 +116,20 @@ JAX_SELECTION = os.path.join(REPO, "artifacts", "round4", "clean_protocol", "met
 STATIC_CONFIG = os.path.join(REPO, "configs", "3d.txt")
 STATIC_STEPS, STATIC_EVERY = 200, 100
 JAX_STATIC = os.path.join(REPO, "artifacts", "port", "static_3d_jax-200.json")
+# phase 4f: the same method with --static_pos_enc fourier (configs/3d.txt's
+# sigma 2, basis 12), FOURIER_STATIC_STEPS steps, against its own JAX record
+# (scripts/static_3d_jax_record.py --static_pos_enc fourier --n_iters 100),
+# under phase 4d's gates
+FOURIER_STATIC_STEPS = 100
+JAX_STATIC_FOURIER = os.path.join(REPO, "artifacts", "port", "static_3d_fourier_jax-100.json")
+# the fourier composite (phase 4e) and the fourier kernel checks: both
+# fields of configs/composite.txt on the fourier encoding at sigma 2
+FOURIER_SIGMA = 2.0
+FOURIER_ARGV = ["--static_pos_enc", "fourier", "--temp_pos_enc", "fourier",
+                "--static_pos_enc_fourier_sigma", "2", "--temp_pos_enc_fourier_sigma", "2"]
+# data parallelism (phase 4g): two ranks over gloo on the one card, DP_STEPS
+# train steps of the flagship batch and fields
+DP_WORLD, DP_STEPS = 2, 3
 # Gates against that record, set before the first run on the card and not
 # moved after it: the step-0 train loss (same params, batch and depths;
 # only K1's f32 sums differ; the composite's agreed to 1.3e-5) and the
@@ -121,11 +150,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def flagship_cfgs():
+def flagship_cfgs(fourier: bool = False):
+    """The flagship pair; with ``fourier`` both fields on the fourier
+    encoding at basis 12 and sigma 2 (``FOURIER_ARGV``)."""
     from nerfca_tpu_torch.models.fields import FieldConfig
 
     kw = dict(num_early_layers=4, num_filters=128, pos_enc="free_windowed",
               pos_enc_basis=12, pos_enc_window_start=1, pos_enc_window_decay_steps=150000)
+    if fourier:
+        kw.update(pos_enc="fourier", fourier_sigma=FOURIER_SIGMA)
     return FieldConfig(**kw), FieldConfig(use_time_latents=True, num_time_dim=8, **kw)
 
 
@@ -157,11 +190,11 @@ def flagship_rays(n_rays: int, n_samples: int, seed: int, device):
     return origins, dirs, z, phases
 
 
-def flagship_params(seed: int, device):
+def flagship_params(seed: int, device, fourier: bool = False):
     from nerfca_tpu_torch.models.fields import init_static_field, init_temporal_field
     from nerfca_tpu_torch.ops import prng
 
-    cfg_s, cfg_t = flagship_cfgs()
+    cfg_s, cfg_t = flagship_cfgs(fourier)
     keys = prng.split(prng.key(seed))
     return {"static": init_static_field(keys[0], cfg_s, device),
             "temp": init_temporal_field(keys[1], cfg_t, device)}
@@ -225,22 +258,33 @@ def leaf_errors(names, got, want) -> tuple[float, float, str]:
     return err_max, norm_max, worst
 
 
-def check_kernels(n_rays: int = 1024, n_samples: int = 500, seed: int = 0) -> dict:
-    """K1 and K2 against the plain version on the same inputs. Raises on a
+def trained_leaves(params) -> tuple:
+    """Names and tensors of the leaves that take a gradient (a fourier
+    projection is a buffer), each set to require one."""
+    from nerfca_tpu_torch.train.step import is_buffer, param_items
+
+    names, leaves = zip(*[(n, t) for n, t in param_items(params) if not is_buffer(n)])
+    for t in leaves:
+        t.requires_grad_(True)
+    return names, leaves
+
+
+def check_kernels(n_rays: int = 1024, n_samples: int = 500, seed: int = 0,
+                  fourier: bool = False) -> dict:
+    """K1 and K2 against the plain version on the same inputs (the flagship
+    pair, or with ``fourier`` the pair on the fourier encoding). Raises on a
     disagreement; returns errors and times."""
     import torch
 
     from nerfca_tpu_torch.ops.cuda import fused_field as ff
-    from nerfca_tpu_torch.train.step import param_items
 
     dev = torch.device("cuda")
-    cfg_s, cfg_t = flagship_cfgs()
-    params = flagship_params(seed, dev)
-    names, leaves = zip(*param_items(params))
-    for t in leaves:
-        t.requires_grad_(True)
+    cfg_s, cfg_t = flagship_cfgs(fourier)
+    params = flagship_params(seed, dev, fourier)
+    names, leaves = trained_leaves(params)
     origins, dirs, z, phases = flagship_rays(n_rays, n_samples, seed, dev)
-    window = torch.ones(12, device=dev)  # every band open: the hardest case
+    # every band open: the hardest case (a fourier field reads no window)
+    window = None if fourier else torch.ones(12, device=dev)
     args = (params["static"], params["temp"], origins, dirs, z, phases, cfg_s, cfg_t,
             window, window)
 
@@ -268,8 +312,7 @@ def check_kernels(n_rays: int = 1024, n_samples: int = 500, seed: int = 0) -> di
 
     # time the launch functions on packed inputs (the wrapper's packing is
     # outside the kernel); the counts are reset before each main path
-    pack_s = ff._Pack(cfg_s, ff._leaves(params["static"]), window, dev)
-    pack_t = ff._Pack(cfg_t, ff._leaves(params["temp"]), window, dev)
+    pack_s, pack_t = packs(params, (cfg_s, cfg_t), window, dev)
     ph32 = phases.to(torch.int32)
     lat = params["temp"]["latents"].detach()
     with torch.no_grad():
@@ -307,67 +350,109 @@ def flagship_hull(device):
                                    dtype=torch.float32, device=device))
 
 
-def check_k3(seed: int = 0) -> dict:
+def packs(params, cfgs, window, dev) -> tuple:
+    """Both fields' packed weights for the launch functions."""
+    from nerfca_tpu_torch.ops.cuda import fused_field as ff
+
+    return tuple(ff._Pack(c, ff._leaves(params[k]), ff.enc_table(params[k], c, window), dev)
+                 for k, c in zip(("static", "temp"), cfgs))
+
+
+def k3_problem(seed: int = 0, fourier: bool = False, device=None, n_rays: int = 1024,
+               n_samples: int = 500) -> dict:
+    """K3's inputs at the flagship shapes (the pair on the fourier encoding
+    with ``fourier``): params, rays of the flagship view, pixels, weights,
+    the flagship's regularizers at weights large enough to move the grads,
+    and a random hull gate that leaves some rays empty. ``args(hull)`` is
+    the entry's argument tuple."""
+    import torch
+
+    from nerfca_tpu_torch.train.step import CompositeHParams
+
+    dev = torch.device("cuda") if device is None else device
+    cfg_s, cfg_t = flagship_cfgs(fourier)
+    params = flagship_params(seed + 7, dev, fourier)
+    origins, dirs, z, phases = flagship_rays(n_rays, n_samples, seed + 8, dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    pixels = 2.16 - 0.5 * torch.rand(n_rays, generator=g, device=dev)
+    weights = 1.0 + torch.rand(n_rays, generator=g, device=dev)
+    i0 = torch.full((n_rays,), 2.16, device=dev)
+    window = None if fourier else torch.ones(12, device=dev)
+    hp = CompositeHParams(entro_mask_thre=1e-4, entro_use_weighting=True,
+                          entro_weighted_thresh=0.03, occl_reg_perc=0.2, use_pallas=True,
+                          use_fused_loss=True)
+    pb = {"params": params, "cfgs": (cfg_s, cfg_t), "origins": origins, "dirs": dirs, "z": z,
+          "phases": phases, "pixels": pixels, "weights": weights, "i0": i0,
+          "window": window, "hp": hp, "hull": flagship_hull(dev)}
+
+    def args(with_hull: bool) -> tuple:
+        lw = [1e-3, 1e-3, 1e-3, 1e-4] + ([1e-3] if with_hull else [])
+        return (params["static"], params["temp"], origins, dirs, z, phases, pixels, weights,
+                i0, cfg_s, cfg_t, window, window, lw, hp)
+
+    pb["args"] = args
+    return pb
+
+
+def k3_errors(tag: str, got, want) -> dict:
+    """K3 results against a reference's: loss and every term within
+    LOSS_REL, grads by K2's rule. Raises on a disagreement."""
+    from nerfca_tpu_torch.train.step import param_items
+
+    k_loss, k_terms, k_gs, k_gt = got
+    p_loss, p_terms, p_gs, p_gt = want
+    loss_rel = abs(float(k_loss) - float(p_loss)) / abs(float(p_loss))
+    if not (math.isfinite(loss_rel) and loss_rel <= LOSS_REL):
+        raise AssertionError(f"K3{tag} loss {float(k_loss)} vs {float(p_loss)}")
+    term_rel = 0.0
+    for k in p_terms:
+        a, b = float(k_terms[k]), float(p_terms[k])
+        if not (math.isfinite(a) and abs(a - b) <= LOSS_REL * abs(b)):
+            raise AssertionError(f"K3{tag} term {k}: {a} vs {b}")
+        term_rel = max(term_rel, abs(a - b) / abs(b) if b else 0.0)
+    names, k_leaves = zip(*param_items({"static": k_gs, "temp": k_gt}))
+    _, p_leaves = zip(*param_items({"static": p_gs, "temp": p_gt}))
+    err, norm, worst = leaf_errors(names, k_leaves, p_leaves)
+    return {f"loss_rel{tag}": loss_rel, f"term_rel{tag}": term_rel, f"err{tag}": err,
+            f"norm{tag}": norm, f"worst{tag}": worst}
+
+
+def check_k3(seed: int = 0, fourier: bool = False) -> dict:
     """K3 (``fused_train_loss_and_grads``) against its plain version at the
-    flagship shapes, without and with the hull gate; times both with CUDA
-    events, and K3's forward (K1) and loss phase (the loss kernel) apart."""
+    flagship shapes (with ``fourier`` the pair on the fourier encoding),
+    without and with the hull gate; times both with CUDA events, and K3's
+    forward (K1) and loss phase (the loss kernel) apart."""
     import torch
 
     from nerfca_tpu_torch.ops.cuda import fused_field as ff
     from nerfca_tpu_torch.ops.cuda import fused_train as ft
     from nerfca_tpu_torch.ops.hull import hull_gate_rays
-    from nerfca_tpu_torch.train.step import CompositeHParams, param_items
 
-    dev = torch.device("cuda")
-    cfg_s, cfg_t = flagship_cfgs()
-    params = flagship_params(seed + 7, dev)
-    origins, dirs, z, phases = flagship_rays(1024, 500, seed + 8, dev)
-    g = torch.Generator(device=dev).manual_seed(seed + 9)
-    pixels = 2.16 - 0.5 * torch.rand(1024, generator=g, device=dev)
-    weights = 1.0 + torch.rand(1024, generator=g, device=dev)
-    i0 = torch.full((1024,), 2.16, device=dev)
-    window = torch.ones(12, device=dev)
-    # the flagship's regularizers at weights large enough to move the grads
-    hp = CompositeHParams(entro_mask_thre=1e-4, entro_use_weighting=True,
-                          entro_weighted_thresh=0.03, occl_reg_perc=0.2, use_pallas=True,
-                          use_fused_loss=True)
-    hull = flagship_hull(dev)
+    pb = k3_problem(seed, fourier)
+    dev, hull = pb["origins"].device, pb["hull"]
+    origins, dirs, z, phases = pb["origins"], pb["dirs"], pb["z"], pb["phases"]
     gate = hull_gate_rays(hull, origins, dirs, z)
     empty = int((gate.sum(-1) == 0).sum())
     if not 0 < empty < 1024:
         raise AssertionError(f"the K3 check's gate should leave some rays empty: {empty}")
     res = {"empty_rays": empty}
-    for tag, h, lw in (("", None, [1e-3, 1e-3, 1e-3, 1e-4]),
-                       ("_hull", hull, [1e-3, 1e-3, 1e-3, 1e-4, 1e-3])):
-        args = (params["static"], params["temp"], origins, dirs, z, phases, pixels, weights,
-                i0, cfg_s, cfg_t, window, window, lw, hp)
-        k_loss, k_terms, k_gs, k_gt = ft.fused_train_loss_and_grads(*args, hull=h)
-        p_loss, p_terms, p_gs, p_gt = ft.plain_train_loss_and_grads(*args, hull=h)
+    for tag, h in (("", None), ("_hull", hull)):
+        args = pb["args"](h is not None)
+        got = ft.fused_train_loss_and_grads(*args, hull=h)
+        want = ft.plain_train_loss_and_grads(*args, hull=h)
         torch.cuda.synchronize()
-        loss_rel = abs(float(k_loss) - float(p_loss)) / abs(float(p_loss))
-        if not (math.isfinite(loss_rel) and loss_rel <= LOSS_REL):
-            raise AssertionError(f"K3{tag} loss {float(k_loss)} vs plain {float(p_loss)}")
-        term_rel = 0.0
-        for k in p_terms:
-            a, b = float(k_terms[k]), float(p_terms[k])
-            if not (math.isfinite(a) and abs(a - b) <= LOSS_REL * abs(b)):
-                raise AssertionError(f"K3{tag} term {k}: {a} vs plain {b}")
-            term_rel = max(term_rel, abs(a - b) / abs(b) if b else 0.0)
-        if (float(k_terms["hull_s_l1"]) > 0) != (h is not None):
-            raise AssertionError(f"K3{tag} hull_s_l1 {float(k_terms['hull_s_l1'])}")
-        names, k_leaves = zip(*param_items({"static": k_gs, "temp": k_gt}))
-        _, p_leaves = zip(*param_items({"static": p_gs, "temp": p_gt}))
-        err, norm, worst = leaf_errors(names, k_leaves, p_leaves)
-        res.update({f"loss_rel{tag}": loss_rel, f"term_rel{tag}": term_rel, f"err{tag}": err,
-                    f"norm{tag}": norm, f"worst{tag}": worst})
+        res.update(k3_errors(tag, got, want))
+        if (float(got[1]["hull_s_l1"]) > 0) != (h is not None):
+            raise AssertionError(f"K3{tag} hull_s_l1 {float(got[1]['hull_s_l1'])}")
         res[f"ms{tag}"] = cuda_time_ms(lambda: ft.fused_train_loss_and_grads(*args, hull=h))
         res[f"plain_ms{tag}"] = cuda_time_ms(
             lambda: ft.plain_train_loss_and_grads(*args, hull=h))
+    params, (cfg_s, cfg_t), window, hp = pb["params"], pb["cfgs"], pb["window"], pb["hp"]
+    pixels, weights, i0 = pb["pixels"], pb["weights"], pb["i0"]
 
     # K3's forward (K1 on the batch's points) and its loss phase (the loss
     # kernel on K1's raw densities: loss, terms, cotangents)
-    pack_s = ff._Pack(cfg_s, ff._leaves(params["static"]), window, dev)
-    pack_t = ff._Pack(cfg_t, ff._leaves(params["temp"]), window, dev)
+    pack_s, pack_t = packs(params, (cfg_s, cfg_t), window, dev)
     ph32 = phases.to(torch.int32)
     lat = params["temp"]["latents"].detach()
     occl = ft.occlusion_mask(z, hp)  # kept alive: the launch reads its pointer
@@ -725,7 +810,8 @@ def report_clean_protocol(cp: dict, card: str) -> None:
         f"{'passed' if cp['gate_passed'] else 'FAILED'}")
 
 
-def steady_state_times(run: dict, hull, n_steps: int = 10, warmup: int = 3) -> dict:
+def steady_state_times(run: dict, hull, n_steps: int = 10, warmup: int = 3,
+                       names=("k3", "k1k2", "plain", "k3_hull")) -> dict:
     """Flagship step and eval-render times (ms) on a main path's dataset and
     state, once warm, path by path in turns and then in the reverse order;
     host clock around synchronized work."""
@@ -736,6 +822,7 @@ def steady_state_times(run: dict, hull, n_steps: int = 10, warmup: int = 3) -> d
     dd, cfgs, view = setup["device_data"], setup["cfgs"], setup["test_views"][0]
     paths = {"k3": (True, True, None), "k1k2": (True, False, None),
              "plain": (False, False, None), "k3_hull": (True, True, hull)}
+    paths = {k: paths[k] for k in names}
 
     times: dict = {}
     order = list(paths)
@@ -806,16 +893,259 @@ def profile_steps(step, state, dd: dict, n_steps: int = 3) -> dict:
             "top": [[name[:60], round(ms, 4), count] for name, ms, count in rows[:8]]}
 
 
-def static_cfg():
-    """The static field of ``configs/3d.txt``."""
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dp_problem(device, n_rays: int = 1024, n_samples: int = 500) -> dict:
+    """The data-parallel train problem at the flagship widths: the flagship
+    pair drawn from seed 0 as the trainer draws it, a ray table of two
+    flagship views (pixels and weights from a seeded generator), the K3
+    step's hyperparameters and Adam; the same on every rank."""
+    import torch
+
+    from nerfca_tpu_torch.geometry.rays import detector_rays
+    from nerfca_tpu_torch.models.fields import init_static_field, init_temporal_field
+    from nerfca_tpu_torch.ops import prng
+    from nerfca_tpu_torch.ops.sampling import linspace_depths
+    from nerfca_tpu_torch.train.step import (
+        CompositeHParams, TrainState, init_opt_state, make_optimizer,
+    )
+
+    info, (near, far) = flagship_geometry()
+    gen = torch.Generator().manual_seed(11)
+    parts = []
+    for angles in ((-30.0, 30.0, 0.0), (60.0, -30.0, 0.0)):
+        o, d = detector_rays(*angles, info, device=torch.device("cpu"))
+        o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+        pix = (2.16 - 0.5 * torch.rand(o.shape[0], generator=gen))[:, None].expand(-1, 3)
+        wts = (1.0 + torch.rand(o.shape[0], generator=gen))[:, None].expand(-1, 3)
+        parts.append(torch.stack([o, d, pix, wts], 1))
+    rays = torch.cat(parts).to(device)
+    phases = torch.randint(0, 10, (rays.shape[0],), generator=gen).to(device)
+    cfg_s, cfg_t = flagship_cfgs()
+    hp = CompositeHParams(img_sample_size=n_rays, depth_samples_coarse=n_samples,
+                          favor_s_weight_start=1e-3, favor_s_weight_end=1e-3,
+                          dynamic_entro_weight_start=1e-4, dynamic_entro_weight_end=1e-4,
+                          occl_weight_start=1e-4, occl_weight_end=1e-4, l1_weight_start=1e-6,
+                          l1_weight_end=1e-6, entro_use_weighting=True,
+                          entro_weighted_thresh=0.03, occl_reg_perc=0.2, use_pallas=True,
+                          use_fused_loss=True)
+    keys = prng.split(prng.key(0), 8)
+    params = {"static": init_static_field(keys[0], cfg_s, device),
+              "temp": init_temporal_field(keys[1], cfg_t, device)}
+    state = TrainState(params=params, opt_state=init_opt_state(params), step=0, rng=keys[7])
+    zero = torch.zeros(1, dtype=torch.long, device=device)
+    return {"rays": rays, "phases": phases, "ids": (zero, zero), "cfgs": {"static": cfg_s,
+            "temp": cfg_t}, "hp": hp, "tx": make_optimizer(1e-3, 0.01, 100000),
+            "z": linspace_depths(near, far, n_samples, device=device), "state": state,
+            "i0": 2.16}
+
+
+def dp_train(pb: dict, mesh=None, n_steps: int = DP_STEPS) -> dict:
+    """``n_steps`` K3 steps of :func:`dp_problem` (data-parallel over
+    ``mesh``'s 'data' axis when given), the launch counts set to 0 just
+    before and read just after; the losses, the launches and the final
+    parameters flattened in ``param_items`` order."""
+    import torch
+
+    from nerfca_tpu_torch.train.step import make_composite_train_step, param_items
+
+    step = make_composite_train_step(pb["cfgs"], pb["hp"], pb["tx"], pb["z"], pb["i0"],
+                                     mesh=mesh)
+    state = pb["state"]
+    reset_launch_counts()
+    losses = [float(step(state, pb["rays"], pb["phases"], *pb["ids"])["train_loss"])
+              for _ in range(n_steps)]
+    counts = launch_counts()
+    flat = torch.cat([t.detach().reshape(-1) for _, t in param_items(state.params)]).cpu()
+    return {"losses": losses, "launches": counts, "params": flat}
+
+
+def plain_sharded(mesh, args, n_rays: int):
+    """The sharded entry's composition built from the plain version alone:
+    this rank's ``plain_train_loss_and_grads`` on its slice of the rays with
+    the normalizations set to ``n_rays``, then a SUM all-reduce of the terms
+    and gradients (``param_items`` order) and a MAX all-reduce of
+    ``sigma_s_max``/``sigma_d_max``. Returns what the entry returns."""
+    import torch
+    import torch.distributed as dist
+
+    from nerfca_tpu_torch.ops.cuda import fused_train as ft
+    from nerfca_tpu_torch.parallel import batch_sharding
+    from nerfca_tpu_torch.train.step import param_items
+
+    part = batch_sharding(mesh, "data").slice(n_rays)
+    local = [a[part] if isinstance(a, torch.Tensor) and a.dim() and a.shape[0] == n_rays
+             else a for a in args]
+    loss, terms, g_s, g_t = ft.plain_train_loss_and_grads(*local, total_rays=n_rays)
+    grads = [g for _, g in param_items({"static": g_s, "temp": g_t})]
+    names = list(terms)
+    maxima = [ft.TERM_NAMES[i] for i in ft.MAX_TERMS]
+    group = mesh.get_group("data")
+    buf = torch.cat([torch.stack([loss] + [terms[k] for k in names])]
+                    + [g.reshape(-1) for g in grads])
+    top = torch.stack([terms[k] for k in maxima])
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    terms = dict(zip(names, buf[1:1 + len(names)]))
+    terms.update(zip(maxima, top))
+    off = 1 + len(names)
+    for g in grads:
+        g.copy_(buf[off:off + g.numel()].view_as(g))
+        off += g.numel()
+    return buf[0], terms, g_s, g_t
+
+
+def dp_rank(rank: int, world: int, port: int, out_dir: str, device: str = "cuda",
+            n_rays: int = 1024, n_samples: int = 500) -> None:
+    """One rank of phase 4g (``DP_WORLD`` processes over gloo, one card):
+    the sharded K3 on the flagship batch against K3 and against the plain
+    version on the whole batch; the per-rank K3 on its rays, the all-reduce
+    of its buffer, the whole sharded call and the same composition of the
+    plain version (:func:`plain_sharded`) timed; then ``DP_STEPS``
+    data-parallel train steps. Writes ``rank<rank>.pt`` under ``out_dir``."""
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.distributed as dist
+
+    from nerfca_tpu_torch.ops.cuda import fused_train as ft
+    from nerfca_tpu_torch.parallel import make_mesh, multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.initialize(f"localhost:{port}", world, rank, backend="gloo")
+    mesh = make_mesh(device=device)
+    dev = torch.device(device)
+    res: dict = {"rank": rank}
+    pb = k3_problem(device=dev, n_rays=n_rays, n_samples=n_samples)
+    args = pb["args"](False)
+    shard = ft.fused_train_loss_and_grads_sharded(mesh, "data", *args)
+    full = ft.fused_train_loss_and_grads(*args)
+    res.update(k3_errors("", shard, full))
+    res.update(k3_errors("_vs_plain", shard, ft.plain_train_loss_and_grads(*args)))
+    if device == "cuda":
+        part = slice(rank * n_rays // world, (rank + 1) * n_rays // world)
+        local = [a[part] if isinstance(a, torch.Tensor) and a.dim() and a.shape[0] == n_rays
+                 else a for a in args]
+        res["local_k3_ms"] = cuda_time_ms(
+            lambda: ft.fused_train_loss_and_grads(*local, total_rays=n_rays))
+        res["local_plain_ms"] = cuda_time_ms(
+            lambda: ft.plain_train_loss_and_grads(*local, total_rays=n_rays))
+        # the same K3 with the other ranks waiting at a barrier (the ranks
+        # share one card)
+        dist.barrier()
+        for r in range(world):
+            if r == rank:
+                res["local_k3_ms_alone"] = cuda_time_ms(
+                    lambda: ft.fused_train_loss_and_grads(*local, total_rays=n_rays))
+            dist.barrier()
+        # the entry's SUM buffer: the 16 terms and K2's gradient buffer
+        n_buf = ft.TERMS + ft._terms_grads(*local, total_rays=n_rays)[1].numel()
+        buf = torch.zeros(n_buf, device=dev)
+        res["buffer_floats"] = n_buf
+        res["allreduce_ms"] = wall_ms(lambda: dist.all_reduce(buf), 10)
+        res["sharded_ms"] = wall_ms(
+            lambda: ft.fused_train_loss_and_grads_sharded(mesh, "data", *args), 10)
+        res["plain_sharded_ms"] = wall_ms(lambda: plain_sharded(mesh, args, n_rays), 10)
+    res.update(dp_train(dp_problem(dev, n_rays, n_samples), mesh))
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def data_parallel_phase(workdir: str, device: str = "cuda", n_rays: int = 1024,
+                        n_samples: int = 500) -> dict:
+    """Phase 4g, data parallelism at full width: (1) world 1 over NCCL in
+    this process, the sharded entry against the unsharded K3 bitwise;
+    (2) ``DP_WORLD`` ranks over gloo on the one card (NCCL refuses two ranks
+    on one device), spawned: the sharded K3 within K3's gate of K3 on the
+    whole batch, then ``DP_STEPS`` data-parallel steps, the parameters
+    bitwise equal across ranks and the losses within ``LOSS_REL`` of the
+    single-card steps from the same state. The kernels are built before the
+    ranks start. Raises on any failure."""
+    import multiprocessing as mp
+
+    import torch
+    import torch.distributed as dist
+
+    from nerfca_tpu_torch.ops.cuda import fused_train as ft
+    from nerfca_tpu_torch.parallel import make_mesh, multihost
+
+    dev = torch.device(device)
+    res: dict = {}
+    multihost.initialize(f"localhost:{free_port()}", 1, 0,
+                         backend="nccl" if device == "cuda" else "gloo")
+    try:
+        mesh = make_mesh(device=device)
+        args = k3_problem(device=dev, n_rays=n_rays, n_samples=n_samples)["args"](False)
+        one = ft.fused_train_loss_and_grads(*args)
+        sharded = ft.fused_train_loss_and_grads_sharded(mesh, "data", *args)
+        from nerfca_tpu_torch.train.step import param_items
+
+        pairs = [(one[0], sharded[0])] + [(one[1][k], sharded[1][k]) for k in one[1]]
+        for a, b in zip(*(param_items({"static": r[2], "temp": r[3]}) for r in (one, sharded))):
+            pairs.append((a[1], b[1]))
+        res["world1_bitwise"] = all(torch.equal(a, b) for a, b in pairs)
+        if not res["world1_bitwise"]:
+            raise AssertionError("world 1: the sharded entry differs from K3")
+    finally:
+        dist.destroy_process_group()
+    single = dp_train(dp_problem(dev, n_rays, n_samples))
+    res["single_losses"] = single["losses"]
+
+    out_dir = os.path.join(workdir, "dp")
+    os.makedirs(out_dir, exist_ok=True)
+    port = free_port()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=dp_rank, args=(r, DP_WORLD, port, out_dir, device, n_rays,
+                                               n_samples)) for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=900)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    res["ranks_wall_s"] = time.perf_counter() - t0
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"data-parallel ranks exited {[p.exitcode for p in procs]}")
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(DP_WORLD)]
+    res["ranks"] = [{k: v for k, v in r.items() if k != "params"} for r in ranks]
+    res["params_bitwise_equal"] = all(torch.equal(ranks[0]["params"], r["params"])
+                                      for r in ranks[1:])
+    if not res["params_bitwise_equal"]:
+        raise AssertionError("data parallel: the ranks' parameters differ")
+    rel = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], single["losses"])]
+    res["loss_rel_vs_single"] = rel
+    if not all(math.isfinite(x) and x <= LOSS_REL for x in rel):
+        raise AssertionError(f"data parallel losses {ranks[0]['losses']} vs single-card "
+                             f"{single['losses']}")
+    for r in ranks:
+        if device == "cuda" and r["launches"]["fused_train_loss"] != DP_STEPS:
+            raise AssertionError(f"rank {r['rank']}: K3 launches {r['launches']}")
+    return res
+
+
+def static_cfg(fourier: bool = False):
+    """The static field of ``configs/3d.txt`` (``--static_pos_enc fourier``
+    with ``fourier``: its sigma 2, basis 12)."""
     from nerfca_tpu_torch.train.config import parse_args
     from nerfca_tpu_torch.train.trainer import static_config_from_args
 
-    return static_config_from_args(parse_args(["--config", STATIC_CONFIG]))
+    extra = ["--static_pos_enc", "fourier"] if fourier else []
+    return static_config_from_args(parse_args(["--config", STATIC_CONFIG, *extra]))
 
 
 def check_static_entries(params_static=None, window=None, n_rays: int = 1024,
-                         n_samples: int = 500, seed: int = 0, timed: bool = True) -> dict:
+                         n_samples: int = 500, seed: int = 0, timed: bool = True,
+                         fourier: bool = False) -> dict:
     """The static method's entries against their plain twins at the full
     shapes of ``configs/3d.txt`` (``n_rays`` x ``n_samples`` points of the
     flagship view): ``fused_static_field`` (the one-field K1/K2) on
@@ -826,27 +1156,30 @@ def check_static_entries(params_static=None, window=None, n_rays: int = 1024,
     rule. With ``timed``, CUDA-event times of the one-field K1 and K2, of
     the point form's K1 and K2 and of the composite ray-form K1 and K2 on
     the same points, in turns and then in the reverse order, with the plain
-    twins. Raises on a disagreement."""
+    twins. With ``fourier`` the fields take the fourier encoding
+    (``configs/3d.txt --static_pos_enc fourier``, the flagship pair at sigma
+    2). Raises on a disagreement."""
     import torch
 
     from nerfca_tpu_torch.models.fields import init_static_field
     from nerfca_tpu_torch.ops import prng
     from nerfca_tpu_torch.ops.cuda import fused_field as ff
-    from nerfca_tpu_torch.train.step import param_items
 
     dev = torch.device("cuda")
-    cfg = static_cfg()
+    cfg = static_cfg(fourier)
     if params_static is None:
         params_static = init_static_field(prng.key(seed), cfg, dev)
-    if window is None:
+    if window is None and not fourier:
         window = torch.ones(cfg.pos_enc_basis, device=dev)
+
     def leaf(t):
         return t.detach().clone().requires_grad_(True)
 
     params_static = {"early": [{k: leaf(v) for k, v in layer.items()}
                                for layer in params_static["early"]],
-                     "out": {k: leaf(v) for k, v in params_static["out"].items()}}
-    names, leaves = zip(*param_items({"static": params_static}))
+                     "out": {k: leaf(v) for k, v in params_static["out"].items()},
+                     **{k: v.detach() for k, v in params_static.items() if k == "fourier"}}
+    names, leaves = trained_leaves({"static": params_static})
     origins, dirs, z, phases = flagship_rays(n_rays, n_samples, seed + 4, dev)
     with torch.no_grad():
         pts = ff._points(origins, dirs, z).contiguous()
@@ -868,13 +1201,11 @@ def check_static_entries(params_static=None, window=None, n_rays: int = 1024,
            "param_floats": sum(t.numel() for t in leaves)}
 
     # the point form with both flagship fields on the same points
-    cfg_s, cfg_t = flagship_cfgs()
-    fp = flagship_params(seed + 6, dev)
-    f_names, f_leaves = zip(*param_items(fp))
-    for t in f_leaves:
-        t.requires_grad_(True)
+    cfg_s, cfg_t = flagship_cfgs(fourier)
+    fp = flagship_params(seed + 6, dev, fourier)
+    f_names, f_leaves = trained_leaves(fp)
     pph = phases[:, None].expand(n_rays, n_samples)
-    w12 = torch.ones(12, device=dev)
+    w12 = None if fourier else torch.ones(12, device=dev)
     pargs = (fp["static"], fp["temp"], pts, pph, cfg_s, cfg_t, w12, w12)
     cot2 = torch.randn(2, n_rays, n_samples, 1, generator=g, device=dev)
 
@@ -897,9 +1228,9 @@ def check_static_entries(params_static=None, window=None, n_rays: int = 1024,
         return res
 
     # the launch functions on packed inputs, as check_kernels times them
-    pack = ff._Pack(cfg, ff._leaves(params_static), window, dev)
-    pack_s = ff._Pack(cfg_s, ff._leaves(fp["static"]), w12, dev)
-    pack_t = ff._Pack(cfg_t, ff._leaves(fp["temp"]), w12, dev)
+    pack = ff._Pack(cfg, ff._leaves(params_static), ff.enc_table(params_static, cfg, window),
+                    dev)
+    pack_s, pack_t = packs(fp, (cfg_s, cfg_t), w12, dev)
     n = n_rays * n_samples
     po, pd = pts.reshape(n, 3), torch.zeros(n, 3, device=dev)
     z0 = torch.zeros(1, device=dev)
@@ -938,7 +1269,7 @@ def check_static_entries(params_static=None, window=None, n_rays: int = 1024,
     return res
 
 
-def static_phase(workdir: str) -> dict:
+def static_phase(workdir: str, fourier: bool = False) -> dict:
     """Phase 4d: the static 3-D method through ``run_nerf.main`` on
     ``configs/3d.txt`` at full width with ``--use_pallas true`` (its own
     one-phase 128^3 dataset, ``STATIC_STEPS`` steps, an eval every
@@ -947,7 +1278,9 @@ def static_phase(workdir: str) -> dict:
     K3. Then the step-0 eval (the seed's initial field, as the trainer's
     eval scores it), the entries against their twins at the trained state,
     and the warm step, kernels against plain, and the eval view, in turns.
-    Raises on any failure."""
+    With ``fourier`` (phase 4f): ``configs/3d.txt --static_pos_enc
+    fourier`` on the same dataset, ``FOURIER_STATIC_STEPS`` steps, held
+    against its own JAX record, no profile. Raises on any failure."""
     import torch
 
     from nerfca_tpu_torch.models.fields import init_static_field
@@ -955,13 +1288,16 @@ def static_phase(workdir: str) -> dict:
     from nerfca_tpu_torch.train import evaluation
     from nerfca_tpu_torch.train.step import field_window, make_static_train_step
 
+    steps, every = (FOURIER_STATIC_STEPS, FOURIER_STATIC_STEPS) if fourier else (STATIC_STEPS,
+                                                                                  STATIC_EVERY)
     argv = ["--config", STATIC_CONFIG, "--use_pallas", "true", "--platform", "cuda",
-            "--n_iters", str(STATIC_STEPS), "--display_every", str(STATIC_EVERY), "--seed", "0",
+            "--n_iters", str(steps), "--display_every", str(every), "--seed", "0",
             "--log_every", "1", "--data_root", os.path.join(workdir, "data-static"),
-            "--log_dir_root", os.path.join(workdir, "cases-static")]
+            "--log_dir_root", os.path.join(workdir, "cases-static" + ("-fourier" * fourier)),
+            *(["--static_pos_enc", "fourier"] if fourier else [])]
     res = counted_run(argv, static=True)
     out, tl = res["run"], res["train_launches"]
-    n_total = STATIC_STEPS + 1
+    n_total = steps + 1
     if out["diverged_at"] is not None or out["final_step"] != n_total:
         raise AssertionError(f"static: diverged at {out['diverged_at']}, final step "
                              f"{out['final_step']}")
@@ -972,7 +1308,7 @@ def static_phase(workdir: str) -> dict:
             or tl["fused_field_fwd"] or tl["fused_field_bwd"] or tl["fused_train_loss"]):
         raise AssertionError(f"static: expected the one-field K1 and K2 once a step and no "
                              f"other launch: {tl}")
-    if [r["step"] for r in res["evals"]] != list(range(STATIC_EVERY, n_total, STATIC_EVERY)):
+    if [r["step"] for r in res["evals"]] != list(range(every, n_total, every)):
         raise AssertionError(f"static: evals at {[r['step'] for r in res['evals']]}")
 
     setup, state = out["setup"], out["state"]
@@ -997,7 +1333,7 @@ def static_phase(workdir: str) -> dict:
 
     trained = check_static_entries(state.params["static"],
                                    field_window(cfg, state.step, torch.device("cuda")),
-                                   timed=False)
+                                   timed=False, fourier=fourier)
 
     dd = setup["device_data"]
     paths = {"kernels": True, "plain": False}
@@ -1014,21 +1350,23 @@ def static_phase(workdir: str) -> dict:
         steady.setdefault(f"step_ms_{path}", []).append(wall_ms(train_step, 10))
         steady.setdefault("eval_ms", []).append(
             wall_ms(lambda: eval_psnr(state.params, state.step), 1))
-    prof = profile_steps(make_static_train_step(cfg, setup["hp"], setup["tx"],
-                                                setup["depth_values"], setup["max_pixel_value"]),
-                         state, dd)
+    prof = None if fourier else profile_steps(
+        make_static_train_step(cfg, setup["hp"], setup["tx"], setup["depth_values"],
+                               setup["max_pixel_value"]), state, dd)
     return {"res": res, "loss": loss, "psnr": psnr, "trained": trained, "steady": steady,
-            "profile": prof,
+            "profile": prof, "steps": steps, "fourier": fourier,
+            "record": JAX_STATIC_FOURIER if fourier else JAX_STATIC,
             "n_total": n_total, "meta_run": meta["run"],
             "rays": int(dd["rays"].shape[0]), "view": [w, h]}
 
 
 def report_static(sp: dict, card: str) -> bool:
-    """Print phase 4d beside the JAX record; True when both gates pass."""
-    with open(JAX_STATIC) as f:
+    """Print phase 4d (4f) beside the JAX record; True when both gates pass."""
+    with open(sp["record"]) as f:
         rec = json.load(f)
     res, loss, psnr = sp["res"], sp["loss"], sp["psnr"]
-    log(f"static 3-D method (configs/3d.txt, run_nerf, {STATIC_STEPS} steps; {card}): "
+    what = "configs/3d.txt --static_pos_enc fourier" if sp["fourier"] else "configs/3d.txt"
+    log(f"static 3-D method ({what}, run_nerf, {sp['steps']} steps; {card}): "
         f"{res['wall_s']:.1f} s wall with the dataset build ({sp['rays']} rays, view "
         f"{sp['view']}); {res['train_steps']} steps in {res['train_s']:.2f} s of train chunks "
         f"({1e3 * res['train_s'] / res['train_steps']:.2f} ms a step, first chunk included); "
@@ -1038,7 +1376,7 @@ def report_static(sp: dict, card: str) -> bool:
         log(f"  step {s}: train_loss {loss[s]:.7g} (JAX {rec['train_loss'][str(s)]:.7g}), "
             f"test_image_psnr {psnr[s]:.4f} dB (JAX {rec['test_image_psnr'][str(s)]:.4f})")
     loss0_rel = abs(loss[0] - rec["train_loss"]["0"]) / abs(rec["train_loss"]["0"])
-    last = STATIC_STEPS
+    last = sp["steps"]
     psnr_gap = abs(psnr[last] - rec["test_image_psnr"][str(last)])
     passed = loss0_rel <= GATE_STATIC_LOSS0_REL and psnr_gap <= GATE_STATIC_PSNR_DB
     tr = sp["trained"]
@@ -1047,7 +1385,8 @@ def report_static(sp: dict, card: str) -> bool:
         f"{tr['k2_norm']:.3e} of its scale (limit {K2_REL}); point form {tr['point_k1_err']:.3e}"
         f" / {tr['point_k2_norm']:.3e}")
     log(f"  steady state in turns, kernels / plain then reversed: {json.dumps(sp['steady'])}")
-    log(f"  profile of 3 static kernel steps: {json.dumps(sp['profile'])}")
+    if sp["profile"] is not None:
+        log(f"  profile of 3 static kernel steps: {json.dumps(sp['profile'])}")
     log(f"  gates against the JAX record: step-0 train_loss rel {loss0_rel:.3e} <= "
         f"{GATE_STATIC_LOSS0_REL} and step-{last} test_image_psnr gap {psnr_gap:.4f} dB <= "
         f"{GATE_STATIC_PSNR_DB}: {'passed' if passed else 'FAILED'}")
@@ -1060,17 +1399,25 @@ def field_macs(cfg) -> int:
     return k0 * cfg.num_filters + cfg.num_early_layers * cfg.num_filters ** 2 + cfg.num_filters
 
 
-def bounds(shapes: dict) -> dict:
+def table_floats(cfg) -> int:
+    """What a field's encoding reads besides the points: its band window,
+    or its fourier projection."""
+    return 3 * cfg.pos_enc_basis if cfg.pos_enc == "fourier" else cfg.pos_enc_basis
+
+
+def bounds(shapes: dict, fourier: bool = False) -> dict:
     """Least time (ms) the card could take for each kernel's work at this
     run's shapes, max(bytes / HBM rate, operations / peak), on the route the
     kernel takes, with both routes beside it: f32 FMAs on the CUDA cores
     (operations / 67 TFLOP/s) and 3xTF32 on the tensor cores (3 x operations
-    / 495 TFLOP/s: three TF32 products per f32 product)."""
-    cfg_s, cfg_t = flagship_cfgs()
+    / 495 TFLOP/s: three TF32 products per f32 product). ``fourier``: the
+    fields on the fourier encoding (72 encoded features against 75)."""
+    cfg_s, cfg_t = flagship_cfgs(fourier)
     r, s, n_par = shapes["n_rays"], shapes["n_samples"], shapes["param_floats"]
     n = r * s
     fwd = 2 * (field_macs(cfg_s) + field_macs(cfg_t)) * n  # forward flops
-    ray_bytes = 4 * (6 * r + s + r)  # origins, directions, depths, phases
+    # origins, directions, depths, phases, the encodings' tables
+    ray_bytes = 4 * (6 * r + s + r + table_floats(cfg_s) + table_floats(cfg_t))
     f32_s = lambda flops: flops / PEAK_F32_FLOPS
     tc_s = lambda flops: 3 * flops / PEAK_TF32_FLOPS
     work = {
@@ -1092,7 +1439,7 @@ def bounds(shapes: dict) -> dict:
     # phases 4 more for the pair): the static field alone (one-field K1 and
     # K2) and the flagship pair
     if "static_param_floats" in shapes:
-        fwd1 = 2 * field_macs(static_cfg()) * n
+        fwd1 = 2 * field_macs(static_cfg(fourier)) * n
         p1, p2 = shapes["static_param_floats"], shapes["point_param_floats"]
         work["static_k1"] = ("3xTF32 mma.sync on the tensor cores", fwd1, tc_s(fwd1),
                              12 * n + 4 * p1 + 4 * n)
@@ -1175,6 +1522,29 @@ def main() -> int:
     log(f"static / point-form / composite K1 and K2 in turns then reversed, CUDA events, "
         f"1024 x 500 points ({card}): {json.dumps(se['ms'])}")
 
+    # the fourier encoding (basis 12, sigma 2) through K1, K2 and K3 at the
+    # flagship shapes, under the same gates, the free_windowed times above
+    # in the same call
+    fk = check_kernels(fourier=True)
+    log(f"fourier K1 max abs err {fk['k1_err']:.3e} (limit {K1_ATOL}); K2 max abs err "
+        f"{fk['k2_err']:.3e}, worst leaf {fk['k2_worst']} at {fk['k2_norm']:.3e} of its scale "
+        f"(limit {K2_REL}); K1 {fk['k1_ms']:.3f} ms vs plain {fk['k1_plain_ms']:.3f} ms, K2 "
+        f"{fk['k2_ms']:.3f} ms vs plain {fk['k2_plain_ms']:.3f} ms; free_windowed K1 "
+        f"{kc['k1_ms']:.3f} / K2 {kc['k2_ms']:.3f} ms ({card})")
+    fk3 = check_k3(fourier=True)
+    for tag, what in (("", "no hull"), ("_hull", f"hull gate, {fk3['empty_rays']} empty rays")):
+        log(f"fourier K3 ({what}): loss rel err {fk3['loss_rel' + tag]:.3e}, worst term rel "
+            f"err {fk3['term_rel' + tag]:.3e}; grads worst leaf {fk3['worst' + tag]} at "
+            f"{fk3['norm' + tag]:.3e} of its scale; {fk3['ms' + tag]:.3f} ms vs plain "
+            f"{fk3['plain_ms' + tag]:.3f} ms")
+    fse = check_static_entries(fourier=True)
+    log(f"fourier fused_static_field (configs/3d.txt --static_pos_enc fourier) vs plain: max "
+        f"abs err {fse['k1_err']:.3e}; grads worst leaf {fse['k2_worst']} at "
+        f"{fse['k2_norm']:.3e} of its scale; fourier point form {fse['point_k1_err']:.3e} / "
+        f"{fse['point_k2_norm']:.3e}")
+    log(f"fourier static / point-form / composite K1 and K2 in turns then reversed, CUDA "
+        f"events, 1024 x 500 points ({card}): {json.dumps(fse['ms'])}")
+
     with tempfile.TemporaryDirectory() as workdir:
         mp = drive_main_path(workdir, [], 6)
         tl = mp["train_launches"]
@@ -1200,6 +1570,18 @@ def main() -> int:
         log(f"  eval render: {fp['eval_ms']} ms; test_image_psnr "
             f"{fp['eval']['test_image_psnr']:.3f}")
 
+        # phase 4e: the fourier composite through K3 on the flagship dataset
+        fc = drive_main_path(workdir, ["--use_fused_loss", "true", *FOURIER_ARGV], 6)
+        tl = fc["train_launches"]
+        if (tl["fused_train_loss"] != 6 or tl["fused_field_bwd"] != 6
+                or tl["fused_field_fwd"] != 6):
+            raise AssertionError(f"the fourier composite did not run K3 once a step: {tl}")
+        log(f"main path, fourier composite (both fields fourier, sigma 2, K3): "
+            f"{fc['wall_s']:.1f} s wall; train_loss {[round(r['train_loss'], 6) for r in fc['train']]}")
+        log(f"  launches: training {tl}, eval {fc['eval_launches']}")
+        log(f"  eval render: {fc['eval_ms']} ms; test_image_psnr "
+            f"{fc['eval']['test_image_psnr']:.3f}")
+
         cp = clean_protocol_phase(workdir)
         report_clean_protocol(cp, card)
         if not cp["gate_passed"]:
@@ -1209,16 +1591,47 @@ def main() -> int:
         sp = static_phase(workdir)
         if not report_static(sp, card):
             raise AssertionError("static: the run is outside the gates against the JAX record")
+        fsp = static_phase(workdir, fourier=True)
+        if not report_static(fsp, card):
+            raise AssertionError("static fourier: the run is outside the gates against the JAX "
+                                 "record")
+
+        dp = data_parallel_phase(workdir)
+        r0 = dp["ranks"][0]
+        log(f"data parallel ({card}): world 1 over NCCL, the sharded entry equals K3 bitwise: "
+            f"{dp['world1_bitwise']}; world {DP_WORLD} over gloo on the one card "
+            f"({dp['ranks_wall_s']:.1f} s for the ranks): sharded K3 vs K3 on the whole batch, "
+            f"per rank {[round(r['loss_rel'], 9) for r in dp['ranks']]} loss rel, grads worst "
+            f"{[round(r['norm'], 6) for r in dp['ranks']]} of their scale; {DP_STEPS} steps: "
+            f"parameters bitwise equal across ranks {dp['params_bitwise_equal']}, losses "
+            f"{r0['losses']} vs single-card {dp['single_losses']} (rel "
+            f"{[f'{x:.2e}' for x in dp['loss_rel_vs_single']]}); launches per rank "
+            f"{[r['launches'] for r in dp['ranks']]}")
+        log(f"  rank 0, both ranks running: K3 on its {1024 // DP_WORLD} rays "
+            f"{r0['local_k3_ms']:.3f} ms (plain {r0['local_plain_ms']:.3f} ms), all-reduce of "
+            f"{r0['buffer_floats']} floats {r0['allreduce_ms']:.3f} ms, the whole sharded call "
+            f"{r0['sharded_ms']:.3f} ms, the plain version's composition "
+            f"{r0['plain_sharded_ms']:.3f} ms; K3 on its rays with the other rank waiting "
+            f"{[round(r['local_k3_ms_alone'], 3) for r in dp['ranks']]} ms; sharded K3 vs the "
+            f"plain version on the whole batch, per rank "
+            f"{[round(r['loss_rel_vs_plain'], 9) for r in dp['ranks']]} loss rel, grads worst "
+            f"{[round(r['norm_vs_plain'], 6) for r in dp['ranks']]} of their scale")
 
     steady = steady_state_times(fp["run"], hull)
     log(f"steady state in turns, K3 / K1+K2 / plain / K3+hull then reversed ({card}): "
         f"{json.dumps(steady)}")
+    fsteady = steady_state_times(fc["run"], None, names=("k3", "k1k2", "plain"))
+    log(f"steady state of the fourier composite in turns, K3 / K1+K2 / plain then reversed "
+        f"({card}): {json.dumps(fsteady)}")
     prof = profile_k3_step(fp["run"])
     log(f"profile of 3 K3 steps ({card}): {json.dumps(prof)}")
 
     bd = bounds({**kc["shapes"], "static_param_floats": se["param_floats"],
                  "point_param_floats": se["point_param_floats"]})
-    for k, b in bd.items():
+    fbd = bounds({**fk["shapes"], "static_param_floats": fse["param_floats"],
+                  "point_param_floats": fse["point_param_floats"]}, fourier=True)
+    rank_bd = bounds({**kc["shapes"], "n_rays": kc["shapes"]["n_rays"] // DP_WORLD})["k3"]
+    for k, b in [*bd.items(), *((f"{k}_fourier", b) for k, b in fbd.items())]:
         log(f"{k.upper()} runs {b['route']}: bound {b['bound_ms']:.3f} ms ({b['bound_by']}); "
             f"all f32 on the CUDA cores {b['bound_ms_f32_cuda_cores']:.3f} ms, all 3xTF32 on "
             f"the tensor cores {b['bound_ms_3xtf32_tensor_cores']:.3f} ms")
@@ -1232,6 +1645,9 @@ def main() -> int:
 
     def mean(name):
         return sum(se["ms"][name]) / len(se["ms"][name])
+
+    def fmean(name):
+        return sum(fse["ms"][name]) / len(fse["ms"][name])
 
     kernels = [
         {"name": "fused_field_fwd (K1)", "route": "cuda",
@@ -1264,14 +1680,15 @@ def main() -> int:
          "ms_hull": k3["ms_hull"], "plain_ms_hull": k3["plain_ms_hull"],
          **bound_keys(bd["k3"]),
          "library_ms": None},
-        {"name": "fused_static_field forward (K1 one field, fwd_kernel<2, 32, 1>)",
+        {"name": "fused_static_field forward (K1 one field, fwd_kernel<2, 32, 1, false>)",
          "route": "cuda", "source": "nerfca_tpu_torch/csrc/fused_field.cu",
          "replaces": "nerfca_tpu/ops/pallas/fused_field.py:803",
          "launches": static["fused_static_field_fwd"], "max_abs_err": se["k1_err"],
          "max_abs_err_trained": sp["trained"]["k1_err"], "limit": f"abs {K1_ATOL}",
          "ms": mean("static_k1"), "plain_ms": mean("static_plain_fwd"),
          **bound_keys(bd["static_k1"]), "library_ms": None},
-        {"name": "fused_static_field backward (K2 one field, bwd_kernel<1>)", "route": "cuda",
+        {"name": "fused_static_field backward (K2 one field, bwd_kernel<1, false>)",
+         "route": "cuda",
          "source": "nerfca_tpu_torch/csrc/fused_field.cu",
          "replaces": "nerfca_tpu/ops/pallas/fused_field.py:803",
          "launches": static["fused_static_field_bwd"], "max_abs_err": se["k2_err"],
@@ -1292,6 +1709,67 @@ def main() -> int:
          "ray_form_ms": mean("composite_k1"), "ray_form_bwd_ms": mean("composite_k2"),
          "plain_ms": mean("point_plain_fwd"), **bound_keys(bd["point_k1"]), "bwd_bound_ms": bd["point_k2"]["bound_ms"],
          "library_ms": None},
+        {"name": "fused_field_fwd (K1, fourier encoding, fwd_kernel<2, 32, 2, true>)",
+         "route": "cuda", "source": "nerfca_tpu_torch/csrc/fused_field.cu",
+         "replaces": "nerfca_tpu/ops/pallas/fused_field.py:527 (fourier rows, :108-131)",
+         "launches": fc["launches"]["fused_field_fwd"], "max_abs_err": fk["k1_err"],
+         "limit": f"abs {K1_ATOL}", "ms": fk["k1_ms"], "plain_ms": fk["k1_plain_ms"],
+         "free_windowed_ms_same_call": kc["k1_ms"], **bound_keys(fbd["k1"]), "library_ms": None},
+        {"name": "fused_field_bwd (K2, fourier encoding, bwd_kernel<2, true>)", "route": "cuda",
+         "source": "nerfca_tpu_torch/csrc/fused_field.cu",
+         "replaces": "nerfca_tpu/ops/pallas/fused_field.py:604 (fourier rows, :623-627)",
+         "launches": fc["launches"]["fused_field_bwd"], "max_abs_err": fk["k2_err"],
+         "max_err_of_leaf_scale": fk["k2_norm"], "limit": f"{K2_REL} of leaf scale",
+         "ms": fk["k2_ms"], "plain_ms": fk["k2_plain_ms"],
+         "free_windowed_ms_same_call": kc["k2_ms"], **bound_keys(fbd["k2"]), "library_ms": None},
+        {"name": "K3, fourier encoding (K1, fused_train_loss, K2 on the fourier fields)",
+         "route": "cuda", "source": "nerfca_tpu_torch/csrc/fused_train.cu",
+         "replaces": "nerfca_tpu/ops/pallas/fused_train.py:607 (fourier fields)",
+         "launches": fc["launches"]["fused_train_loss"], "max_abs_err": fk3["err"],
+         "max_err_of_leaf_scale": fk3["norm"], "loss_rel_err": fk3["loss_rel"],
+         "term_rel_err": fk3["term_rel"],
+         "limit": f"loss and terms rel {LOSS_REL}, grads {K2_REL} of leaf scale",
+         "ms": fk3["ms"], "plain_ms": fk3["plain_ms"], "ms_hull": fk3["ms_hull"],
+         "plain_ms_hull": fk3["plain_ms_hull"], **bound_keys(fbd["k3"]), "library_ms": None},
+        {"name": "fused_static_field forward, fourier (K1 one field, fwd_kernel<2, 32, 1, true>)",
+         "route": "cuda", "source": "nerfca_tpu_torch/csrc/fused_field.cu",
+         "replaces": "nerfca_tpu/ops/pallas/fused_field.py:803 (fourier)",
+         "launches": fsp["res"]["launches"]["fused_static_field_fwd"],
+         "max_abs_err": fse["k1_err"], "max_abs_err_trained": fsp["trained"]["k1_err"],
+         "limit": f"abs {K1_ATOL}", "ms": fmean("static_k1"),
+         "plain_ms": fmean("static_plain_fwd"), **bound_keys(fbd["static_k1"]),
+         "library_ms": None},
+        {"name": "fused_static_field backward, fourier (K2 one field, bwd_kernel<1, true>)",
+         "route": "cuda", "source": "nerfca_tpu_torch/csrc/fused_field.cu",
+         "replaces": "nerfca_tpu/ops/pallas/fused_field.py:803 (fourier)",
+         "launches": fsp["res"]["launches"]["fused_static_field_bwd"],
+         "max_abs_err": fse["k2_err"], "max_err_of_leaf_scale": fse["k2_norm"],
+         "max_err_of_leaf_scale_trained": fsp["trained"]["k2_norm"],
+         "limit": f"{K2_REL} of leaf scale", "ms": fmean("static_k2"),
+         "plain_ms": fmean("static_plain_bwd"), **bound_keys(fbd["static_k2"]),
+         "library_ms": None},
+        {"name": f"fused_train_loss_and_grads_sharded (K3 per rank + all-reduce, {DP_WORLD} "
+                 f"ranks over gloo on one card)", "route": "cuda",
+         "source": "nerfca_tpu_torch/ops/cuda/fused_train.py",
+         "replaces": "nerfca_tpu/ops/pallas/fused_train.py:695",
+         "launches": r0["launches"]["fused_train_loss"],
+         "launches_all_ranks": sum(r["launches"]["fused_train_loss"] for r in dp["ranks"]),
+         "max_abs_err": max(r["err_vs_plain"] for r in dp["ranks"]),
+         "max_err_of_leaf_scale": max(r["norm_vs_plain"] for r in dp["ranks"]),
+         "loss_rel_err": max(r["loss_rel_vs_plain"] for r in dp["ranks"]),
+         "max_abs_err_vs_k3": max(r["err"] for r in dp["ranks"]),
+         "max_err_of_leaf_scale_vs_k3": max(r["norm"] for r in dp["ranks"]),
+         "loss_rel_err_vs_k3": max(r["loss_rel"] for r in dp["ranks"]),
+         "world1_bitwise_equal_to_k3": dp["world1_bitwise"],
+         "limit": f"against the plain version and K3 on the whole batch: loss and terms rel "
+                  f"{LOSS_REL}, grads {K2_REL} of leaf scale; world 1 bitwise",
+         "ms": r0["sharded_ms"], "local_k3_ms": r0["local_k3_ms"],
+         "local_k3_ms_alone": r0["local_k3_ms_alone"],
+         "allreduce_ms": r0["allreduce_ms"], "plain_ms": r0["plain_sharded_ms"],
+         "local_plain_ms": r0["local_plain_ms"], **bound_keys(bd["k3"]),
+         "bound_of": f"K3 on the whole batch: the {DP_WORLD} ranks' work shares the card in "
+                     f"the timed window",
+         "bound_ms_per_rank": rank_bd["bound_ms"], "library_ms": None},
     ]
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

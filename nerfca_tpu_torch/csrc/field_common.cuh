@@ -23,9 +23,12 @@ struct FieldArgs {
   const float* bh;      // [n_hidden, 128]
   const float* wo;      // [128]
   const float* bo;      // [1]
-  const float* window;  // [basis] band window
+  union {
+    const float* window;  // [basis] band window (windowed and 'none' modes)
+    const float* coef;    // [3 * basis] projection ('fourier' mode)
+  };
   int basis;            // 0 for pos_enc 'none'
-  int enc;              // encoded features: 3 + 6 * basis
+  int enc;              // encoded features: 3 + 6 * basis ('fourier': 6 * basis)
   int n_lat;            // latent dims (0 for the static field)
   int n_hidden;
 };
@@ -44,35 +47,67 @@ struct RayArgs {
 
 __device__ __forceinline__ int round4(int k) { return (k + 3) & ~3; }
 
+// A field in 'fourier' mode: 6 * basis encoded features and no raw rows
+// (the other modes have 3 + 6 * basis, or 3).
+__host__ __device__ __forceinline__ bool is_fourier(const FieldArgs& f) {
+  return f.basis > 0 && f.enc == 6 * f.basis;
+}
+
 // Encoded input of one field for the tile starting at point tile0 into
 // H[p][k] (k < round4(enc + n_lat); padding columns zeroed). phase_sm[p]
-// receives each point's phase (-1 for points past the end).
+// receives each point's phase (-1 for points past the end). FOURIER
+// instantiations also take a field in 'fourier' mode (decided per field at
+// run time); the others compile the windowed and 'none' modes alone.
+template <bool FOURIER>
 __device__ __forceinline__ void encode_tile(const FieldArgs& f, const RayArgs& r, long tile0,
                             float* H, int* phase_sm) {
   const long n_pts = (long)r.n_rays * r.n_samples;
   const int k0 = f.enc + f.n_lat;
   const int k0p = round4(k0);
-  // one work item per (point, channel, band); band == basis is the raw row
-  const int nb = f.basis + 1;
-  for (int t = threadIdx.x; t < TP * 3 * nb; t += NTHREADS) {
-    const int p = t / (3 * nb), rem = t - p * 3 * nb;
-    const int c = rem / nb, b = rem - c * nb;
-    const long i = tile0 + p;
-    float x = 0.f;
-    if (i < n_pts) {
-      const long ray = i / r.n_samples;
-      const long s = i - ray * r.n_samples;
-      const float zz = r.z[ray * r.z_stride + s];
-      x = __fadd_rn(r.origins[ray * 3 + c], __fmul_rn(zz, r.dirs[ray * 3 + c]));
+  if (FOURIER && is_fourier(f)) {
+    // one work item per (point, band, channel), j = 3 band + channel:
+    // v = (f32(2 pi) x[c]) coef[j], rounded as the plain version rounds it;
+    // feature j is sin(v), feature 3 basis + j cos(v) (accurate sinf/cosf:
+    // |v| reaches ~40 at sigma 2)
+    const int nj = 3 * f.basis;
+    for (int t = threadIdx.x; t < TP * nj; t += NTHREADS) {
+      const int p = t / nj, j = t - p * nj, c = j % 3;
+      const long i = tile0 + p;
+      float x = 0.f;
+      if (i < n_pts) {
+        const long ray = i / r.n_samples;
+        const long s = i - ray * r.n_samples;
+        const float zz = r.z[ray * r.z_stride + s];
+        x = __fadd_rn(r.origins[ray * 3 + c], __fmul_rn(zz, r.dirs[ray * 3 + c]));
+      }
+      const float v = __fmul_rn(__fmul_rn(6.28318548f, x), f.coef[j]);
+      float* row = H + p * LDH;
+      row[j] = sinf(v);
+      row[nj + j] = cosf(v);
     }
-    float* row = H + p * LDH;
-    if (b == f.basis) {
-      row[c] = x;
-    } else {
-      const float xb = ldexpf(x, b);
-      const float w = f.window[b];
-      row[3 + 6 * b + c] = __fmul_rn(w, sinf(xb));
-      row[3 + 6 * b + 3 + c] = __fmul_rn(w, sinf(__fadd_rn(xb, 1.57079637f)));
+  } else {
+    // one work item per (point, channel, band); band == basis is the raw row
+    const int nb = f.basis + 1;
+    for (int t = threadIdx.x; t < TP * 3 * nb; t += NTHREADS) {
+      const int p = t / (3 * nb), rem = t - p * 3 * nb;
+      const int c = rem / nb, b = rem - c * nb;
+      const long i = tile0 + p;
+      float x = 0.f;
+      if (i < n_pts) {
+        const long ray = i / r.n_samples;
+        const long s = i - ray * r.n_samples;
+        const float zz = r.z[ray * r.z_stride + s];
+        x = __fadd_rn(r.origins[ray * 3 + c], __fmul_rn(zz, r.dirs[ray * 3 + c]));
+      }
+      float* row = H + p * LDH;
+      if (b == f.basis) {
+        row[c] = x;
+      } else {
+        const float xb = ldexpf(x, b);
+        const float w = f.window[b];
+        row[3 + 6 * b + c] = __fmul_rn(w, sinf(xb));
+        row[3 + 6 * b + 3 + c] = __fmul_rn(w, sinf(__fadd_rn(xb, 1.57079637f)));
+      }
     }
   }
   for (int t = threadIdx.x; t < TP; t += NTHREADS) {

@@ -11,11 +11,16 @@
 // Both kernels are templated on the field count NF. NF == 2 is the composite
 // pair above; NF == 1 evaluates the static field alone (the field of the
 // static 3-D method), on half the CTAs, with the same code per CTA. A C
-// entry given ft == NULL launches NF == 1.
+// entry given ft == NULL launches NF == 1. They are also templated on
+// FOURIER: the C entries launch the FOURIER instantiation when a field
+// encodes in 'fourier' mode (field_common.cuh: 6 * basis features from a
+// fixed projection, no raw rows, decided per field at run time), and the
+// other one otherwise, whose code is that of the windowed modes alone.
 //
 // What they compute, per point i = r * S + s of a ray batch:
 //   x = o[r] + z[r, s] * d[r]                      (never materialized in HBM)
 //   enc = [x, per band b: w[b] * sin(2^b x), w[b] * sin(2^b x + pi/2)]
+//         ('fourier': [sin(v), cos(v)], v[j] = 2 pi x[j % 3] coef[j])
 //   static:   raw_s = wo_s . relu(... relu(W0_s enc + b0_s) ...) + bo_s
 //   temporal: raw_t = same with [enc, latents[phase[r]]] as the input
 // K2 recomputes that forward per tile, backpropagates the given cotangents
@@ -268,6 +273,7 @@ __device__ __forceinline__ void store_relu_frag(float* dst, int ld, const float 
 // input of the last layer (for the first backward layer), g_sm the tile's
 // cotangents, and the scratch the encoded input ([BTP][LDH]) and the input
 // of every hidden layer but the last ((n_hidden - 1) x [BTP][WIDTH]).
+template <bool FOURIER>
 __device__ __forceinline__ void k2_forward(const FieldArgs& f, const RayArgs& r, const float* g,
                                            long tile0, WeightRing& ring, float* H, float* D,
                                            int* phase_sm, float* g_sm, float* scratch) {
@@ -276,8 +282,8 @@ __device__ __forceinline__ void k2_forward(const FieldArgs& f, const RayArgs& r,
     const long i = tile0 + p;
     g_sm[p] = i < n_pts ? g[i] : 0.f;
   }
-  encode_tile(f, r, tile0, H, phase_sm);
-  encode_tile(f, r, tile0 + TP, H + TP * LDH, phase_sm + TP);
+  encode_tile<FOURIER>(f, r, tile0, H, phase_sm);
+  encode_tile<FOURIER>(f, r, tile0 + TP, H + TP * LDH, phase_sm + TP);
   const int k0 = f.enc + f.n_lat, k4 = round4(k0), k_pad = round8(k0);
   // the mma steps are 8 deep: zero the columns encode_tile leaves
   for (int t = threadIdx.x; t < BTP * (k_pad - k4); t += NTHREADS) {
@@ -525,7 +531,7 @@ __device__ __forceinline__ void k2_backward(const FieldArgs& f, WeightRing& ring
   }
 }
 
-template <int NF>
+template <int NF, bool FOURIER>
 __global__ void __launch_bounds__(NTHREADS, 1)
 bwd_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, const float* g_s, const float* g_t,
            float* partials, long part_stride, float* scratch_all, long scratch_stride) {
@@ -553,7 +559,7 @@ bwd_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, const float* g_s, const float*
   float lat_acc = 0.f;
   for (long tile = first; tile < n_tiles; tile += stride) {
     WeightRing ring = ring_begin(f, ring_buf);
-    k2_forward(f, r, g, tile * BTP, ring, H, D, phase_sm, g_sm, scratch);
+    k2_forward<FOURIER>(f, r, g, tile * BTP, ring, H, D, phase_sm, g_sm, scratch);
     k2_backward(f, ring, r.n_phases, H, D, phase_sm, g_sm, dlat_sm, scratch, fpart, &lat_acc);
   }
   if (f.n_lat > 0 && threadIdx.x < r.n_phases * f.n_lat)
@@ -587,7 +593,7 @@ __global__ void reduce_kernel(const float* partials, long part_stride, int n_par
 constexpr int k1_smem(int np, int c) { return (np * LDH + 2 * c * LDW) * 4 + np * 4; }
 
 // two CTAs per SM where their shared memory fits (1 KB of each is reserved)
-template <int M, int C, int NF>
+template <int M, int C, int NF, bool FOURIER>
 __global__ void __launch_bounds__(NTHREADS, 2 * (k1_smem(64 * M, C) + 1024) <= 233472 ? 2 : 1)
 fwd_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, float* out_s, float* out_t) {
   constexpr int NP = 64 * M;
@@ -602,7 +608,7 @@ fwd_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, float* out_s, float* out_t) {
   WeightRing ring = ring_begin<C>(f, ring_buf, false);
 #pragma unroll
   for (int h = 0; h < M; ++h)
-    encode_tile(f, r, tile0 + h * TP, H + h * TP * LDH, phase_sm + h * TP);
+    encode_tile<FOURIER>(f, r, tile0 + h * TP, H + h * TP * LDH, phase_sm + h * TP);
   const int k0 = f.enc + f.n_lat, k4 = round4(k0), k_pad = round8(k0);
   // the mma steps are 8 deep: zero the columns encode_tile leaves
   for (int t = threadIdx.x; t < NP * (k_pad - k4); t += NTHREADS) {
@@ -641,32 +647,33 @@ static const int FWD_SMEM = k1_smem(K1_TP, K1_WCH);
 static const int BWD_SMEM =
     (BTP * LDH + BTP * LDD + 2 * WCH * LDW + BTP + BTP * MAX_LAT) * 4 + BTP * 4;
 
-// The launches of one instantiation (NF fields; the C entries pick NF).
-template <int NF>
+// The launches of one instantiation (NF fields, FOURIER; the C entries
+// pick both).
+template <int NF, bool FOURIER>
 static int launch_fwd(const FieldArgs& fs, const FieldArgs& ft, const RayArgs& r, float* out_s,
                       float* out_t, cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(fwd_kernel<K1_TP / 64, K1_WCH, NF>,
+  cudaError_t e = cudaFuncSetAttribute(fwd_kernel<K1_TP / 64, K1_WCH, NF, FOURIER>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
   if (e != cudaSuccess) return (int)e;
   const long n_pts = (long)r.n_rays * r.n_samples;
   const long n_tiles = (n_pts + K1_TP - 1) / K1_TP;
   if (n_tiles == 0) return 0;
-  fwd_kernel<K1_TP / 64, K1_WCH, NF>
+  fwd_kernel<K1_TP / 64, K1_WCH, NF, FOURIER>
       <<<(unsigned)(NF * n_tiles), NTHREADS, FWD_SMEM, st>>>(fs, ft, r, out_s, out_t);
   return (int)cudaGetLastError();
 }
 
-template <int NF>
+template <int NF, bool FOURIER>
 static cudaError_t launch_bwd(const FieldArgs& fs, const FieldArgs& ft, const RayArgs& r,
                               const float* g_s, const float* g_t, int n_ctas, float* partials,
                               long part_stride, float* scratch, long scratch_stride,
                               cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(bwd_kernel<NF>,
+  cudaError_t e = cudaFuncSetAttribute(bwd_kernel<NF, FOURIER>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
   if (e != cudaSuccess) return e;
   e = cudaMemsetAsync(partials, 0, sizeof(float) * part_stride * n_ctas, st);
   if (e != cudaSuccess) return e;
-  bwd_kernel<NF><<<n_ctas, NTHREADS, BWD_SMEM, st>>>(fs, ft, r, g_s, g_t, partials,
+  bwd_kernel<NF, FOURIER><<<n_ctas, NTHREADS, BWD_SMEM, st>>>(fs, ft, r, g_s, g_t, partials,
                                                      part_stride, scratch, scratch_stride);
   return cudaGetLastError();
 }
@@ -690,8 +697,11 @@ long fused_field_grad_size(const FieldArgs* fs, const FieldArgs* ft, int n_phase
 int fused_field_fwd(const FieldArgs* fs, const FieldArgs* ft, const RayArgs* r,
                     float* out_s, float* out_t, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  return ft ? launch_fwd<2>(*fs, *ft, *r, out_s, out_t, st)
-            : launch_fwd<1>(*fs, *fs, *r, out_s, out_t, st);
+  if (is_fourier(*fs) || (ft && is_fourier(*ft)))
+    return ft ? launch_fwd<2, true>(*fs, *ft, *r, out_s, out_t, st)
+              : launch_fwd<1, true>(*fs, *fs, *r, out_s, out_t, st);
+  return ft ? launch_fwd<2, false>(*fs, *ft, *r, out_s, out_t, st)
+            : launch_fwd<1, false>(*fs, *fs, *r, out_s, out_t, st);
 }
 
 // partials: [n_ctas, part_stride] zero-initialized by this call;
@@ -703,11 +713,17 @@ int fused_field_bwd(const FieldArgs* fs, const FieldArgs* ft, const RayArgs* r,
                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const long n = fused_field_grad_size(fs, ft, r->n_phases);
-  cudaError_t e =
-      ft ? launch_bwd<2>(*fs, *ft, *r, g_s, g_t, n_ctas, partials, part_stride, scratch,
-                         scratch_stride, st)
-         : launch_bwd<1>(*fs, *fs, *r, g_s, g_t, n_ctas, partials, part_stride, scratch,
-                         scratch_stride, st);
+  cudaError_t e;
+  if (is_fourier(*fs) || (ft && is_fourier(*ft)))
+    e = ft ? launch_bwd<2, true>(*fs, *ft, *r, g_s, g_t, n_ctas, partials, part_stride,
+                                 scratch, scratch_stride, st)
+           : launch_bwd<1, true>(*fs, *fs, *r, g_s, g_t, n_ctas, partials, part_stride,
+                                 scratch, scratch_stride, st);
+  else
+    e = ft ? launch_bwd<2, false>(*fs, *ft, *r, g_s, g_t, n_ctas, partials, part_stride,
+                                  scratch, scratch_stride, st)
+           : launch_bwd<1, false>(*fs, *fs, *r, g_s, g_t, n_ctas, partials, part_stride,
+                                  scratch, scratch_stride, st);
   if (e != cudaSuccess) return (int)e;
   reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(partials, part_stride, n_ctas,
                                                              n, grads);

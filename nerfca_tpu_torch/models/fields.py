@@ -8,10 +8,12 @@ The temporal field concatenates a learnable per-phase latent row
 (10 cardiac phases x ``num_time_dim``) to the encoded position.
 
 Parameter layout: the same tree as the JAX package, ``{"early": [{"w",
-"b"}, ...], "out": {"w", "b"}, "latents"}``, but every ``w`` is kept in the
-``nn.Linear`` layout ``[out, in]`` (JAX keeps ``[in, out]``);
-:func:`params_from_jax` and :func:`params_to_jax` convert. Skip/late layers
-(``num_late_layers > 0``) and the ``fourier`` encoding are not ported yet.
+"b"}, ...], "out": {"w", "b"}, "latents", "fourier"}``, but every ``w`` is
+kept in the ``nn.Linear`` layout ``[out, in]`` (JAX keeps ``[in, out]``);
+:func:`params_from_jax` and :func:`params_to_jax` convert. A ``fourier``
+field carries its fixed Gaussian projection as the leaf ``"fourier"``,
+drawn as JAX draws it; it is a buffer that no gradient reaches. Skip/late
+layers (``num_late_layers > 0``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from nerfca_tpu_torch.ops import prng
-from nerfca_tpu_torch.ops.encoding import encoded_feature_count, posenc
+from nerfca_tpu_torch.ops.encoding import (
+    encoded_feature_count, make_fourier_coefficients, posenc,
+)
 
 Params = Dict[str, Any]
 
@@ -64,8 +68,6 @@ class FieldConfig:
 def _check_ported(cfg: FieldConfig) -> None:
     if cfg.num_late_layers > 0:
         raise NotImplementedError("skip/late layers are not ported yet")
-    if cfg.pos_enc == "fourier":
-        raise NotImplementedError("fourier encoding is not ported yet")
 
 
 def _init_linear(key, fan_in: int, fan_out: int, use_bias: bool, device) -> Params:
@@ -94,8 +96,15 @@ def _init_mlp(key, cfg: FieldConfig, device) -> Params:
 
 def init_static_field(key, cfg: FieldConfig, device=None) -> Params:
     """Initialize a static field from an ``ops/prng.py`` key: the params the
-    JAX package's ``init_static_field`` draws from the same key."""
-    return _init_mlp(key, cfg, device)
+    JAX package's ``init_static_field`` draws from the same key (for
+    ``'fourier'``, the projection from ``fold_in(key, 0xF0)`` times
+    ``fourier_sigma``)."""
+    params = _init_mlp(key, cfg, device)
+    if cfg.pos_enc == "fourier":
+        params["fourier"] = make_fourier_coefficients(
+            prng.fold_in(key, 0xF0), cfg.pos_enc_basis, cfg.fourier_sigma,
+            cfg.num_input_channels, device)
+    return params
 
 
 def init_temporal_field(key, cfg: FieldConfig, device=None) -> Params:
@@ -103,7 +112,7 @@ def init_temporal_field(key, cfg: FieldConfig, device=None) -> Params:
     (from ``fold_in(key, 0x71)``, as the JAX package draws it)."""
     if not cfg.use_time_latents:
         raise ValueError("temporal field requires use_time_latents=True")
-    params = _init_mlp(key, cfg, device)
+    params = init_static_field(key, cfg, device)
     latents = prng.uniform(prng.fold_in(key, 0x71), (NUM_CARDIAC_PHASES, cfg.num_time_dim))
     params["latents"] = torch.from_numpy(latents).to(device)
     return params
@@ -129,7 +138,8 @@ def apply_static_field(params: Params, points: torch.Tensor, cfg: FieldConfig,
                        window: Optional[torch.Tensor] = None,
                        return_intermediates: bool = False):
     """``points [..., 3] -> raw density [..., C_out]``."""
-    enc = posenc(points, cfg.pos_enc, cfg.pos_enc_basis, window=window)
+    enc = posenc(points, cfg.pos_enc, cfg.pos_enc_basis, window=window,
+                 fourier_coefficients=params.get("fourier"))
     return apply_mlp(params, enc, cfg, return_intermediates)
 
 
@@ -138,7 +148,8 @@ def apply_temporal_field(params: Params, points: torch.Tensor, phases: torch.Ten
                          return_intermediates: bool = False):
     """``points [..., 3]``, integer ``phases [...]`` -> raw density; the
     phase's latent row is concatenated to the encoded position."""
-    enc = posenc(points, cfg.pos_enc, cfg.pos_enc_basis, window=window)
+    enc = posenc(points, cfg.pos_enc, cfg.pos_enc_basis, window=window,
+                 fourier_coefficients=params.get("fourier"))
     latents = params["latents"][phases.long()]
     return apply_mlp(params, torch.cat([enc, latents], dim=-1), cfg, return_intermediates)
 

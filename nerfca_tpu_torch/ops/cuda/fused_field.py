@@ -32,6 +32,13 @@ from autograd); CUDA tensors launch the kernels or raise. The kernels are
 built with ``nvcc`` into ``build/kernels/`` at first use (a plain C
 interface loaded with ``ctypes``; see ``build.py``).
 
+Encodings: ``'none'``, the windowed modes and ``'fourier'``. A fourier
+field hands its fixed projection (the ``"fourier"`` leaf) to the kernels
+in place of the band window; they recompute ``[sin(v), cos(v)]`` with the
+plain version's roundings, and its gradient is zero, as in JAX
+(``fused_field.py:623-627``; the plain version stops it). The C entries
+launch the kernels' FOURIER instantiation when a field is fourier.
+
 Launch counts: ``LAUNCHES["fused_field_fwd"]`` / ``["fused_field_bwd"]``
 (two fields) and ``["fused_static_field_fwd"]`` /
 ``["fused_static_field_bwd"]`` (one field) grow by one at each kernel
@@ -71,17 +78,24 @@ def reset_launch_counts() -> None:
 
 def kernel_supported(cfg: FieldConfig) -> bool:
     """Envelope of the CUDA kernels: the Pallas envelope
-    (``fused_field.py:71-80``) less the ``fourier`` encoding, with biases."""
+    (``fused_field.py:71-80``: fourier with ``6 * basis <= 128`` included),
+    with biases."""
     return (
         cfg.num_filters == WIDTH
         and cfg.num_late_layers == 0
         and cfg.num_output_channels == 1
         and cfg.num_input_channels == 3
         and cfg.use_bias
-        and cfg.pos_enc in ("none", "free_windowed", "nerfies_windowed")
+        and cfg.pos_enc in ("none", "free_windowed", "nerfies_windowed", "fourier")
         and cfg.encoded_features <= MAX_ENCODED
         and cfg.num_time_dim <= MAX_LAT
     )
+
+
+def enc_table(params, cfg: FieldConfig, window):
+    """What a field's encoding reads besides the points: its projection for
+    ``'fourier'`` (the window is then unused, as in JAX), else its window."""
+    return params["fourier"] if cfg.pos_enc == "fourier" else window
 
 
 # ---------------------------------------------------------------------------
@@ -124,7 +138,8 @@ def plain_static_field(params, points, cfg: FieldConfig, window):
 class FieldArgs(ctypes.Structure):
     _fields_ = [("w0", ctypes.c_void_p), ("b0", ctypes.c_void_p), ("wh", ctypes.c_void_p),
                 ("bh", ctypes.c_void_p), ("wo", ctypes.c_void_p), ("bo", ctypes.c_void_p),
-                ("window", ctypes.c_void_p), ("basis", ctypes.c_int), ("enc", ctypes.c_int),
+                ("table", ctypes.c_void_p),  # the band window, or the fourier projection
+                ("basis", ctypes.c_int), ("enc", ctypes.c_int),
                 ("n_lat", ctypes.c_int), ("n_hidden", ctypes.c_int)]
 
 
@@ -179,9 +194,11 @@ def _leaves(params) -> list:
 
 class _Pack:
     """Contiguous [in, out] weights of one field plus its FieldArgs; keeps
-    the tensors alive while their pointers are in use."""
+    the tensors alive while their pointers are in use. ``table`` is the
+    field's :func:`enc_table`: its window (None: every band open) or its
+    fourier projection."""
 
-    def __init__(self, cfg: FieldConfig, leaves, window, device):
+    def __init__(self, cfg: FieldConfig, leaves, table, device):
         n_hidden = cfg.num_early_layers
         ws, bs = leaves[0:-2:2], leaves[1:-2:2]
         self.w0 = ws[0].detach().t().contiguous()
@@ -194,14 +211,14 @@ class _Pack:
         self.wo = leaves[-2].detach().reshape(WIDTH).contiguous()
         self.bo = leaves[-1].detach().reshape(1).contiguous()
         basis = cfg.pos_enc_basis if cfg.pos_enc != "none" else 0
-        if window is None:
-            window = torch.ones(max(basis, 1), device=device)
-        self.window = window.detach().to(torch.float32).contiguous()
+        if table is None:
+            table = torch.ones(max(basis, 1), device=device)
+        self.table = table.detach().to(torch.float32).contiguous()
         self.n_lat = cfg.num_time_dim if cfg.use_time_latents else 0
         self.cfg = cfg
         self.args = FieldArgs(
             self.w0.data_ptr(), self.b0.data_ptr(), self.wh.data_ptr(), self.bh.data_ptr(),
-            self.wo.data_ptr(), self.bo.data_ptr(), self.window.data_ptr(),
+            self.wo.data_ptr(), self.bo.data_ptr(), self.table.data_ptr(),
             basis, cfg.encoded_features, self.n_lat, n_hidden,
         )
 
@@ -307,33 +324,34 @@ def fused_field_bwd(pack_s: _Pack, pack_t: Optional[_Pack], origins, directions,
 
 class FusedCompositeFields(torch.autograd.Function):
     """K1 forward, K2 backward. Gradients flow to every weight and bias of
-    both fields and to the latent table; the ray geometry is constant.
-    With ``cfg_t`` None the leaves are the static field's alone, the launch
-    is the one-field one, and the temporal output is None."""
+    both fields and to the latent table; the ray geometry and the encoding
+    tables (windows, fourier projections) are constant. With ``cfg_t`` None
+    the leaves are the static field's alone, the launch is the one-field
+    one, and the temporal output is None."""
 
     @staticmethod
-    def _packs(cfg_s, cfg_t, leaves, windows, device):
+    def _packs(cfg_s, cfg_t, leaves, tables, device):
         n_s = 2 * (cfg_s.num_early_layers + 2)
-        pack_s = _Pack(cfg_s, leaves[:n_s], windows[0], device)
-        pack_t = None if cfg_t is None else _Pack(cfg_t, leaves[n_s:], windows[1], device)
+        pack_s = _Pack(cfg_s, leaves[:n_s], tables[0], device)
+        pack_t = None if cfg_t is None else _Pack(cfg_t, leaves[n_s:], tables[1], device)
         return pack_s, pack_t
 
     @staticmethod
-    def forward(ctx, cfg_s, cfg_t, origins, directions, z, phases, window_s, window_t,
+    def forward(ctx, cfg_s, cfg_t, origins, directions, z, phases, table_s, table_t,
                 latents, *leaves):
         pack_s, pack_t = FusedCompositeFields._packs(cfg_s, cfg_t, leaves,
-                                                     (window_s, window_t), origins.device)
+                                                     (table_s, table_t), origins.device)
         out_s, out_t = fused_field_fwd(pack_s, pack_t, origins, directions, z, phases,
                                        latents.detach())
         ctx.cfgs = (cfg_s, cfg_t)
-        ctx.windows = (window_s, window_t)
+        ctx.tables = (table_s, table_t)
         ctx.save_for_backward(origins, directions, z, phases, latents, *leaves)
         return out_s, out_t
 
     @staticmethod
     def backward(ctx, g_s, g_t):
         origins, directions, z, phases, latents, *leaves = ctx.saved_tensors
-        pack_s, pack_t = FusedCompositeFields._packs(*ctx.cfgs, leaves, ctx.windows,
+        pack_s, pack_t = FusedCompositeFields._packs(*ctx.cfgs, leaves, ctx.tables,
                                                      origins.device)
         flat = fused_field_bwd(pack_s, pack_t, origins, directions, z, phases,
                                latents.detach(), g_s.contiguous(),
@@ -369,7 +387,13 @@ def _check_field(field: str, params, cfg: FieldConfig, window, dev) -> None:
             raise ValueError(f"{field} field parameters: expected float32 on {dev}, "
                              f"got {t.dtype} on {t.device}")
     basis = cfg.pos_enc_basis if cfg.pos_enc != "none" else 0
-    if window is not None and (window.device != dev or window.numel() != basis):
+    if cfg.pos_enc == "fourier":
+        coef = params.get("fourier")
+        if (coef is None or coef.device != dev or coef.dtype != torch.float32
+                or coef.numel() != 3 * basis):
+            raise ValueError(f"{field} fourier projection: expected {3 * basis} float32 values "
+                             f"on {dev}")
+    elif window is not None and (window.device != dev or window.numel() != basis):
         raise ValueError(f"{field} window: expected {basis} values on {dev}, "
                          f"got {window.numel()} on {window.device}")
 
@@ -413,8 +437,9 @@ def fused_composite_fields_rays(params_s, params_t, origins, directions, z, ray_
     phases = ray_phases.to(device=origins.device, dtype=torch.int32).contiguous()
     r, s = origins.shape[0], z.shape[-1]
     out_s, out_t = FusedCompositeFields.apply(
-        cfg_s, cfg_t, origins, directions, z, phases, window_s, window_t,
-        params_t["latents"], *_leaves(params_s), *_leaves(params_t),
+        cfg_s, cfg_t, origins, directions, z, phases, enc_table(params_s, cfg_s, window_s),
+        enc_table(params_t, cfg_t, window_t), params_t["latents"], *_leaves(params_s),
+        *_leaves(params_t),
     )
     return out_s.view(r, s, 1), out_t.view(r, s, 1)
 
@@ -459,8 +484,9 @@ def fused_composite_fields(params_s, params_t, points, point_phases, cfg_s: Fiel
     _check_inputs(params_s, params_t, origins, directions, z, cfg_s, cfg_t, (window_s, window_t))
     phases = point_phases.to(device=points.device, dtype=torch.int32).reshape(-1).contiguous()
     out_s, out_t = FusedCompositeFields.apply(
-        cfg_s, cfg_t, origins, directions, z, phases, window_s, window_t,
-        params_t["latents"], *_leaves(params_s), *_leaves(params_t),
+        cfg_s, cfg_t, origins, directions, z, phases, enc_table(params_s, cfg_s, window_s),
+        enc_table(params_t, cfg_t, window_t), params_t["latents"], *_leaves(params_s),
+        *_leaves(params_t),
     )
     return out_s.view(r, s, 1), out_t.view(r, s, 1)
 
@@ -484,6 +510,7 @@ def fused_static_field(params, points, cfg: FieldConfig, window):
     # every point takes phase 0 of a one-row table that is never read
     phases = torch.zeros(r * s, dtype=torch.int32, device=dev)
     latents = torch.zeros(1, MAX_LAT, device=dev)
-    out_s, _ = FusedCompositeFields.apply(cfg, None, origins, directions, z, phases, window,
-                                          None, latents, *_leaves(params))
+    out_s, _ = FusedCompositeFields.apply(cfg, None, origins, directions, z, phases,
+                                          enc_table(params, cfg, window), None, latents,
+                                          *_leaves(params))
     return out_s.view(r, s, 1)

@@ -23,6 +23,12 @@ here the cotangent is derived by hand (:func:`loss_cotangents_plain`
 writes the same math as tensor ops, and the CPU tests hold it against
 ``torch.autograd``). Clips take JAX's derivative, 0.5 on a bound.
 
+:func:`fused_train_loss_and_grads_sharded` replaces the data-parallel
+composition of the same kernel (``fused_train.py:695-781``): each rank runs
+K3 on its slice of the ray batch with the global ray count, then one SUM
+all-reduce over the loss, the terms and every gradient (packed into one
+buffer) and one MAX all-reduce over the two sigma maxima complete them.
+
 Dispatch: CPU tensors take :func:`plain_train_loss_and_grads`; CUDA
 tensors launch the kernels or raise. ``LAUNCHES["fused_train_loss"]``
 grows by one at each launch of the loss kernel and nowhere else; a step
@@ -35,6 +41,7 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from nerfca_tpu_torch.models.fields import FieldConfig
 from nerfca_tpu_torch.ops.cuda import build
@@ -43,6 +50,7 @@ from nerfca_tpu_torch.ops.hull import hull_gate_rays
 from nerfca_tpu_torch.ops import losses
 from nerfca_tpu_torch.ops.losses import clip
 from nerfca_tpu_torch.ops.render import depth_deltas, output_activation, softplus
+from nerfca_tpu_torch.parallel.mesh import batch_sharding
 
 TERMS = 16
 # term indices, as in the JAX kernel; T_LOSS holds the weighted total
@@ -51,6 +59,9 @@ TERMS = 16
 TERM_NAMES = ("pixel_loss", "favor_s", "s_entropy", "s_entropy_sum", "d_entropy",
               "d_entropy_sum", "occl", "l1", "l2", "blendw", "sigma_s_max", "sigma_d_max",
               "hull_s_l1")
+# terms that are maxima over the batch (MAX across shards); every other
+# term is a partial of a global mean or sum (SUM)
+MAX_TERMS = (T_SMAX, T_DMAX)
 ACTIVATIONS = ("softplus", "sigmoid", "clamp")
 MAX_SAMPLES = 1024  # the loss kernel keeps a ray's raw densities in shared memory
 
@@ -216,25 +227,32 @@ def loss_cotangents_plain(raw_s, raw_t, z, pixels, weights, initial_intensities,
 
 
 def _param_trees(params_s, params_t):
-    """Detached copies of both parameter trees whose leaves require grad,
-    and the leaves in ``_leaves`` order (latents last)."""
+    """Detached copies of both parameter trees whose leaves require grad
+    (a fourier projection is carried along without), and the leaves in
+    ``_leaves`` order (latents last)."""
     def tree(p):
         out = {"early": [{k: v.detach().requires_grad_(True) for k, v in layer.items()}
                          for layer in p["early"]],
                "out": {k: v.detach().requires_grad_(True) for k, v in p["out"].items()}}
         if "latents" in p:
             out["latents"] = p["latents"].detach().requires_grad_(True)
+        if "fourier" in p:
+            out["fourier"] = p["fourier"].detach()
         return out
     ts, tt = tree(params_s), tree(params_t)
     return ts, tt, ff._leaves(ts) + ff._leaves(tt) + [tt["latents"]]
 
 
-def _grad_tree(leaf_grads: list, n_hidden: int, latents=None) -> dict:
-    """``_leaves``-ordered gradients -> the parameter tree layout."""
-    early = [{"w": leaf_grads[2 * i], "b": leaf_grads[2 * i + 1]} for i in range(n_hidden + 1)]
+def _grad_tree(leaf_grads: list, params, latents=None) -> dict:
+    """``_leaves``-ordered gradients -> the layout of the tree ``params``
+    (a zero gradient for a fourier projection, as JAX gives it)."""
+    n = len(params["early"])
+    early = [{"w": leaf_grads[2 * i], "b": leaf_grads[2 * i + 1]} for i in range(n)]
     out = {"early": early, "out": {"w": leaf_grads[-2], "b": leaf_grads[-1]}}
     if latents is not None:
         out["latents"] = latents
+    if "fourier" in params:
+        out["fourier"] = torch.zeros_like(params["fourier"])
     return out
 
 
@@ -242,13 +260,26 @@ def _term_dict(terms: torch.Tensor) -> dict:
     return {name: terms[i] for i, name in enumerate(TERM_NAMES)}
 
 
-def plain_train_loss_and_grads(params_s, params_t, origins, directions, z, ray_phases, pixels,
-                               weights, initial_intensities, cfg_s: FieldConfig,
-                               cfg_t: FieldConfig, window_s, window_t, loss_weights_vec, hp,
-                               total_rays: Optional[int] = None, hull=None):
-    """Both fields in torch, the hand-derived loss cotangents of
-    :func:`loss_cotangents_plain`, then ``torch.autograd.grad`` of the
-    fields driven by those cotangents."""
+def plain_train_loss_and_grads(*args, **kwargs):
+    """:func:`fused_train_loss_and_grads`'s plain version (the same
+    arguments and results): both fields in torch, the hand-derived loss
+    cotangents of :func:`loss_cotangents_plain`, then
+    ``torch.autograd.grad`` of the fields driven by those cotangents."""
+    terms, flat, unpack = _plain_terms_grads(*args, **kwargs)
+    return _results(terms, *unpack(flat))
+
+
+def _results(terms, grads_s, grads_t) -> tuple:
+    return terms[T_LOSS], _term_dict(terms), grads_s, grads_t
+
+
+def _plain_terms_grads(params_s, params_t, origins, directions, z, ray_phases, pixels, weights,
+                       initial_intensities, cfg_s: FieldConfig, cfg_t: FieldConfig, window_s,
+                       window_t, loss_weights_vec, hp, total_rays: Optional[int] = None,
+                       hull=None):
+    """The plain version's ``(terms [16], flat grads, unpack)``: the
+    gradients in ``_leaves`` order (the latent table last) concatenated,
+    and ``unpack(flat) -> (grads_s, grads_t)``."""
     ts, tt, leaves = _param_trees(params_s, params_t)
     raw_s, raw_t = ff.plain_composite_fields_rays(ts, tt, origins, directions, z, ray_phases,
                                                   cfg_s, cfg_t, window_s, window_t)
@@ -258,10 +289,15 @@ def plain_train_loss_and_grads(params_s, params_t, origins, directions, z, ray_p
         raw_s.detach(), raw_t.detach(), z, pixels, weights, initial_intensities,
         loss_weights_vec, hp, gate=gate, total_rays=total_rays)
     grads = torch.autograd.grad((raw_s, raw_t), leaves, grad_outputs=(g_s, g_t))
+    shapes = [g.shape for g in grads]
     n_s = 2 * (cfg_s.num_early_layers + 2)
-    grads_s = _grad_tree(list(grads[:n_s]), cfg_s.num_early_layers)
-    grads_t = _grad_tree(list(grads[n_s:-1]), cfg_t.num_early_layers, grads[-1])
-    return terms[T_LOSS], _term_dict(terms), grads_s, grads_t
+
+    def unpack(flat):
+        g = [x.view(shape) for x, shape in
+             zip(torch.split(flat, [shape.numel() for shape in shapes]), shapes)]
+        return _grad_tree(g[:n_s], params_s), _grad_tree(g[n_s:-1], params_t, g[-1])
+
+    return terms, torch.cat([g.reshape(-1) for g in grads]), unpack
 
 
 # ---------------------------------------------------------------------------
@@ -361,8 +397,23 @@ def fused_train_loss_and_grads(params_s, params_t, origins, directions, z, ray_p
     by name, and gradient trees shaped like the parameter trees (the
     latent-table gradient in ``grads_t["latents"]``).
     """
+    terms, flat, unpack = _terms_grads(
+        params_s, params_t, origins, directions, z, ray_phases, pixels, weights,
+        initial_intensities, cfg_s, cfg_t, window_s, window_t, loss_weights_vec, hp,
+        total_rays=total_rays, hull=hull)
+    return _results(terms, *unpack(flat))
+
+
+def _terms_grads(params_s, params_t, origins, directions, z, ray_phases, pixels, weights,
+                 initial_intensities, cfg_s: FieldConfig, cfg_t: FieldConfig, window_s,
+                 window_t, loss_weights_vec, hp, total_rays: Optional[int] = None, hull=None):
+    """:func:`fused_train_loss_and_grads` as ``(terms [16], flat grads,
+    unpack)``, the weighted loss in ``terms[T_LOSS]``: on the card the
+    flat gradients are K2's buffer in its kernel layout, on the CPU the
+    plain version's in ``_leaves`` order; ``unpack(flat) -> (grads_s,
+    grads_t)``."""
     if origins.device.type == "cpu":
-        return plain_train_loss_and_grads(
+        return _plain_terms_grads(
             params_s, params_t, origins, directions, z, ray_phases, pixels, weights,
             initial_intensities, cfg_s, cfg_t, window_s, window_t, loss_weights_vec, hp,
             total_rays=total_rays, hull=hull)
@@ -377,8 +428,8 @@ def fused_train_loss_and_grads(params_s, params_t, origins, directions, z, ray_p
     dev = origins.device
     phases = ray_phases.to(device=dev, dtype=torch.int32).contiguous()
     latents = params_t["latents"].detach()
-    pack_s = ff._Pack(cfg_s, ff._leaves(params_s), window_s, dev)
-    pack_t = ff._Pack(cfg_t, ff._leaves(params_t), window_t, dev)
+    pack_s = ff._Pack(cfg_s, ff._leaves(params_s), ff.enc_table(params_s, cfg_s, window_s), dev)
+    pack_t = ff._Pack(cfg_t, ff._leaves(params_t), ff.enc_table(params_t, cfg_t, window_t), dev)
     gate = None
     if hull is not None:
         gate = hull_gate_rays(hull, origins, directions, z).contiguous()
@@ -390,8 +441,50 @@ def fused_train_loss_and_grads(params_s, params_t, origins, directions, z, ray_p
     flat = ff.fused_field_bwd(pack_s, pack_t, origins, directions, z, phases, latents, g_s, g_t)
     n_phases = latents.shape[0]
     size_s = pack_s.grad_layout(n_phases)["size"]
-    leaf_s, _ = pack_s.leaf_grads(flat[:size_s], n_phases)
-    leaf_t, d_lat = pack_t.leaf_grads(flat[size_s:], n_phases)
-    grads_s = _grad_tree(leaf_s, cfg_s.num_early_layers)
-    grads_t = _grad_tree(leaf_t, cfg_t.num_early_layers, d_lat)
-    return terms[T_LOSS], _term_dict(terms), grads_s, grads_t
+
+    def unpack(flat):
+        leaf_s, _ = pack_s.leaf_grads(flat[:size_s], n_phases)
+        leaf_t, d_lat = pack_t.leaf_grads(flat[size_s:], n_phases)
+        return _grad_tree(leaf_s, params_s), _grad_tree(leaf_t, params_t, d_lat)
+
+    return terms, flat, unpack
+
+
+def fused_train_loss_and_grads_sharded(mesh, axis_name: str, params_s, params_t, origins,
+                                       directions, z, ray_phases, pixels, weights,
+                                       initial_intensities, cfg_s: FieldConfig,
+                                       cfg_t: FieldConfig, window_s, window_t, loss_weights_vec,
+                                       hp, hull=None):
+    """Data-parallel composition of K3 (the contract of JAX's
+    ``fused_train_loss_and_grads_sharded``, ``fused_train.py:695-781``).
+
+    Every rank passes the same GLOBAL batch (``[R]`` rays) and the same
+    parameters; ``mesh`` is a ``DeviceMesh`` and ``axis_name`` its data
+    axis. Each rank runs K3 on its slice of the rays with the
+    normalizations set to the global count, so it emits partials of the
+    global loss, terms and gradients; one SUM all-reduce over a single
+    buffer (the 16 terms, then K2's gradient buffer as it came out) and one
+    MAX all-reduce over ``sigma_s_max``/``sigma_d_max`` complete them. The
+    hull grid and the depths are replicated. Returns what
+    :func:`fused_train_loss_and_grads` returns, equal on every rank.
+
+    ``R`` must split evenly over the shards (``RaySharding.slice`` raises
+    otherwise). JAX also asks for whole Pallas tiles of rays per shard; the
+    port's K3 has no ray tile (its loss kernel takes one block per ray, K1
+    and K2 tile points with a masked edge), so the even split is all it
+    needs. On the CPU each rank runs the plain version, as the unsharded
+    entry does."""
+    r_global = origins.shape[0]
+    part = batch_sharding(mesh, axis_name).slice(r_global)
+    terms, flat, unpack = _terms_grads(
+        params_s, params_t, origins[part], directions[part], z, ray_phases[part], pixels[part],
+        weights[part], initial_intensities[part], cfg_s, cfg_t, window_s, window_t,
+        loss_weights_vec, hp, total_rays=r_global, hull=hull)
+    group = mesh.get_group(axis_name)
+    buf = torch.cat([terms, flat])
+    maxima = terms[list(MAX_TERMS)].clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(maxima, op=dist.ReduceOp.MAX, group=group)
+    terms = buf[:TERMS].clone()
+    terms[list(MAX_TERMS)] = maxima
+    return _results(terms, *unpack(buf[TERMS:]))

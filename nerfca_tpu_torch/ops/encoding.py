@@ -1,18 +1,24 @@
 """Positional encodings with annealed frequency windows (port of
 ``nerfca_tpu/ops/encoding.py``).
 
-Modes: ``'none'`` (raw coordinates), ``'nerfies_windowed'`` (2^j
+Modes: ``'none'`` (raw coordinates), ``'fourier'`` (a fixed Gaussian
+projection, sin and cos, no raw coordinates), ``'nerfies_windowed'`` (2^j
 frequencies with the Nerfies cosine ease window) and ``'free_windowed'``
 (FreeNeRF binary-with-fractional-edge mask), raw coordinates prepended.
-The annealing state is a pure function of the step. ``'fourier'`` is not
-ported yet.
+The annealing state is a pure function of the step.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from nerfca_tpu_torch.ops import prng
+
+# 2 pi as the JAX package multiplies by it: a Python float rounded to f32
+TWO_PI_F32 = float(np.float32(2 * np.pi))
 
 
 def encoded_feature_count(mode: str, basis: int, num_channels: int = 3) -> int:
@@ -61,14 +67,30 @@ def nerfies_window(basis: int, alpha, device=None) -> torch.Tensor:
     return 0.5 * (1 + torch.cos(math.pi * x + math.pi))
 
 
-def posenc(x: torch.Tensor, mode: str, basis: int, window=None) -> torch.Tensor:
-    """Encode ``x[..., C]``: raw coordinates, then per band C sin features
-    and C cos features, cos taken as ``sin(t + pi/2)`` in f32 exactly as the
-    JAX package computes it."""
+def make_fourier_coefficients(key, basis: int, sigma: float, num_channels: int = 3,
+                              device=None) -> torch.Tensor:
+    """The fixed Gaussian projection of ``'fourier'`` mode,
+    ``[num_channels * basis]``: ``jax.random.normal`` from an
+    ``ops/prng.py`` key, times ``sigma`` in f32."""
+    coef = prng.normal(key, (num_channels * basis,)) * np.float32(sigma)
+    return torch.from_numpy(coef.astype(np.float32)).to(device)
+
+
+def posenc(x: torch.Tensor, mode: str, basis: int, window=None,
+           fourier_coefficients=None) -> torch.Tensor:
+    """Encode ``x[..., C]``. Windowed modes: raw coordinates, then per band
+    C sin features and C cos features, cos taken as ``sin(t + pi/2)`` in
+    f32 exactly as the JAX package computes it. ``'fourier'``: with
+    ``v = (f32(2 pi) * tiled) * coef`` over ``tiled = [x] * basis``, the
+    features ``[sin(v), cos(v)]``; the coefficients take no gradient."""
     if mode == "none" or basis == 0:
         return x
     if mode == "fourier":
-        raise NotImplementedError("fourier encoding is not ported yet")
+        if fourier_coefficients is None:
+            raise ValueError("fourier mode requires fourier_coefficients")
+        coef = fourier_coefficients.detach().to(x.dtype)
+        value = (TWO_PI_F32 * torch.cat([x] * basis, dim=-1)) * coef
+        return torch.cat([torch.sin(value), torch.cos(value)], dim=-1)
     scales = 2.0 ** torch.arange(basis, dtype=x.dtype, device=x.device)
     xb = x[..., None, :] * scales[:, None]  # [..., basis, C]
     four_feat = torch.sin(torch.stack([xb, xb + 0.5 * math.pi], dim=-2))

@@ -1,7 +1,8 @@
 """The JAX package's random numbers, drawn on the host: ``jax.random``'s
 default generator (Threefry-2x32 with the partitionable key derivation,
 JAX's default since 0.5) for the calls the trainer makes: ``PRNGKey``,
-``split``, ``fold_in``, 32-bit ``bits``, f32 ``uniform`` and ``randint``.
+``split``, ``fold_in``, 32-bit ``bits``, f32 ``uniform``, ``randint`` and f32
+``normal``.
 
 A seed thus draws the same initial params, ray batches, jitter and depths
 in the port as in the JAX package, so a port run follows the JAX run of the
@@ -123,3 +124,91 @@ def randint(k: np.ndarray, shape, minval: int, maxval: int) -> np.ndarray:
     ``split(k)``, the low words under the second."""
     k1, k2 = split(k)
     return randint_from_bits(bits(k1, shape), bits(k2, shape), maxval - minval) + int(minval)
+
+
+# ---------------------------------------------------------------------------
+# jax.random.normal: uniforms on (-1, 1), then sqrt(2) * erfinv, with XLA's
+# f32 erfinv as its CPU backend compiles it (Giles' polynomial over a
+# log1p that is Cephes' rational below sqrt(2) - 1 and Cephes' log above
+# it), multiply-adds fused as XLA fuses them. Held bit for bit against
+# jax.random.normal in tests/test_torch_fourier.py.
+
+_F32 = np.float32
+_ERFINV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                  0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                  0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+          1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+          3.3333331174e-1)
+
+
+def _fma(a, b, c) -> np.ndarray:
+    """f32 ``a * b + c`` rounded once (the f32 product is exact in f64)."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(_F32)
+
+
+def _log_f32(v: np.ndarray) -> np.ndarray:
+    """XLA's f32 log on the CPU (Cephes), for positive normal ``v``."""
+    f = _F32
+    x, e = np.frexp(v.astype(f))
+    x, e = x.astype(f), e.astype(f)
+    small = x < f(0.707106781186547524)
+    x = ((x - f(1)) + np.where(small, x, f(0))).astype(f)
+    e = (e - np.where(small, f(1), f(0))).astype(f)
+    x2 = (x * x).astype(f)
+    x3 = (x2 * x).astype(f)
+    p = [f(c) for c in _LOG_P]
+    y, y1, y2 = _fma(x, p[0], p[1]), _fma(x, p[3], p[4]), _fma(x, p[6], p[7])
+    y, y1, y2 = _fma(y, x, p[2]), _fma(y1, x, p[5]), _fma(y2, x, p[8])
+    y = _fma(_fma(y, x3, y1), x3, y2)
+    y = _fma(y, x3, (f(-2.12194440e-4) * e).astype(f))
+    x = (_fma(x2, f(-0.5), x) + y).astype(f)
+    return _fma(f(0.693359375), e, x)
+
+
+def _log1p_f32(x: np.ndarray) -> np.ndarray:
+    """XLA's f32 log1p on the CPU, for ``x`` in (-1, 0]."""
+    f = _F32
+
+    def poly(coeffs):
+        p = np.full_like(x, f(coeffs[0]))
+        for c in coeffs[1:]:
+            p = _fma(p, x, f(c))
+        return p
+
+    x2 = (x * x).astype(f)
+    small = (poly(_LOG1P_NUM) / poly(_LOG1P_DEN)).astype(f)
+    small = ((x * x2).astype(f) * small).astype(f)
+    small = (x + _fma(f(-0.5), x2, small)).astype(f)
+    large = _log_f32(np.maximum((x + f(1)).astype(f), np.finfo(f).tiny))
+    return np.where(np.abs(x) < f(0.41421356237309504880), small, large)
+
+
+def erfinv_f32(x: np.ndarray) -> np.ndarray:
+    """XLA's f32 ``erf_inv`` (Giles 2010) for ``x`` in (-1, 1)."""
+    f = _F32
+    x = np.asarray(x, f)
+    w = -_log1p_f32(-(x * x).astype(f))
+    lt = w < f(5)
+    w = np.where(lt, w - f(2.5), np.sqrt(w) - f(3)).astype(f)
+    coef = [np.where(lt, f(a), f(b)) for a, b in zip(_ERFINV_W_LT_5, _ERFINV_W_GE_5)]
+    p = coef[0]
+    for c in coef[1:]:
+        p = _fma(p, w, c)
+    return np.where(np.abs(x) == f(1), x * np.finfo(f).max, (p * x).astype(f))
+
+
+def normal(k: np.ndarray, shape) -> np.ndarray:
+    """``jax.random.normal(k, shape, float32)``."""
+    f = _F32
+    u = uniform(k, shape, np.nextafter(f(-1), f(0)), 1.0)
+    return (f(np.sqrt(2)) * erfinv_f32(u)).astype(f)

@@ -205,8 +205,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default="float32",
                    help="matmul dtype for field MLPs: float32 | bfloat16")
     p.add_argument("--mesh_shape", type=str, default=None,
-                   help="accepted for config compatibility: the port trains on "
-                        "one card and ignores it (no data-parallel mesh yet)")
+                   help="accepted for config compatibility: the CLIs train on one card "
+                        "and the port ignores it, as the JAX package does; data "
+                        "parallelism is prepare_composite(args, device, mesh) with a "
+                        "parallel.make_mesh mesh")
     p.add_argument("--use_pallas", type=_bool, default=False,
                    help="run both fields through the CUDA field kernels "
                         "(K1 forward, K2 backward)")

@@ -14,7 +14,9 @@ one of three paths:
   - otherwise both fields and the loss in plain torch autograd.
 
 An optional motion hull (``ops/hull.py``) gates the dynamic density on
-every path. The step draws its random numbers on the host as the JAX step
+every path. Under a data-parallel mesh (``parallel/mesh.py``) the K3 path
+runs its sharded entry on each rank's slice of the same global batch; the
+other two paths are not ported under a mesh. The step draws its random numbers on the host as the JAX step
 draws them (``ops/prng.py``, :func:`step_draws`), so a seed gives the JAX
 run's batches, jitter and depths; the step is also split so tests can
 inject the batch and the depths (:func:`composite_grads`,
@@ -32,6 +34,7 @@ and residuals, and AdamW decay.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from typing import Optional
 
@@ -50,6 +53,7 @@ from nerfca_tpu_torch.ops.cuda.fused_field import (
 )
 from nerfca_tpu_torch.ops.cuda.fused_train import (
     fused_train_loss_and_grads,
+    fused_train_loss_and_grads_sharded,
     fused_train_supported,
 )
 from nerfca_tpu_torch.ops.encoding import (
@@ -61,6 +65,9 @@ from nerfca_tpu_torch.ops.losses import composite_losses, occlusion_loss, weight
 from nerfca_tpu_torch.ops.render import render_transmission, render_transmission_composite
 from nerfca_tpu_torch.ops.sampling import stratify_depths
 from nerfca_tpu_torch.ops.schedules import linear_param_decay
+
+
+DATA_AXIS = "data"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -382,12 +389,17 @@ def composite_loss_fn(params, batch, depth_values, step: int, cfgs, hp: Composit
 
 
 def param_items(params) -> list:
-    """``(name, tensor)`` for every trainable leaf, in a fixed order."""
+    """``(name, tensor)`` for every leaf Adam holds, in a fixed order: the
+    early layers, a ``fourier`` field's projection (a buffer: its gradient
+    is zero, so Adam leaves it as it is, as optax does), the output layer,
+    the latent table."""
     items = []
     for group in sorted(params):
         p = params[group]
         for i, layer in enumerate(p["early"]):
             items += [(f"{group}/early/{i}/{k}", layer[k]) for k in sorted(layer)]
+        if "fourier" in p:
+            items.append((f"{group}/fourier", p["fourier"]))
         items += [(f"{group}/out/{k}", p["out"][k]) for k in sorted(p["out"])]
         if "latents" in p:
             items.append((f"{group}/latents", p["latents"]))
@@ -400,37 +412,59 @@ def params_from_leaves(params, leaves) -> dict:
     out = {}
     for group in sorted(params):
         p = params[group]
-        g = {"early": [{k: next(it) for k in sorted(layer)} for layer in p["early"]],
-             "out": {k: next(it) for k in sorted(p["out"])}}
+        g = {"early": [{k: next(it) for k in sorted(layer)} for layer in p["early"]]}
+        if "fourier" in p:
+            g["fourier"] = next(it)
+        g["out"] = {k: next(it) for k in sorted(p["out"])}
         if "latents" in p:
             g["latents"] = next(it)
         out[group] = g
     return out
 
 
+def is_buffer(name: str) -> bool:
+    """A leaf that no gradient reaches: a ``fourier`` field's projection."""
+    return name.endswith("/fourier")
+
+
+def _grads_of(loss, params) -> list:
+    """The gradient of ``loss`` w.r.t. every ``param_items`` leaf, zeros for
+    the buffers."""
+    items = param_items(params)
+    trained = [t for n, t in items if not is_buffer(n)]
+    it = iter(torch.autograd.grad(loss, trained))
+    return [torch.zeros_like(t) if is_buffer(n) else next(it) for n, t in items]
+
+
+def _require_grads(params) -> None:
+    for n, t in param_items(params):
+        if not is_buffer(n):
+            t.requires_grad_(True)
+
+
 def composite_grads(params, batch, depth_values, step: int, cfgs, hp: CompositeHParams,
                     hull=None):
     """Loss, metrics and the gradient of every leaf (``param_items`` order)
     for an injected batch and depths."""
-    leaves = [t for _, t in param_items(params)]
-    for t in leaves:
-        t.requires_grad_(True)
+    _require_grads(params)
     loss, metrics = composite_loss_fn(params, batch, depth_values, step, cfgs, hp, hull=hull)
-    grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), metrics, list(grads)
+    return loss.detach(), metrics, _grads_of(loss, params)
 
 
 def _fused_loss_metrics_grads(params, batch, depth_values, step: int, cfgs,
-                             hp: CompositeHParams, hull=None):
+                             hp: CompositeHParams, hull=None, fused_fn=None):
     """The fused-loss path: loss, the metric dict of the JAX fused path
     (``nerfca_tpu/train/step.py:729-773``; no static-TV entries) and the
-    gradient of every leaf in ``param_items`` order."""
+    gradient of every leaf in ``param_items`` order. ``fused_fn`` is K3's
+    entry (default :func:`fused_train_loss_and_grads`; under a mesh the
+    sharded one)."""
+    fused_fn = fused_fn or fused_train_loss_and_grads
     dev = batch["origins"].device
     windows = {k: field_window(cfgs[k], step, dev) for k in ("static", "temp")}
     weights = loss_weights(step, hp)
     lw = [weights["favor_s"], weights["dynamic_entro"], weights["occl"], weights["l1"],
           weights["hull_static_l1"]]
-    loss, terms, g_s, g_t = fused_train_loss_and_grads(
+    loss, terms, g_s, g_t = fused_fn(
         params["static"], params["temp"], batch["origins"], batch["directions"], depth_values,
         batch["phases"], batch["pixels"], batch["weights"], batch["initial_intensities"],
         cfgs["static"], cfgs["temp"], windows["static"], windows["temp"], lw, hp, hull=hull)
@@ -558,11 +592,23 @@ class TrainState:
 
 
 def make_composite_train_step(cfgs: dict, hp: CompositeHParams, tx: AdamConfig,
-                              depth_values_base: torch.Tensor, initial_intensity: float):
+                              depth_values_base: torch.Tensor, initial_intensity: float,
+                              mesh=None):
     """Build ``train_step(state, rays, phases, var_ids, non_var_ids, hull=None)
     -> metrics``; it updates ``state`` in place. With ``use_pallas`` and
     ``use_fused_loss`` the step takes the fused-loss kernel K3; a config
-    outside K3's envelope takes the two-kernel path, with a warning."""
+    outside K3's envelope takes the two-kernel path, with a warning.
+
+    ``mesh``: a ``DeviceMesh`` with a ``'data'`` axis (``parallel/mesh.py``)
+    for data parallelism, as JAX's ``batch_sharding`` (``step.py:620-718``):
+    every rank draws the same global batch, jitter and depths from the same
+    key, K3 runs on its slice and all-reduces
+    (:func:`fused_train_loss_and_grads_sharded`), and every rank applies the
+    same Adam update and freeze gate, so the parameters stay equal bit for
+    bit. The batch must split evenly over the shards (the sharded entry
+    raises otherwise); JAX also asks for whole Pallas tiles of rays, which
+    the port's K3 does not have. The autograd paths under a mesh are not
+    ported (ROADMAP §1 item 10) and raise."""
     if hp.depth_samples_fine > 0:
         raise NotImplementedError("the fine pass is not ported yet")
     if hp.compute_dtype != "float32":
@@ -575,7 +621,16 @@ def make_composite_train_step(cfgs: dict, hp: CompositeHParams, tx: AdamConfig,
                       "static TV, field-kernel fields, softplus/sigmoid/clamp, <= 1024 "
                       "samples); taking the two-kernel path")
         fused = False
-    grads_fn = _fused_loss_metrics_grads if fused else composite_grads
+    if mesh is not None and not fused:
+        raise NotImplementedError(
+            "data parallelism runs through the fused-loss kernel K3 (use_pallas and "
+            "use_fused_loss); the autograd paths under a mesh are not ported yet (ROADMAP §1 "
+            "item 10)")
+    grads_fn = composite_grads
+    if fused:
+        grads_fn = functools.partial(
+            _fused_loss_metrics_grads, fused_fn=None if mesh is None else functools.partial(
+                fused_train_loss_and_grads_sharded, mesh, DATA_AXIS))
 
     def train_step(state: TrainState, rays, phases, var_ids, non_var_ids, hull=None):
         state.rng, positions, u, t = step_draws(
@@ -649,11 +704,9 @@ def static_loss_fn(params, batch, depth_values, step: int, cfg: FieldConfig,
 def static_grads(params, batch, depth_values, step: int, cfg: FieldConfig, hp: StaticHParams):
     """Loss, metrics and the gradient of every leaf (``param_items`` order)
     for an injected batch and depths."""
-    leaves = [t for _, t in param_items(params)]
-    for t in leaves:
-        t.requires_grad_(True)
+    _require_grads(params)
     loss, metrics = static_loss_fn(params, batch, depth_values, step, cfg, hp)
-    return loss.detach(), metrics, list(torch.autograd.grad(loss, leaves))
+    return loss.detach(), metrics, _grads_of(loss, params)
 
 
 def make_static_train_step(cfg: FieldConfig, hp: StaticHParams, tx: AdamConfig,

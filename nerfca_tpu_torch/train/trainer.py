@@ -25,6 +25,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed
 
 from nerfca_tpu_torch.data.dataset import build_dataset, dataset_paths, parse_selection_views
 from nerfca_tpu_torch.data.loader import denormalize_image, load_dataset
@@ -161,7 +162,7 @@ def resolve_pallas_support(hp, cfgs):
     if not hp.use_pallas or all(kernel_supported(c) for c in configs):
         return hp
     warnings.warn("field config outside the CUDA field-kernel envelope (width 128, no "
-                  "late layers, none/windowed encodings); falling back to the plain "
+                  "late layers, 128 encoded features at most); falling back to the plain "
                   "torch path (use_pallas=False)")
     kw = {"use_pallas": False}
     if hasattr(hp, "use_fused_loss"):
@@ -212,13 +213,20 @@ def _init_composite_state(args, cfgs, tx, device) -> TrainState:
     return TrainState(params=params, opt_state=init_opt_state(params), step=0, rng=keys[7])
 
 
-def prepare_composite(args, device: torch.device) -> dict:
+def prepare_composite(args, device: torch.device, mesh=None) -> dict:
     """Dataset, device arrays, state (restored with ``--resume_from``) and
-    the step function."""
+    the step function. ``mesh``: a ``DeviceMesh`` with a ``'data'`` axis
+    for data-parallel training (``parallel/mesh.py``), as JAX's
+    ``prepare_composite(args, mesh)``: every rank runs this with the same
+    arguments (the dataset is built once, by the first rank), draws the same
+    state from ``--seed`` and trains with the mesh-aware step."""
     paths = dataset_paths(args, args.data_root)
-    if (not os.path.isfile(paths.general) or not os.path.isfile(paths.train)
-            or args.regenerate_data or args.only_prepare_data):
+    first = mesh is None or torch.distributed.get_rank() == int(mesh.mesh.flatten()[0])
+    if first and (not os.path.isfile(paths.general) or not os.path.isfile(paths.train)
+                  or args.regenerate_data or args.only_prepare_data):
         build_dataset(args, args.data_root, device=device)
+    if mesh is not None:
+        torch.distributed.barrier()
     sel = parse_selection_views(args.selection_view)
     data = load_dataset(paths, args.weighted_loss_max, use_weighting=True,
                         n_test_frames=len(sel) if sel else 1)
@@ -241,7 +249,8 @@ def prepare_composite(args, device: torch.device) -> dict:
         state = load_checkpoint(args.resume_from, state)
     depth_values = linspace_depths(info["near_thresh"], info["far_thresh"],
                                    args.depth_samples_per_ray_coarse, device=device)
-    train_step = make_composite_train_step(cfgs, hp, tx, depth_values, max_pixel_value)
+    train_step = make_composite_train_step(cfgs, hp, tx, depth_values, max_pixel_value,
+                                           mesh=mesh)
 
     hull = hull_from_args(args, data.train_frames, info, device=device)
     if args.use_motion_hull:

@@ -7,13 +7,15 @@ Compiles ``fused_field.cu`` from ``nerfca_tpu_torch/csrc`` and from
 ``--parent`` to cubins with the device flags of ``ops/cuda/build.py``
 (``sm_90a``, ``-O3``), disassembles both with ``cuobjdump -sass`` and
 compares each kernel of the parent with its counterpart here instruction by
-instruction (addresses and encodings dropped). A kernel that gained the
-field-count template parameter is paired by its other template arguments:
-``fwd_kernel<2, 32>`` with ``fwd_kernel<2, 32, 2>`` and ``bwd_kernel`` with
-``bwd_kernel<2>``, the two-field instantiations. Prints one JSON object
-(per kernel: identical or not, instruction counts, the first differing
-line; branch labels are renamed per kernel, since their numbers run across
-the whole cubin) and exits 1 when a pair differs. Needs ``nvcc`` and ``cuobjdump``.
+instruction (addresses and encodings dropped). A kernel that gained a
+template parameter is paired by its other template arguments: the parent's
+``fwd_kernel<2, 32, NF>`` and ``bwd_kernel<NF>`` (NF = 2 the composite pair,
+1 the static field) with ``fwd_kernel<2, 32, NF, false>`` and
+``bwd_kernel<NF, false>`` here, the instantiations without the fourier
+mode. Prints one JSON object (per kernel: identical or not, instruction
+counts, the first differing line; branch labels are renamed per kernel,
+since their numbers run across the whole cubin) and exits 1 when a pair
+differs. Needs ``nvcc`` and ``cuobjdump``.
 """
 
 from __future__ import annotations
@@ -29,9 +31,11 @@ import tempfile
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "nerfca_tpu_torch", "csrc")
 CUDA_BIN = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin")
-# (kernel in the parent, its two-field counterpart here), as demangled names
-PAIRS = [("void fwd_kernel<2, 32>(", "void fwd_kernel<2, 32, 2>("),
-         ("bwd_kernel(", "void bwd_kernel<2>("),
+# (kernel in the parent, its counterpart here), as demangled names
+PAIRS = [("void fwd_kernel<2, 32, 2>(", "void fwd_kernel<2, 32, 2, false>("),
+         ("void fwd_kernel<2, 32, 1>(", "void fwd_kernel<2, 32, 1, false>("),
+         ("void bwd_kernel<2>(", "void bwd_kernel<2, false>("),
+         ("void bwd_kernel<1>(", "void bwd_kernel<1, false>("),
          ("reduce_kernel(", "reduce_kernel(")]
 
 
@@ -54,8 +58,10 @@ def sass(csrc: str, workdir: str, tag: str) -> dict:
     mangled = iter(names)
     for line in dump.splitlines():
         if line.strip().startswith("Function :"):
-            # template arguments demangle as "(int)2": keep the value alone
-            current = next(mangled).strip().replace("(int)", "")
+            # template arguments demangle as "(int)2" or "(bool)0": keep
+            # the value alone, a bool as its word
+            current = (next(mangled).strip().replace("(int)", "")
+                       .replace("(bool)0", "false").replace("(bool)1", "true"))
             kernels[current] = []
         elif current is not None:
             m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)

@@ -2,14 +2,23 @@
 """JAX record of the static 3-D method, for the port to be held against.
 
     python3 scripts/static_3d_jax_record.py [--config configs/3d.txt] [--n_iters 200] [--display_every 100]
-        [--seed 0] [--out artifacts/port/static_3d_jax-200.json]
+        [--seed 0] [--static_pos_enc fourier] [--out artifacts/port/static_3d_jax-200.json]
 
 Runs JAX's ``run_nerf`` on ``--config`` on the CPU with the plain
 (non-Pallas) field, its dataset and run directory under a temporary
 directory, and writes the train loss at steps 0, display_every, ... and the
 ``test_image_psnr`` of the first test view at the same steps (step 0: the
 initial parameters, scored as the trainer's ``eval_fn`` scores them) to
-``--out`` with the command that made them.
+``--out`` with the command that made them. ``--static_pos_enc`` overrides the
+config's encoding (``fourier`` takes the config's ``static_pos_enc_fourier_sigma``
+and basis: ``configs/3d.txt --static_pos_enc fourier`` is sigma 2, basis 12).
+
+JAX's static eval renders through the composite tile renderer beside a
+zero dummy temporal field that it builds without the ``fourier`` leaf its
+config then asks for (``nerfca_tpu/train/evaluation.py:246-255``), so a
+fourier run of ``run_nerf`` raises at its first eval. This script, in its
+own process, hands the dummy a zero projection (its weights are zero, so
+the render is the same) and leaves the JAX package as it is.
 """
 
 from __future__ import annotations
@@ -23,6 +32,30 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+
+
+def give_dummy_fourier() -> None:
+    """Wrap ``evaluation.render_test_view`` so that a temporal field whose
+    config is 'fourier' and which has no projection gets a zero one (only
+    JAX's static eval passes such a field: its all-zero dummy)."""
+    import inspect
+
+    import jax.numpy as jnp
+
+    from nerfca_tpu.train import evaluation
+
+    inner = evaluation.render_test_view
+    sig = inspect.signature(inner)
+
+    def render_test_view(*args, **kwargs):
+        bound = sig.bind(*args, **kwargs)
+        params, cfg = bound.arguments["params"], bound.arguments["cfgs"]["temp"]
+        if cfg.pos_enc == "fourier" and "fourier" not in params["temp"]:
+            temp = dict(params["temp"], fourier=jnp.zeros(3 * cfg.pos_enc_basis, jnp.float32))
+            bound.arguments["params"] = dict(params, temp=temp)
+        return inner(*bound.args, **bound.kwargs)
+
+    evaluation.render_test_view = render_test_view
 
 
 def step0_image_psnr(argv: list) -> float:
@@ -63,6 +96,7 @@ def main() -> int:
     ap.add_argument("--n_iters", type=int, default=200)
     ap.add_argument("--display_every", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--static_pos_enc", default=None, help="override the config's encoding")
     ap.add_argument("--out", default=os.path.join(REPO, "artifacts", "port",
                                                   "static_3d_jax-200.json"))
     a = ap.parse_args()
@@ -70,6 +104,7 @@ def main() -> int:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    give_dummy_fourier()
     with tempfile.TemporaryDirectory(prefix="static3d-") as work:
         record = run(a, work)
     os.makedirs(os.path.dirname(a.out), exist_ok=True)
@@ -89,6 +124,8 @@ def run(a, work: str) -> dict:
             "--seed", str(a.seed), "--use_pallas", "false", "--platform", "cpu",
             "--log_every", "1", "--use_wandb", "false", "--data_root", os.path.join(work, "data"),
             "--log_dir_root", os.path.join(work, "cases")]
+    if a.static_pos_enc:
+        argv += ["--static_pos_enc", a.static_pos_enc]
     t0 = time.time()
     run_nerf.main(argv)
     seconds = time.time() - t0

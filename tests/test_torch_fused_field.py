@@ -134,14 +134,15 @@ def test_shared_depths_equal_per_ray_depths():
 def test_envelope_mirrors_pallas():
     js, _ = cfg_pair()
     ts, _ = cfg_pair(mod=tf)
+    # fourier at 6 * 21 = 126 encoded features is inside, at 6 * 22 = 132 outside
     for kw in (dict(), dict(num_filters=64), dict(num_late_layers=2), dict(pos_enc_basis=30),
                dict(pos_enc="none", pos_enc_basis=0), dict(pos_enc="nerfies_windowed"),
-               dict(num_time_dim=9, use_time_latents=True)):
+               dict(num_time_dim=9, use_time_latents=True), dict(pos_enc="fourier"),
+               dict(pos_enc="fourier", pos_enc_basis=21),
+               dict(pos_enc="fourier", pos_enc_basis=22)):
         assert tff.kernel_supported(dataclasses.replace(ts, **kw)) == jff.pallas_supported(
             dataclasses.replace(js, **kw)), kw
-    # fourier is inside the Pallas envelope but not ported to CUDA yet
-    assert jff.pallas_supported(dataclasses.replace(js, pos_enc="fourier"))
-    assert not tff.kernel_supported(dataclasses.replace(ts, pos_enc="fourier"))
+    assert tff.kernel_supported(dataclasses.replace(ts, pos_enc="fourier"))
 
 
 def test_gradient_layout_round_trip():

@@ -137,7 +137,10 @@ def test_resolve_pallas_support_downgrades_with_warning():
           "temp": FieldConfig(use_time_latents=True, num_time_dim=8, **kw)}
     hp = CompositeHParams(use_pallas=True)
     assert ttr.resolve_pallas_support(hp, ok) is hp
-    for bad in (dict(num_filters=64), dict(pos_enc="fourier")):
+    fourier = {k: dataclasses.replace(c, pos_enc="fourier", fourier_sigma=2.0)
+               for k, c in ok.items()}
+    assert ttr.resolve_pallas_support(hp, fourier) is hp  # inside since the kernels take it
+    for bad in (dict(num_filters=64), dict(pos_enc="fourier", pos_enc_basis=22)):
         cfgs = dict(ok, static=dataclasses.replace(ok["static"], **bad))
         with pytest.warns(UserWarning, match="envelope"):
             assert not ttr.resolve_pallas_support(hp, cfgs).use_pallas
