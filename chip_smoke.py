@@ -17,6 +17,10 @@
    form ``fused_composite_fields``, timed in turns with the composite K1/K2;
    then the same K1/K2, K3 and static checks with every field on the
    fourier encoding (basis 12, sigma 2: the kernels' FOURIER instantiations);
+   then bf16 compute: the BF16 instantiations of K1 and K2 (two fields,
+   one field, free_windowed and fourier) and K3 against their bf16 twin,
+   and bf16 residual storage: K3 and its K2 over the bf16 scratch against
+   theirs, each under ``BF16_GATE`` (below);
 4. drives the main paths through ``nerfca_tpu_torch.train.run_composite.main``,
    each with the launch counts set to 0 just before and read just after:
    a. the two-kernel step (``configs/composite.txt --use_pallas true``):
@@ -48,6 +52,15 @@
    f. ``configs/3d.txt --static_pos_enc fourier`` through ``run_nerf.main``
       on phase d's dataset, ``FOURIER_STATIC_STEPS`` steps, under phase d's
       gates against its own JAX record (``JAX_STATIC_FOURIER``);
+   h. bf16 compute (``--compute_dtype bfloat16``) and i. bf16 residual
+      storage (``--pallas_bf16_residuals true``) through K3 on the flagship
+      dataset, 6 steps and one eval view each: one K3 a step with the bf16
+      K1 and K2 (10 bf16 K1 in the eval), or with K2 over bf16 residuals;
+   c'. after phase c, the same clean protocol once with
+      ``--pallas_bf16_residuals true`` and once with ``--compute_dtype
+      bfloat16`` (1000 steps each on phase c's dataset, ``run_eval`` of
+      checkpoint-1000 beside the f32 run's; gated on finite values and on
+      the selection view's PSNR rising from step 0);
    g. data parallelism at the flagship widths: world 1 over NCCL in this
       process (the sharded K3 entry equals K3 bitwise), then ``DP_WORLD``
       ranks over gloo on the one card in spawned processes (the sharded K3
@@ -55,9 +68,9 @@
       data-parallel steps with the ranks' parameters bitwise equal and the
       losses within ``LOSS_REL`` of the single-card steps);
 5. times the warm flagship step and eval render on the flagship dataset,
-   in turns: K3, K1+K2, plain, K3+hull (the clean-protocol hull), then in
-   the reverse order; the same for the fourier composite (K3, K1+K2,
-   plain);
+   in turns: K3, K1+K2, plain, K3+hull (the clean-protocol hull), K3 under
+   bf16 compute, K3 over bf16 residuals, then in the reverse order; the
+   same for the fourier composite (K3, K1+K2, plain);
 6. profiles three K3 steps with ``torch.profiler`` (device time by kernel);
 7. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
    and last the result line.
@@ -86,9 +99,45 @@ K2_REL = 2e-2    # per-leaf grads vs max(leaf scale, 1e-2 x global max), bench.p
 LOSS_REL = 1e-3  # loss and each K3 term: f32 sums over rays in another order (bench.py rule)
 RENDER_REL = 1e-4  # rendered intensities, of I0: integrals of K1's raw densities (each K1_ATOL)
 
+# bf16 compute and bf16 residual storage, gates set before the first card
+# run of these kernels. The bf16 kernels take bf16 operands and f32 sums, as
+# their twin does (fused_field.twin_*), so only the f32 summation order, and
+# the rare bf16 rounding of an activation that it flips, separate them. Each
+# statistic of a bf16 kernel against its twin must lie within BF16_GATE of
+# the same statistic between the bf16 and the f32 twins on the same inputs,
+# measured in the same call, so that an f32 kernel cannot pass it: the mean
+# |difference| of each field's raw densities (a flip moves one point by up
+# to ~2e-3 of scale and no other, so the max is no test of the route; by
+# the mean a CPU emulation of the kernel sits ~1e-3 of the way to f32), and
+# the worst leaf of the gradients by K2's normalization, K2's and K3's
+# (emulated: ~4e-4 and ~5e-3 of the way). K3's loss and terms come from the
+# f32 loss kernel on bf16 K1's raw densities, and bf16 moves them by only
+# ~4e-6 (the loss) to ~1e-4 (the worst term) relative, no more than the f32
+# sums' order does, so they are held by the f32 K3's LOSS_REL and only
+# reported beside their gap; the bf16 gate of K3 is its gradients'. bf16
+# residual storage keeps K3's loss and terms bit for bit and every leaf
+# whose gradient reads no stored activation. K2 over bf16 residuals is held
+# at the flagship shapes on seeded unit-normal cotangents: each other
+# leaf's change from the f32 K2, dk, must carry the twin's change, dt (the
+# twin's backward with and without the rounding, the same sums apart from
+# it): the share beta = <dk, dt> / <dt, dt> within BF16_GATE of 1 (an f32
+# kernel changes nothing and sits at 0). On K3's own cotangents the
+# rounding moves a hidden layer's gradient by ~1e-5 of its norm, below the
+# f32 K2's own distance from the twin there (~5e-5), so no gate can tell
+# the two apart: K3's gradients under bf16 residuals are held against the
+# twin by the f32 K3's rule, and the share on K3's cotangents is only
+# reported. Two earlier forms of the gate failed on the card before this
+# one was set: |dk - dt| within BF16_GATE of |dt| (0.16 at the last hidden
+# layer: the f32 sums that separate the kernel's forward from the twin's
+# make ~0.2% of the stored activations round the other way, which moves
+# dk - dt by that much but beta by ~1%), and beta on K3's own cotangents
+# (off by 2.6, as above).
+BF16_GATE = 0.1
+
 # the card's peaks for the bound (NVIDIA H100 SXM data sheet, at 700 W)
 PEAK_F32_FLOPS = 67e12    # f32 outside the tensor cores: the f32 bound beside each kernel
 PEAK_TF32_FLOPS = 495e12  # dense TF32 on the tensor cores: K1's and K2's mma.sync, 3 per product
+PEAK_BF16_FLOPS = 989e12  # dense BF16 on the tensor cores: the bf16 instantiations, 1 per product
 PEAK_BYTES = 3.35e12      # HBM3
 
 
@@ -350,12 +399,12 @@ def flagship_hull(device):
                                    dtype=torch.float32, device=device))
 
 
-def packs(params, cfgs, window, dev) -> tuple:
+def packs(params, cfgs, window, dev, bf16: bool = False) -> tuple:
     """Both fields' packed weights for the launch functions."""
     from nerfca_tpu_torch.ops.cuda import fused_field as ff
 
-    return tuple(ff._Pack(c, ff._leaves(params[k]), ff.enc_table(params[k], c, window), dev)
-                 for k, c in zip(("static", "temp"), cfgs))
+    return tuple(ff._Pack(c, ff._leaves(params[k]), ff.enc_table(params[k], c, window), dev,
+                          bf16) for k, c in zip(("static", "temp"), cfgs))
 
 
 def k3_problem(seed: int = 0, fourier: bool = False, device=None, n_rays: int = 1024,
@@ -496,6 +545,339 @@ def check_step_loss(seed: int = 0) -> float:
     return rel
 
 
+def mean_gap(a, b) -> float:
+    return float((a - b).detach().abs().mean())
+
+
+def leaf_gap(got, want) -> float:
+    """The worst leaf's max-abs difference over max(its scale, 1e-2 x the
+    largest leaf's), K2's normalization."""
+    top = max(float(b.abs().max()) for b in want)
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-2 * top)
+               for a, b in zip(got, want))
+
+
+def bf16_gate(what: str, err: float, gap: float) -> float:
+    """``err / gap``; raises unless it is finite and within BF16_GATE."""
+    ratio = err / gap if gap > 0 else float("inf")
+    if not (math.isfinite(ratio) and ratio <= BF16_GATE):
+        raise AssertionError(f"{what}: {err:.3e} against its twin, bf16 vs f32 twin {gap:.3e} "
+                             f"(ratio {ratio:.3e} > {BF16_GATE})")
+    return ratio
+
+
+def check_bf16_pair(what: str, k_out, t_out, f_out, k_g, t_g, f_g) -> dict:
+    """A bf16 kernel's outputs and gradients against the bf16 twin's, each
+    within BF16_GATE of the bf16 twin's distance from the f32 twin."""
+    fwd = [(mean_gap(k, t), mean_gap(t, f)) for k, t, f in zip(k_out, t_out, f_out)]
+    res = {"fwd_ratio": max(bf16_gate(f"{what} forward (mean |diff|)", e, g) for e, g in fwd),
+           "fwd_mean_err": max(e for e, _ in fwd), "fwd_mean_gap": min(g for _, g in fwd),
+           "max_abs_err": max(float((k - t).detach().abs().max()) for k, t in zip(k_out, t_out))}
+    err, gap = leaf_gap(k_g, t_g), leaf_gap(t_g, f_g)
+    res.update(grad_ratio=bf16_gate(f"{what} gradients (worst leaf)", err, gap), grad_err=err,
+               grad_gap=gap, grad_max_abs_err=max(float((a - b).abs().max())
+                                                  for a, b in zip(k_g, t_g)))
+    return res
+
+
+def check_kernels_bf16(n_rays: int = 1024, n_samples: int = 500, seed: int = 0,
+                       fourier: bool = False) -> dict:
+    """The bf16 K1 and K2 against their bf16 twin at the flagship shapes
+    (with ``fourier`` the pair on the fourier encoding), two fields (ray
+    form) and one (``fused_static_field`` with ``configs/3d.txt``'s field on
+    the same points), under BF16_GATE; each launch must be the bf16
+    instantiation's. Times the bf16 launch functions and the twin."""
+    import torch
+
+    from nerfca_tpu_torch.ops.cuda import fused_field as ff
+
+    dev = torch.device("cuda")
+    bf = "bfloat16"
+    cfg_s, cfg_t = flagship_cfgs(fourier)
+    params = flagship_params(seed, dev, fourier)
+    names, leaves = trained_leaves(params)
+    origins, dirs, z, phases = flagship_rays(n_rays, n_samples, seed, dev)
+    window = None if fourier else torch.ones(12, device=dev)
+    args = (params["static"], params["temp"], origins, dirs, z, phases, cfg_s, cfg_t,
+            window, window)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    cot = [torch.randn(n_rays, n_samples, 1, generator=g, device=dev) for _ in range(2)]
+
+    def run(fn, *extra):
+        out = fn(*args, *extra)
+        return out, torch.autograd.grad(sum((o * c).sum() for o, c in zip(out, cot)), leaves)
+
+    before = dict(ff.LAUNCHES)
+    k_out, k_g = run(ff.fused_composite_fields_rays, bf)
+    for name in ("fused_field_fwd", "fused_field_bwd"):
+        if (ff.LAUNCHES[name + "_bf16"] != before[name + "_bf16"] + 1
+                or ff.LAUNCHES[name] != before[name]):
+            raise AssertionError(f"the bf16 entry did not launch the bf16 {name}: {ff.LAUNCHES}")
+    t_out, t_g = run(ff.twin_composite_fields_rays, bf)
+    f_out, f_g = run(ff.plain_composite_fields_rays)
+    torch.cuda.synchronize()
+    res = check_bf16_pair("bf16 K1/K2" + " fourier" * fourier, k_out, t_out, f_out, k_g, t_g,
+                          f_g)
+
+    pack_s, pack_t = packs(params, (cfg_s, cfg_t), window, dev, bf16=True)
+    ph32 = phases.to(torch.int32)
+    lat = params["temp"]["latents"].detach()
+    gs, gt = (c.reshape(-1).contiguous() for c in cot)
+    with torch.no_grad():
+        res["k1_ms"] = cuda_time_ms(
+            lambda: ff.fused_field_fwd(pack_s, pack_t, origins, dirs, z, ph32, lat))
+        res["k1_plain_ms"] = cuda_time_ms(lambda: ff.twin_composite_fields_rays(*args, bf))
+    res["k2_ms"] = cuda_time_ms(
+        lambda: ff.fused_field_bwd(pack_s, pack_t, origins, dirs, z, ph32, lat, gs, gt))
+    out = ff.twin_composite_fields_rays(*args, bf)
+    loss = sum((o * c).sum() for o, c in zip(out, cot))
+    res["k2_plain_ms"] = cuda_time_ms(
+        lambda: torch.autograd.grad(loss, leaves, retain_graph=True))
+    del out, loss
+    res["shapes"] = {"n_rays": n_rays, "n_samples": n_samples,
+                     "param_floats": sum(t.numel() for t in leaves)}
+
+    # one field: configs/3d.txt's static field on the same points
+    from nerfca_tpu_torch.models.fields import init_static_field
+    from nerfca_tpu_torch.ops import prng
+
+    cfg = static_cfg(fourier)
+    p1 = {"static": init_static_field(prng.key(seed), cfg, dev)}
+    n1, l1 = trained_leaves(p1)
+    with torch.no_grad():
+        pts = ff._points(origins, dirs, z).contiguous()
+    w1 = None if fourier else torch.ones(cfg.pos_enc_basis, device=dev)
+    runs = []
+    before = dict(ff.LAUNCHES)
+    for fn, cd in ((ff.fused_static_field, bf), (ff.twin_static_field, bf),
+                   (ff.plain_static_field, "float32")):
+        o1 = fn(p1["static"], pts, cfg, w1, cd)
+        runs.append(([o1], torch.autograd.grad((o1 * cot[0]).sum(), l1)))
+        if fn is ff.fused_static_field:
+            for name in ("fused_static_field_fwd", "fused_static_field_bwd"):
+                if (ff.LAUNCHES[name + "_bf16"] != before[name + "_bf16"] + 1
+                        or ff.LAUNCHES[name] != before[name]):
+                    raise AssertionError(f"the bf16 static entry did not launch the bf16 {name}")
+    torch.cuda.synchronize()
+    one = check_bf16_pair("bf16 one-field K1/K2" + " fourier" * fourier, *[r[0] for r in runs],
+                          *[r[1] for r in runs])
+    res["one_field"] = one
+    pack = ff._Pack(cfg, ff._leaves(p1["static"]), ff.enc_table(p1["static"], cfg, w1), dev,
+                    bf16=True)
+    n = n_rays * n_samples
+    po, pd, z0 = pts.reshape(n, 3), torch.zeros(n, 3, device=dev), torch.zeros(1, device=dev)
+    zero_ph, lat0 = torch.zeros(n, dtype=torch.int32, device=dev), torch.zeros(1, 8, device=dev)
+    g1 = cot[0].reshape(-1).contiguous()
+    with torch.no_grad():
+        one["k1_ms"] = cuda_time_ms(lambda: ff.fused_field_fwd(pack, None, po, pd, z0, zero_ph,
+                                                               lat0))
+        one["k1_plain_ms"] = cuda_time_ms(
+            lambda: ff.twin_static_field(p1["static"], pts, cfg, w1, bf))
+    one["k2_ms"] = cuda_time_ms(
+        lambda: ff.fused_field_bwd(pack, None, po, pd, z0, zero_ph, lat0, g1, None))
+    o1 = ff.twin_static_field(p1["static"], pts, cfg, w1, bf)
+    loss1 = (o1 * cot[0]).sum()
+    one["k2_plain_ms"] = cuda_time_ms(lambda: torch.autograd.grad(loss1, l1, retain_graph=True))
+    one["param_floats"] = sum(t.numel() for t in l1)
+    return res
+
+
+def k3_leaves(result) -> list:
+    from nerfca_tpu_torch.train.step import param_items
+
+    return [t for _, t in param_items({"static": result[2], "temp": result[3]})]
+
+
+def k3_names(result) -> list:
+    from nerfca_tpu_torch.train.step import param_items
+
+    return [n for n, _ in param_items({"static": result[2], "temp": result[3]})]
+
+
+def reads_residual(name: str) -> bool:
+    """A leaf whose gradient reads a stored post-ReLU activation: the
+    weights of the hidden layers and of the output layer."""
+    return name.endswith("/w") and "/early/0/" not in name
+
+
+def check_k3_bf16(seed: int = 0) -> dict:
+    """K3 under bf16 compute and under bf16 residual storage at the flagship
+    shapes (no hull), each against its twin: bf16 compute by the gradients
+    under BF16_GATE (the loss and terms by LOSS_REL); bf16 residuals by the
+    f32 K3's loss and terms bit for bit, the leaves that read no stored
+    activation bit for bit, the gradients by K2_REL against the twin, and
+    K2 over bf16 residuals by its change against the twin's on unit-normal
+    cotangents under BF16_GATE (on K3's own cotangents only reported).
+    Times both, their twins and K2 over bf16 residuals alone."""
+    import torch
+
+    from nerfca_tpu_torch.ops.cuda import fused_field as ff
+    from nerfca_tpu_torch.ops.cuda import fused_train as ft
+
+    pb = k3_problem(seed)
+    args = pb["args"](False)
+    bargs = args[:-1] + (dataclasses.replace(args[-1], compute_dtype="bfloat16"),)
+    rargs = args[:-1] + (dataclasses.replace(args[-1], pallas_bf16_residuals=True),)
+    rel = lambda a, b: abs(float(a) - float(b)) / abs(float(b))  # noqa: E731
+
+    def term_gap(got, want):
+        return max(rel(got[k], want[k]) for k in want if float(want[k]))
+
+    before = dict(ff.LAUNCHES)
+    k = ft.fused_train_loss_and_grads(*bargs)
+    if (ff.LAUNCHES["fused_field_fwd_bf16"] != before["fused_field_fwd_bf16"] + 1
+            or ff.LAUNCHES["fused_field_bwd_bf16"] != before["fused_field_bwd_bf16"] + 1
+            or ff.LAUNCHES["fused_field_fwd"] != before["fused_field_fwd"]):
+        raise AssertionError(f"bf16 K3 did not launch the bf16 K1/K2: {ff.LAUNCHES}")
+    t = ft.plain_train_loss_and_grads(*bargs)
+    f = ft.plain_train_loss_and_grads(*args)
+    torch.cuda.synchronize()
+    res = {"loss_err": rel(k[0], t[0]), "loss_gap": rel(t[0], f[0]),
+           "term_err": term_gap(k[1], t[1]), "term_gap": term_gap(t[1], f[1])}
+    if not (res["loss_err"] <= LOSS_REL and res["term_err"] <= LOSS_REL):
+        raise AssertionError(f"bf16 K3: loss rel {res['loss_err']:.3e}, worst term "
+                             f"{res['term_err']:.3e} (> {LOSS_REL})")
+    kl, tl, fl = k3_leaves(k), k3_leaves(t), k3_leaves(f)
+    res["grad_err"], res["grad_gap"] = leaf_gap(kl, tl), leaf_gap(tl, fl)
+    res["grad_ratio"] = bf16_gate("bf16 K3 gradients", res["grad_err"], res["grad_gap"])
+    res["max_abs_err"] = max(float((a - b).abs().max()) for a, b in zip(kl, tl))
+    res["ms"] = cuda_time_ms(lambda: ft.fused_train_loss_and_grads(*bargs))
+    res["plain_ms"] = cuda_time_ms(lambda: ft.plain_train_loss_and_grads(*bargs))
+    del k, t, kl, tl
+
+    before = dict(ff.LAUNCHES)
+    k_res = ft.fused_train_loss_and_grads(*rargs)
+    if (ff.LAUNCHES["fused_field_bwd_res_bf16"] != before["fused_field_bwd_res_bf16"] + 1
+            or ff.LAUNCHES["fused_field_bwd"] != before["fused_field_bwd"]):
+        raise AssertionError(f"K3 with bf16 residuals did not launch its K2: {ff.LAUNCHES}")
+    k_f32 = ft.fused_train_loss_and_grads(*args)
+    t_res = ft.plain_train_loss_and_grads(*rargs)
+    torch.cuda.synchronize()
+    res["res_loss_bitwise"] = float(k_res[0]) == float(k_f32[0]) and all(
+        float(k_res[1][n]) == float(k_f32[1][n]) for n in k_f32[1])
+    if not res["res_loss_bitwise"]:
+        raise AssertionError("K3 with bf16 residuals: the loss or a term differs from the f32 K3")
+    # only the leaves whose dW reads a stored activation (the hidden and
+    # output layers' weights) can move; every other leaf keeps its bits
+    moved = 0
+    for name, kr, kf in zip(k3_names(k_f32), k3_leaves(k_res), k3_leaves(k_f32)):
+        if reads_residual(name):
+            moved += not torch.equal(kr, kf)
+        elif not torch.equal(kr, kf):
+            raise AssertionError(f"K3 with bf16 residuals moved {name}")
+    res["res_leaves_moved"] = moved
+    if moved == 0:
+        raise AssertionError("K3 with bf16 residuals: no gradient moved from the f32 K3's")
+    res["res_grad_err_vs_twin"] = leaf_gap(k3_leaves(k_res), k3_leaves(t_res))
+    if not res["res_grad_err_vs_twin"] <= K2_REL:
+        raise AssertionError(f"K3 with bf16 residuals: grads {res['res_grad_err_vs_twin']:.3e} "
+                             f"of scale from the twin (> {K2_REL})")
+    res["res_max_abs_err"] = max(float((a - b).abs().max())
+                                 for a, b in zip(k3_leaves(k_res), k3_leaves(t_res)))
+    res["res_ms"] = cuda_time_ms(lambda: ft.fused_train_loss_and_grads(*rargs))
+    res["res_plain_ms"] = cuda_time_ms(lambda: ft.plain_train_loss_and_grads(*rargs))
+    res["f32_ms"] = cuda_time_ms(lambda: ft.fused_train_loss_and_grads(*args))
+    del k_res, k_f32, t_res, f, fl
+
+    # K2 over bf16 residuals (and the f32 K2) on K3's own cotangents: each
+    # moving leaf's change against the twin's on the same cotangents
+    params, (cfg_s, cfg_t), window, hp = pb["params"], pb["cfgs"], pb["window"], pb["hp"]
+    origins, dirs, z, phases = pb["origins"], pb["dirs"], pb["z"], pb["phases"]
+    dev = origins.device
+    pack_s, pack_t = packs(params, (cfg_s, cfg_t), window, dev)
+    ph32 = phases.to(torch.int32)
+    lat = params["temp"]["latents"].detach()
+    occl = ft.occlusion_mask(z, hp)  # kept alive: the launch reads its pointer
+    largs = ft.loss_args(pb["pixels"], pb["weights"], pb["i0"], None, occl, args[13], hp,
+                         origins.shape[0], z.shape[0])
+    raw_s, raw_t = ff.fused_field_fwd(pack_s, pack_t, origins, dirs, z, ph32, lat)
+    _, g_s, g_t = ft.fused_train_loss(raw_s, raw_t, z, largs)
+
+    def k2(res_bf16, cot=(g_s, g_t)):
+        return ff.fused_field_bwd(pack_s, pack_t, origins, dirs, z, ph32, lat, *cot,
+                                  res_bf16=res_bf16)
+
+    rays = (origins, dirs, z, phases)
+    on_k3 = residual_shares(params, (cfg_s, cfg_t), window, rays, (pack_s, pack_t), k2(True),
+                            k2(False), (g_s, g_t))
+    res.update({f"{k}_k3_cotangents": v for k, v in on_k3.items()})
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    cot = tuple(torch.randn(g_s.shape, generator=gen, device=dev) for _ in range(2))
+    res.update(residual_shares(params, (cfg_s, cfg_t), window, rays, (pack_s, pack_t),
+                               k2(True, cot), k2(False, cot), cot))
+    if not res["res_share_err"] <= BF16_GATE:
+        raise AssertionError(f"K2 over bf16 residuals: share of the twin's change off by "
+                             f"{res['res_share_err']:.3e} (> {BF16_GATE})")
+    res["k2_res_ms"], res["k2_f32_ms"] = cuda_time_ms(lambda: k2(True)), cuda_time_ms(
+        lambda: k2(False))
+    names, leaves = trained_leaves(params)
+    out = ff.twin_composite_fields_rays(params["static"], params["temp"], origins, dirs, z,
+                                        phases, cfg_s, cfg_t, window, window, "float32", True)
+    shape = out[0].shape
+    loss = (out[0] * g_s.view(shape)).sum() + (out[1] * g_t.view(shape)).sum()
+    res["k2_res_plain_ms"] = cuda_time_ms(
+        lambda: torch.autograd.grad(loss, leaves, retain_graph=True))
+    return res
+
+
+def residual_shares(params, cfgs, window, rays, pks, flat_res, flat_f32, cot) -> dict:
+    """K2's change under bf16 residual storage, dk (its flat gradients with
+    and without), against the twin's change on the same cotangents, dt (the
+    twin's backward with and without the rounding, the same sums apart from
+    it): per leaf whose dW reads a stored activation, the share beta =
+    <dk, dt> / <dt, dt> (1 when the kernel rounds what the twin rounds, 0
+    for an f32 kernel), its worst distance from 1, the worst |dk - dt| /
+    |dt|, the smallest |dt| as a share of its leaf and the largest distance
+    of the f32 K2 from the twin, by the same norm. Every other leaf must
+    keep its bits."""
+    import torch
+
+    from nerfca_tpu_torch.ops.cuda import fused_field as ff
+
+    origins, dirs, z, phases = rays
+    n_phases = params["temp"]["latents"].shape[0]
+    size_s = pks[0].grad_layout(n_phases)["size"]
+
+    def kernel_leaves(flat):
+        out = []
+        for pk, part in zip(pks, (flat[:size_s], flat[size_s:])):
+            out += pk.leaf_grads(part, n_phases)[0]
+        return out
+
+    def twin_leaves(res_bf16):
+        trees = [{"early": [{k: v.detach().clone().requires_grad_(True) for k, v in l.items()}
+                            for l in p["early"]],
+                  "out": {k: v.detach().clone().requires_grad_(True) for k, v in p["out"].items()},
+                  **{k: p[k].detach() for k in ("latents", "fourier") if k in p}}
+                 for p in (params["static"], params["temp"])]
+        out = ff.twin_composite_fields_rays(trees[0], trees[1], origins, dirs, z, phases, *cfgs,
+                                            window, window, "float32", res_bf16,
+                                            hand_backward=True)
+        loss = sum((o * c.view(o.shape)).sum() for o, c in zip(out, cot))
+        return list(torch.autograd.grad(loss, ff._leaves(trees[0]) + ff._leaves(trees[1])))
+
+    names = [f"{f}/{n}" for f, c in zip(("static", "temp"), cfgs)
+             for n in [f"early/{i}/{k}" for i in range(c.num_early_layers + 1) for k in "wb"]
+             + ["out/w", "out/b"]]
+    worst, spread, effect, noise = 0.0, 0.0, float("inf"), 0.0
+    for name, kr, kf, tr, tf_ in zip(names, kernel_leaves(flat_res), kernel_leaves(flat_f32),
+                                     twin_leaves(True), twin_leaves(False)):
+        if not reads_residual(name):
+            if not torch.equal(kr, kf):
+                raise AssertionError(f"K2 over bf16 residuals moved {name}")
+            continue
+        dk, dt = (kr - kf).double(), (tr - tf_).double()
+        if not float(dt.norm()) > 0:
+            raise AssertionError(f"the twin's bf16 residuals leave {name} unchanged")
+        err = abs(float((dk * dt).sum() / (dt * dt).sum()) - 1)
+        worst = err if not err <= worst else worst  # a NaN stays
+        spread = max(spread, float((dk - dt).norm() / dt.norm()))
+        effect = min(effect, float(dt.norm() / tf_.norm()))
+        noise = max(noise, float((kf - tf_).norm() / tf_.norm()))
+    return {"res_share_err": worst, "res_change_diff": spread, "res_change_of_leaf": effect,
+            "res_f32_kernel_vs_twin": noise}
+
+
 def counted_run(argv: list, static: bool = False) -> dict:
     """``run_composite.main(argv)`` (``run_nerf.main`` with ``static``) with
     the launch counts set to 0 just before and read just after, the eval
@@ -547,13 +929,17 @@ def counted_run(argv: list, static: bool = False) -> dict:
     return info
 
 
-def drive_main_path(workdir: str, extra_argv: list, n_steps: int) -> dict:
+def drive_main_path(workdir: str, extra_argv: list, n_steps: int,
+                    k1_key: str = "fused_field_fwd") -> dict:
     """``run_composite.main`` at flagship width: ``n_steps`` train steps and
-    one eval render on the dataset under ``workdir`` (built if absent)."""
+    one eval render on the dataset under ``workdir`` (built if absent), in
+    which the K1 instantiation counted under ``k1_key`` must run."""
+    # each run logs under its own root: two runs that start in the same
+    # second would otherwise share a timestamped log dir
     argv = ["--config", os.path.join(REPO, "configs", "composite.txt"), "--use_pallas", "true",
             "--platform", "cuda", "--n_iters", str(n_steps - 1), "--display_every", str(n_steps),
             "--data_root", os.path.join(workdir, "data"),
-            "--log_dir_root", os.path.join(workdir, "cases"), *extra_argv]
+            "--log_dir_root", tempfile.mkdtemp(prefix="cases-", dir=workdir), *extra_argv]
     res = counted_run(argv)
     train, evals = res["train"], res["evals"]
     if len(train) != n_steps or not all(math.isfinite(r["train_loss"]) for r in train):
@@ -561,8 +947,8 @@ def drive_main_path(workdir: str, extra_argv: list, n_steps: int) -> dict:
                              f"got {[r.get('train_loss') for r in train]}")
     if len(evals) != 1 or not math.isfinite(evals[0]["test_image_psnr"]):
         raise AssertionError(f"expected one finite eval, got {evals}")
-    if res["eval_launches"].get("fused_field_fwd", 0) < 1:
-        raise AssertionError(f"K1 not launched during the eval render: {res}")
+    if res["eval_launches"].get(k1_key, 0) < 1:
+        raise AssertionError(f"{k1_key} not launched during the eval render: {res}")
     res["eval"] = evals[0]
     return res
 
@@ -751,6 +1137,81 @@ def clean_protocol_phase(workdir: str, extra_argv: tuple = ()) -> dict:
             "gate_passed": passed}
 
 
+def clean_leg(workdir: str, extra_argv: list, tag: str, kernel_key: str) -> dict:
+    """A bf16 leg of the clean protocol: ``configs/synth-4view-best.txt``
+    with ``extra_argv`` for ``CLEAN_STEPS`` steps on phase 4c's dataset,
+    the launch counts set to 0 just before and read just after
+    (``kernel_key`` must run on every step); ``run_eval`` of checkpoint-1000
+    over the 40 views of evaluate.json; the selection view's image PSNR of
+    the initial state (step 0), rendered as the trainer's eval renders it.
+    Gated on finite values and on the selection view's PSNR rising from
+    step 0 (the 4-view problem is bistable across perturbations, so the f32
+    leg's ``GATE_PSNR`` floor is not imposed). Raises on a failure."""
+    import torch
+
+    from nerfca_tpu_torch.ops import prng
+    from nerfca_tpu_torch.ops.sampling import stratify_depths
+    from nerfca_tpu_torch.train import evaluation, run_eval
+    from nerfca_tpu_torch.train.config import parse_args
+    from nerfca_tpu_torch.train.trainer import _init_composite_state
+
+    argv = ["--config", CLEAN_CONFIG, "--n_iters", str(CLEAN_STEPS), "--platform", "cuda",
+            "--data_root", os.path.join(workdir, "data"), *extra_argv]
+    res = counted_run(argv + ["--log_dir_root", os.path.join(workdir, f"cases-{tag}")])
+    out, tl = res["run"], res["train_launches"]
+    if out["diverged_at"] is not None or out["final_step"] != CLEAN_STEPS + 1:
+        raise AssertionError(f"clean protocol {tag}: diverged at {out['diverged_at']}, final "
+                             f"step {out['final_step']}")
+    if not all(math.isfinite(r["train_loss"]) for r in res["train"]):
+        raise AssertionError(f"clean protocol {tag}: non-finite logged loss {res['train']}")
+    if min(tl["fused_train_loss"], tl[kernel_key]) < CLEAN_STEPS:
+        raise AssertionError(f"clean protocol {tag}: {kernel_key} did not run on every step: {tl}")
+    args = parse_args(argv + ["--resume_from", os.path.join(out["log_dir"], "checkpoint-1000")])
+    t0 = time.perf_counter()
+    result = run_eval.evaluate_checkpoint(args, write_images=False)
+    keys = ("mean_psnr", "mean_ssim", "mean_dyn_psnr_masked", "mean_dyn_corr")
+    score = {"wall_s": time.perf_counter() - t0, "views": len(result["per_view"]),
+             **{k: result[k] for k in keys}}
+    if score["views"] != 40 or not all(math.isfinite(score[k]) for k in keys):
+        raise AssertionError(f"clean protocol {tag}: run_eval of checkpoint-1000 {score}")
+    setup = out["setup"]
+    dev = setup["depth_values"].device
+    n = setup["depth_values"].shape[0]
+    test_depths = stratify_depths(setup["depth_values"], t_rand=torch.from_numpy(
+        prng.uniform(prng.key(args.seed + 1), (n,))).to(dev))
+    init = _init_composite_state(args, setup["cfgs"], setup["tx"], dev)
+    view = setup["test_views"][0]
+    render = evaluation.render_test_view(init.params, view["origins"], view["directions"],
+                                         view["phases"], test_depths, 0, setup["cfgs"],
+                                         setup["hp"], setup["max_pixel_value"],
+                                         hull=setup["hull"])
+    psnr0 = evaluation.test_metrics(render, view["image"], 0, setup["hp"],
+                                    img_shape=view["shape"])["test_image_psnr"]
+    sel = {r["step"]: r["test_image_psnr"] for r in res["evals"]}
+    if not (math.isfinite(psnr0) and math.isfinite(sel.get(CLEAN_STEPS, float("nan")))
+            and sel[CLEAN_STEPS] > psnr0):
+        raise AssertionError(f"clean protocol {tag}: selection-view PSNR {psnr0} at step 0, "
+                             f"{sel} after")
+    return {"res": res, "score": score, "psnr0": psnr0, "selection": sel,
+            "dyn_corr": {r["step"]: r.get("test_dyn_corr") for r in res["evals"]}}
+
+
+def report_clean_leg(leg: dict, tag: str, f32: dict, card: str) -> None:
+    res, sc = leg["res"], leg["score"]
+    log(f"clean protocol, {tag} ({CLEAN_STEPS} steps on phase 4c's dataset; {card}): "
+        f"{res['train_steps']} steps in {res['train_s']:.2f} s of train chunks "
+        f"({1e3 * res['train_s'] / res['train_steps']:.2f} ms a step); launches: training "
+        f"{res['train_launches']}, in-loop evals {res['eval_launches']}")
+    log(f"  train_loss {[(r['step'], r['train_loss']) for r in res['train']]}")
+    log(f"  selection view image PSNR: step 0 {leg['psnr0']:.3f} dB, then "
+        f"{leg['selection']}; dyn_corr {leg['dyn_corr']}")
+    log(f"  run_eval checkpoint-1000 over {sc['views']} views ({sc['wall_s']:.2f} s): PSNR "
+        f"{sc['mean_psnr']:.3f} dB, SSIM {sc['mean_ssim']:.4f}, dyn_psnr_masked "
+        f"{sc['mean_dyn_psnr_masked']:.3f}, dyn_corr {sc['mean_dyn_corr']:.4f} (the f32 leg: "
+        f"{f32['mean_psnr']:.3f} dB, {f32['mean_ssim']:.4f}, {f32['mean_dyn_psnr_masked']:.3f}, "
+        f"{f32['mean_dyn_corr']:.4f})")
+
+
 def jax_records() -> tuple:
     """The JAX clean-protocol records: 40-view means by checkpoint step,
     the selection-view trajectory and the logged train steps by step."""
@@ -811,24 +1272,28 @@ def report_clean_protocol(cp: dict, card: str) -> None:
 
 
 def steady_state_times(run: dict, hull, n_steps: int = 10, warmup: int = 3,
-                       names=("k3", "k1k2", "plain", "k3_hull")) -> dict:
+                       names=("k3", "k1k2", "plain", "k3_hull", "k3_bf16", "k3_res")) -> dict:
     """Flagship step and eval-render times (ms) on a main path's dataset and
     state, once warm, path by path in turns and then in the reverse order;
-    host clock around synchronized work."""
+    host clock around synchronized work. ``k3_bf16`` is K3 under bf16
+    compute, ``k3_res`` over bf16 residual storage."""
     from nerfca_tpu_torch.train import evaluation
     from nerfca_tpu_torch.train.step import make_composite_train_step
 
     setup, state = run["setup"], run["state"]
     dd, cfgs, view = setup["device_data"], setup["cfgs"], setup["test_views"][0]
-    paths = {"k3": (True, True, None), "k1k2": (True, False, None),
-             "plain": (False, False, None), "k3_hull": (True, True, hull)}
+    paths = {"k3": (True, True, None, {}), "k1k2": (True, False, None, {}),
+             "plain": (False, False, None, {}), "k3_hull": (True, True, hull, {}),
+             "k3_bf16": (True, True, None, {"compute_dtype": "bfloat16"}),
+             "k3_res": (True, True, None, {"pallas_bf16_residuals": True})}
     paths = {k: paths[k] for k in names}
 
     times: dict = {}
     order = list(paths)
     for path in order + order[::-1]:
-        use_pallas, fused, h = paths[path]
-        hp = dataclasses.replace(setup["hp"], use_pallas=use_pallas, use_fused_loss=fused)
+        use_pallas, fused, h, precision = paths[path]
+        hp = dataclasses.replace(setup["hp"], use_pallas=use_pallas, use_fused_loss=fused,
+                                 **precision)
         step = make_composite_train_step(cfgs, hp, setup["tx"], setup["depth_values"],
                                          setup["max_pixel_value"])
 
@@ -1405,13 +1870,15 @@ def table_floats(cfg) -> int:
     return 3 * cfg.pos_enc_basis if cfg.pos_enc == "fourier" else cfg.pos_enc_basis
 
 
-def bounds(shapes: dict, fourier: bool = False) -> dict:
+def bounds(shapes: dict, fourier: bool = False, bf16: bool = False) -> dict:
     """Least time (ms) the card could take for each kernel's work at this
     run's shapes, max(bytes / HBM rate, operations / peak), on the route the
-    kernel takes, with both routes beside it: f32 FMAs on the CUDA cores
-    (operations / 67 TFLOP/s) and 3xTF32 on the tensor cores (3 x operations
-    / 495 TFLOP/s: three TF32 products per f32 product). ``fourier``: the
-    fields on the fourier encoding (72 encoded features against 75)."""
+    kernel takes, with every route beside it: f32 FMAs on the CUDA cores
+    (operations / 67 TFLOP/s), 3xTF32 on the tensor cores (3 x operations /
+    495 TFLOP/s: three TF32 products per f32 product) and bf16 on the tensor
+    cores (operations / 989 TFLOP/s, one product). ``fourier``: the fields
+    on the fourier encoding (72 encoded features against 75); ``bf16``: the
+    bf16 instantiations' route."""
     cfg_s, cfg_t = flagship_cfgs(fourier)
     r, s, n_par = shapes["n_rays"], shapes["n_samples"], shapes["param_floats"]
     n = r * s
@@ -1420,42 +1887,42 @@ def bounds(shapes: dict, fourier: bool = False) -> dict:
     ray_bytes = 4 * (6 * r + s + r + table_floats(cfg_s) + table_floats(cfg_t))
     f32_s = lambda flops: flops / PEAK_F32_FLOPS
     tc_s = lambda flops: 3 * flops / PEAK_TF32_FLOPS
+    bf_s = lambda flops: flops / PEAK_BF16_FLOPS
+    route_s = bf_s if bf16 else tc_s
+    mma = "bf16 mma.sync on the tensor cores" if bf16 else "3xTF32 mma.sync on the tensor cores"
     work = {
         # K1: the forward; reads rays and weights, writes two raw densities
-        "k1": ("3xTF32 mma.sync on the tensor cores", fwd, tc_s(fwd),
-               ray_bytes + 4 * n_par + 8 * n),
+        "k1": (mma, fwd, ray_bytes + 4 * n_par + 8 * n),
         # K2: its VJP, counted as 3x the forward (recompute, dW, dX); reads
         # rays, weights, the two cotangents, writes every gradient
-        "k2": ("3xTF32 mma.sync on the tensor cores", 3 * fwd, tc_s(3 * fwd),
-               ray_bytes + 8 * n_par + 8 * n),
+        "k2": (mma, 3 * fwd, ray_bytes + 8 * n_par + 8 * n),
         # K3: forward + backward without recompute (3x the forward); K1 runs
-        # the forward and K2 the backward in 3xTF32; the loss phase (~100
-        # flops a sample on the CUDA cores) is left out; reads rays, per-ray
-        # data, weights and the gate, writes every gradient and the terms
-        "k3": ("K1 then K2 3xTF32 mma.sync on the tensor cores, the loss kernel between",
-               3 * fwd, tc_s(3 * fwd), ray_bytes + 12 * r + 4 * n + 8 * n_par + 64),
+        # the forward and K2 the backward; the loss phase (~100 flops a
+        # sample on the CUDA cores) is left out; reads rays, per-ray data,
+        # weights and the gate, writes every gradient and the terms
+        "k3": (f"K1 then K2 {mma}, the loss kernel between", 3 * fwd,
+               ray_bytes + 12 * r + 4 * n + 8 * n_par + 64),
     }
     # the point-form entries, on materialized points (12 bytes a point in,
     # phases 4 more for the pair): the static field alone (one-field K1 and
     # K2) and the flagship pair
     if "static_param_floats" in shapes:
         fwd1 = 2 * field_macs(static_cfg(fourier)) * n
-        p1, p2 = shapes["static_param_floats"], shapes["point_param_floats"]
-        work["static_k1"] = ("3xTF32 mma.sync on the tensor cores", fwd1, tc_s(fwd1),
-                             12 * n + 4 * p1 + 4 * n)
-        work["static_k2"] = ("3xTF32 mma.sync on the tensor cores", 3 * fwd1, tc_s(3 * fwd1),
-                             12 * n + 4 * n + 8 * p1)
-        work["point_k1"] = ("3xTF32 mma.sync on the tensor cores", fwd, tc_s(fwd),
-                            16 * n + 4 * p2 + 8 * n)
-        work["point_k2"] = ("3xTF32 mma.sync on the tensor cores", 3 * fwd, tc_s(3 * fwd),
-                            16 * n + 8 * n + 8 * p2)
+        p1 = shapes["static_param_floats"]
+        work["static_k1"] = (mma, fwd1, 12 * n + 4 * p1 + 4 * n)
+        work["static_k2"] = (mma, 3 * fwd1, 12 * n + 4 * n + 8 * p1)
+    if "point_param_floats" in shapes:
+        p2 = shapes["point_param_floats"]
+        work["point_k1"] = (mma, fwd, 16 * n + 4 * p2 + 8 * n)
+        work["point_k2"] = (mma, 3 * fwd, 16 * n + 8 * n + 8 * p2)
     out = {}
-    for k, (route, flops, t_ops, nbytes) in work.items():
-        t_bytes = nbytes / PEAK_BYTES
+    for k, (route, flops, nbytes) in work.items():
+        t_ops, t_bytes = route_s(flops), nbytes / PEAK_BYTES
         out[k] = {"route": route, "bound_ms": 1e3 * max(t_ops, t_bytes),
                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                   "bound_ms_f32_cuda_cores": 1e3 * max(f32_s(flops), t_bytes),
                   "bound_ms_3xtf32_tensor_cores": 1e3 * max(tc_s(flops), t_bytes),
+                  "bound_ms_bf16_tensor_cores": 1e3 * max(bf_s(flops), t_bytes),
                   "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
     return out
 
@@ -1545,6 +2012,35 @@ def main() -> int:
     log(f"fourier static / point-form / composite K1 and K2 in turns then reversed, CUDA "
         f"events, 1024 x 500 points ({card}): {json.dumps(fse['ms'])}")
 
+    # bf16 compute (the BF16 instantiations) and bf16 residual storage (K2's
+    # RES_BF16 one, under K3) against their twins at the flagship shapes
+    bk, bfk = check_kernels_bf16(), check_kernels_bf16(fourier=True)
+    for what, r in (("bf16", bk), ("bf16 one field (configs/3d.txt's)", bk["one_field"]),
+                    ("bf16 fourier", bfk), ("bf16 fourier one field", bfk["one_field"])):
+        log(f"{what} K1: mean |kernel - twin| {r['fwd_mean_err']:.3e} against bf16 vs f32 twin "
+            f"{r['fwd_mean_gap']:.3e} (ratio {r['fwd_ratio']:.3e}, limit {BF16_GATE}), max abs "
+            f"{r['max_abs_err']:.3e}; K2: worst leaf {r['grad_err']:.3e} of scale against "
+            f"{r['grad_gap']:.3e} (ratio {r['grad_ratio']:.3e}); K1 {r['k1_ms']:.3f} ms vs twin "
+            f"{r['k1_plain_ms']:.3f} ms, K2 {r['k2_ms']:.3f} ms vs twin backward "
+            f"{r['k2_plain_ms']:.3f} ms ({card})")
+    bk3 = check_k3_bf16()
+    log(f"bf16 K3: grads worst leaf {bk3['grad_err']:.3e} against bf16 vs f32 twin "
+        f"{bk3['grad_gap']:.3e} (ratio {bk3['grad_ratio']:.3e}, limit {BF16_GATE}); loss rel "
+        f"{bk3['loss_err']:.3e} (bf16 vs f32 twin {bk3['loss_gap']:.3e}), worst term "
+        f"{bk3['term_err']:.3e} ({bk3['term_gap']:.3e}), limit {LOSS_REL}; {bk3['ms']:.3f} ms vs "
+        f"twin {bk3['plain_ms']:.3f} ms ({card})")
+    log(f"K3 over bf16 residuals: loss and terms bitwise the f32 K3's "
+        f"{bk3['res_loss_bitwise']}; {bk3['res_leaves_moved']} leaves move; K2 over bf16 "
+        f"residuals on unit-normal cotangents: share of the twin's change within "
+        f"{bk3['res_share_err']:.3e} of 1 (limit {BF16_GATE}; |dk - dt| up to "
+        f"{bk3['res_change_diff']:.3e} of |dt|, |dt| at least {bk3['res_change_of_leaf']:.3e} "
+        f"of its leaf, f32 K2 vs twin {bk3['res_f32_kernel_vs_twin']:.3e}); on K3's own "
+        f"cotangents: share off by {bk3['res_share_err_k3_cotangents']:.3e}, |dt| at least "
+        f"{bk3['res_change_of_leaf_k3_cotangents']:.3e} of its leaf against the f32 K2's "
+        f"{bk3['res_f32_kernel_vs_twin_k3_cotangents']:.3e}; K3 against the twin "
+        f"worst leaf {bk3['res_grad_err_vs_twin']:.3e} of scale; {bk3['res_ms']:.3f} ms vs twin "
+        f"{bk3['res_plain_ms']:.3f} ms, f32 K3 {bk3['f32_ms']:.3f} ms ({card})")
+
     with tempfile.TemporaryDirectory() as workdir:
         mp = drive_main_path(workdir, [], 6)
         tl = mp["train_launches"]
@@ -1582,11 +2078,48 @@ def main() -> int:
         log(f"  eval render: {fc['eval_ms']} ms; test_image_psnr "
             f"{fc['eval']['test_image_psnr']:.3f}")
 
+        # phases 4h and 4i: bf16 compute, then bf16 residual storage, through
+        # K3 on the flagship dataset
+        bp = drive_main_path(workdir, ["--use_fused_loss", "true", "--compute_dtype",
+                                       "bfloat16"], 6, k1_key="fused_field_fwd_bf16")
+        tl, el = bp["train_launches"], bp["eval_launches"]
+        if (tl["fused_train_loss"] != 6 or tl["fused_field_fwd_bf16"] != 6
+                or tl["fused_field_bwd_bf16"] != 6 or tl["fused_field_fwd"]
+                or tl["fused_field_bwd"] or el.get("fused_field_fwd_bf16") != 10
+                or el.get("fused_field_fwd")):
+            raise AssertionError(f"bf16 main path: expected one bf16 K3 a step and 10 bf16 K1 "
+                                 f"in the eval: {tl}, {el}")
+        log(f"main path, bf16 compute (K3 bf16): {bp['wall_s']:.1f} s wall; train_loss "
+            f"{[round(r['train_loss'], 6) for r in bp['train']]}")
+        log(f"  launches: training {tl}, eval {el}")
+        log(f"  eval render: {bp['eval_ms']} ms; test_image_psnr "
+            f"{bp['eval']['test_image_psnr']:.3f}")
+        rp = drive_main_path(workdir, ["--use_fused_loss", "true", "--pallas_bf16_residuals",
+                                       "true"], 6)
+        tl = rp["train_launches"]
+        if (tl["fused_train_loss"] != 6 or tl["fused_field_fwd"] != 6
+                or tl["fused_field_bwd_res_bf16"] != 6 or tl["fused_field_bwd"]):
+            raise AssertionError(f"bf16 residual main path: expected K1, the loss kernel and "
+                                 f"the residual K2 once a step: {tl}")
+        log(f"main path, bf16 residuals (K3 over the bf16 scratch): {rp['wall_s']:.1f} s wall; "
+            f"train_loss {[round(r['train_loss'], 6) for r in rp['train']]} (f32 K3: "
+            f"{[round(r['train_loss'], 6) for r in fp['train']]})")
+        log(f"  launches: training {tl}, eval {rp['eval_launches']}")
+        log(f"  eval render: {rp['eval_ms']} ms; test_image_psnr "
+            f"{rp['eval']['test_image_psnr']:.3f}")
+
         cp = clean_protocol_phase(workdir)
         report_clean_protocol(cp, card)
         if not cp["gate_passed"]:
             raise AssertionError("clean protocol: checkpoint-1000 is under the quality gate")
         hull = cp["hull"]
+        legs = {"res": clean_leg(workdir, ["--pallas_bf16_residuals", "true"], "res",
+                                 "fused_field_bwd_res_bf16"),
+                "bf16": clean_leg(workdir, ["--compute_dtype", "bfloat16"], "bf16",
+                                  "fused_field_bwd_bf16")}
+        for tag, what in (("res", "--pallas_bf16_residuals true"),
+                          ("bf16", "--compute_dtype bfloat16")):
+            report_clean_leg(legs[tag], what, cp["scores"][1000], card)
 
         sp = static_phase(workdir)
         if not report_static(sp, card):
@@ -1618,8 +2151,8 @@ def main() -> int:
             f"{[round(r['norm_vs_plain'], 6) for r in dp['ranks']]} of their scale")
 
     steady = steady_state_times(fp["run"], hull)
-    log(f"steady state in turns, K3 / K1+K2 / plain / K3+hull then reversed ({card}): "
-        f"{json.dumps(steady)}")
+    log(f"steady state in turns, K3 / K1+K2 / plain / K3+hull / K3 bf16 / K3 over bf16 "
+        f"residuals then reversed ({card}): {json.dumps(steady)}")
     fsteady = steady_state_times(fc["run"], None, names=("k3", "k1k2", "plain"))
     log(f"steady state of the fourier composite in turns, K3 / K1+K2 / plain then reversed "
         f"({card}): {json.dumps(fsteady)}")
@@ -1631,15 +2164,23 @@ def main() -> int:
     fbd = bounds({**fk["shapes"], "static_param_floats": fse["param_floats"],
                   "point_param_floats": fse["point_param_floats"]}, fourier=True)
     rank_bd = bounds({**kc["shapes"], "n_rays": kc["shapes"]["n_rays"] // DP_WORLD})["k3"]
-    for k, b in [*bd.items(), *((f"{k}_fourier", b) for k, b in fbd.items())]:
+    bbd = bounds({**bk["shapes"], "static_param_floats": bk["one_field"]["param_floats"]},
+                 bf16=True)
+    fbbd = bounds({**bfk["shapes"], "static_param_floats": bfk["one_field"]["param_floats"]},
+                  fourier=True, bf16=True)
+    for k, b in [*bd.items(), *((f"{k}_fourier", b) for k, b in fbd.items()),
+                 *((f"{k}_bf16", b) for k, b in bbd.items()),
+                 *((f"{k}_fourier_bf16", b) for k, b in fbbd.items())]:
         log(f"{k.upper()} runs {b['route']}: bound {b['bound_ms']:.3f} ms ({b['bound_by']}); "
             f"all f32 on the CUDA cores {b['bound_ms_f32_cuda_cores']:.3f} ms, all 3xTF32 on "
-            f"the tensor cores {b['bound_ms_3xtf32_tensor_cores']:.3f} ms")
+            f"the tensor cores {b['bound_ms_3xtf32_tensor_cores']:.3f} ms, all bf16 on the "
+            f"tensor cores {b['bound_ms_bf16_tensor_cores']:.3f} ms")
 
     def bound_keys(b):
         return {"math": b["route"], "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
                 "bound_ms_f32_cuda_cores": b["bound_ms_f32_cuda_cores"],
-                "bound_ms_3xtf32_tensor_cores": b["bound_ms_3xtf32_tensor_cores"]}
+                "bound_ms_3xtf32_tensor_cores": b["bound_ms_3xtf32_tensor_cores"],
+                "bound_ms_bf16_tensor_cores": b["bound_ms_bf16_tensor_cores"]}
 
     launches, clean, static = fp["launches"], cp["res"]["launches"], sp["res"]["launches"]
 
@@ -1770,6 +2311,81 @@ def main() -> int:
          "bound_of": f"K3 on the whole batch: the {DP_WORLD} ranks' work shares the card in "
                      f"the timed window",
          "bound_ms_per_rank": rank_bd["bound_ms"], "library_ms": None},
+        {"name": "fused_field_fwd, bf16 compute (K1, fwd_kernel<2, 32, NF, FOURIER, true>)",
+         "route": "cuda", "source": "nerfca_tpu_torch/csrc/fused_field.cu",
+         "replaces": "nerfca_tpu/ops/pallas/fused_field.py:527 (compute_dtype bfloat16, "
+                     ":709,730-738)",
+         "launches": bp["launches"]["fused_field_fwd_bf16"],
+         "launches_training": bp["train_launches"]["fused_field_fwd_bf16"],
+         "launches_eval": bp["eval_launches"]["fused_field_fwd_bf16"],
+         "launches_clean_protocol": legs["bf16"]["res"]["launches"]["fused_field_fwd_bf16"],
+         "max_abs_err": bk["max_abs_err"], "mean_abs_err": bk["fwd_mean_err"],
+         "bf16_vs_f32_twin_mean_abs": bk["fwd_mean_gap"], "ratio": bk["fwd_ratio"],
+         "limit": f"mean |kernel - bf16 twin| <= {BF16_GATE} x mean |bf16 twin - f32 twin|, "
+                  f"per field",
+         "ms": bk["k1_ms"], "plain_ms": bk["k1_plain_ms"],
+         "one_field": {k: bk["one_field"][k] for k in ("k1_ms", "k1_plain_ms", "fwd_ratio",
+                                                      "max_abs_err")},
+         "one_field_bound_ms": bbd["static_k1"]["bound_ms"],
+         "fourier": {k: bfk[k] for k in ("k1_ms", "k1_plain_ms", "fwd_ratio", "max_abs_err")},
+         "fourier_one_field": {k: bfk["one_field"][k] for k in ("k1_ms", "fwd_ratio")},
+         **bound_keys(bbd["k1"]), "library_ms": None},
+        {"name": "fused_field_bwd, bf16 compute (K2, bwd_kernel<NF, FOURIER, true, false>)",
+         "route": "cuda", "source": "nerfca_tpu_torch/csrc/fused_field.cu",
+         "replaces": "nerfca_tpu/ops/pallas/fused_field.py:604 (compute_dtype bfloat16, "
+                     "_field_bwd :347-407)",
+         "launches": bp["launches"]["fused_field_bwd_bf16"],
+         "launches_clean_protocol": legs["bf16"]["res"]["launches"]["fused_field_bwd_bf16"],
+         "max_abs_err": bk["grad_max_abs_err"], "max_err_of_leaf_scale": bk["grad_err"],
+         "bf16_vs_f32_twin_of_leaf_scale": bk["grad_gap"], "ratio": bk["grad_ratio"],
+         "limit": f"worst leaf against the bf16 twin <= {BF16_GATE} x the bf16 twin's against "
+                  f"the f32 twin (K2's normalization)",
+         "ms": bk["k2_ms"], "plain_ms": bk["k2_plain_ms"],
+         "one_field": {k: bk["one_field"][k] for k in ("k2_ms", "k2_plain_ms", "grad_ratio")},
+         "one_field_bound_ms": bbd["static_k2"]["bound_ms"],
+         "fourier": {k: bfk[k] for k in ("k2_ms", "k2_plain_ms", "grad_ratio")},
+         "fourier_one_field": {k: bfk["one_field"][k] for k in ("k2_ms", "grad_ratio")},
+         **bound_keys(bbd["k2"]), "library_ms": None},
+        {"name": "K3, bf16 compute (bf16 K1, fused_train_loss, bf16 K2)", "route": "cuda",
+         "source": "nerfca_tpu_torch/csrc/fused_train.cu",
+         "replaces": "nerfca_tpu/ops/pallas/fused_train.py:607 (compute_dtype bfloat16, :561)",
+         "launches": bp["launches"]["fused_train_loss"],
+         "launches_clean_protocol": legs["bf16"]["res"]["launches"]["fused_train_loss"],
+         "max_abs_err": bk3["max_abs_err"], "max_err_of_leaf_scale": bk3["grad_err"],
+         "loss_rel_err": bk3["loss_err"], "term_rel_err": bk3["term_err"],
+         "bf16_vs_f32_twin": {k: bk3[k] for k in ("loss_gap", "term_gap", "grad_gap")},
+         "ratio": bk3["grad_ratio"],
+         "limit": f"worst leaf against the bf16 twin <= {BF16_GATE} x the bf16 twin's against "
+                  f"the f32 twin; loss and terms rel {LOSS_REL} (the f32 loss kernel)",
+         "ms": bk3["ms"], "plain_ms": bk3["plain_ms"], **bound_keys(bbd["k3"]),
+         "library_ms": None},
+        {"name": "fused_field_bwd over bf16 residuals (K2, bwd_kernel<2, FOURIER, false, true>)",
+         "route": "cuda", "source": "nerfca_tpu_torch/csrc/fused_field.cu",
+         "replaces": "nerfca_tpu/ops/pallas/fused_train.py:607 (pallas_bf16_residuals, :562)",
+         "launches": rp["launches"]["fused_field_bwd_res_bf16"],
+         "launches_clean_protocol": legs["res"]["res"]["launches"]["fused_field_bwd_res_bf16"],
+         "max_abs_err": bk3["res_max_abs_err"],
+         "max_err_of_leaf_scale": bk3["res_grad_err_vs_twin"],
+         "share_of_twin_change_err": bk3["res_share_err"],
+         "change_diff_of_twin_change": bk3["res_change_diff"],
+         "share_err_on_k3_cotangents": bk3["res_share_err_k3_cotangents"],
+         "limit": f"on unit-normal cotangents, per moving leaf |<dk, dt> / <dt, dt> - 1| <= "
+                  f"{BF16_GATE}; other leaves bitwise",
+         "ms": bk3["k2_res_ms"], "f32_ms_same_call": bk3["k2_f32_ms"],
+         "plain_ms": bk3["k2_res_plain_ms"], **bound_keys(bd["k2"]), "library_ms": None},
+        {"name": "K3 over bf16 residuals (K1, fused_train_loss, residual K2)", "route": "cuda",
+         "source": "nerfca_tpu_torch/csrc/fused_train.cu",
+         "replaces": "nerfca_tpu/ops/pallas/fused_train.py:607 (pallas_bf16_residuals, :562)",
+         "launches": rp["launches"]["fused_train_loss"],
+         "launches_clean_protocol": legs["res"]["res"]["launches"]["fused_train_loss"],
+         "max_abs_err": bk3["res_max_abs_err"], "loss_bitwise_f32": bk3["res_loss_bitwise"],
+         "share_of_twin_change_err": bk3["res_share_err"],
+         "max_err_of_leaf_scale": bk3["res_grad_err_vs_twin"],
+         "limit": f"loss and terms bitwise the f32 K3's; grads {K2_REL} of leaf scale against "
+                  f"the bf16-residual twin (the f32 K3's rule: on K3's cotangents the rounding "
+                  f"moves the gradients less than f32 sums do)",
+         "ms": bk3["res_ms"], "f32_ms_same_call": bk3["f32_ms"], "plain_ms": bk3["res_plain_ms"],
+         **bound_keys(bd["k3"]), "library_ms": None},
     ]
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -63,6 +63,22 @@
 // scripts/k2_variants.py splits K2's time by phase, scripts/k1_variants.py
 // times K1 at two tile sizes and without parts of its work.
 //
+// bf16 (compute_dtype "bfloat16", the JAX kernel's _dot/_dotg casts): both
+// kernels take a BF16 template parameter. Every matrix product then rounds
+// its operands to bf16 (to nearest, ties to even) as it loads them from the
+// f32 shared-memory tiles and runs one mma.sync.m16n8k16 product per MAC
+// into f32 (field_mma.cuh); k steps are 16 deep, so the input layer pads to
+// round16(k0) (96 at the flagship's temporal 83). The output layer, dwo,
+// the output layer's dh and the latent cotangent take bf16-rounded
+// operands on the CUDA cores; biases, ReLUs and the bias sums stay f32, and
+// every gradient leaves in f32. The bound falls to 155 GFLOP at 989
+// TFLOP/s, ~0.16 ms for K1 at the flagship step and ~0.47 ms for K2.
+// K2 also takes RES_BF16 (bf16 residual storage, launched by K3 alone): its
+// scratch holds the hidden inputs as bf16, and the copies of h that stay in
+// shared memory are rounded after the last forward product has read them,
+// so the forward chain and the loss stay f32. The f32 instantiations
+// compile to their earlier code (scripts/sass_diff.py).
+//
 // Determinism: K2 writes per-CTA gradient partials (each CTA owns its slice,
 // updated in program order by the same thread every time) and
 // fused_field_reduce sums them over CTAs in a fixed order. No atomics, so
@@ -125,6 +141,7 @@ __host__ __device__ inline GradLayout grad_layout(const FieldArgs& f, int n_phas
 #define WCH 64               // weight rows per streamed chunk
 
 __device__ __forceinline__ int round8(int k) { return (k + 7) & ~7; }
+__device__ __forceinline__ int round16(int k) { return (k + 15) & ~15; }
 
 // The weight chunks of one field in the order K2 consumes them: the input
 // layer in 64-row chunks (rows past k0 zero), each hidden layer's two halves
@@ -222,7 +239,11 @@ __device__ __forceinline__ void ring_top_up(const FieldArgs& f, WeightRing& w) {
 // (a tile of 64 M points: warp w owns points 16 M (w & 3) + 0..16 M - 1 and
 // outputs 64 (w >> 2) + 0..63), the weight taken chunk by chunk (C rows)
 // from the ring.
-template <int M, int C = WCH>
+// BF16: one bf16 product per MAC (field_mma.cuh) in k steps of 16; k_pad is
+// then a multiple of 16, and an upper half-step past the row stride LDH (an
+// input layer of more than 128 columns) reads as zero: those columns are
+// padding, with zero weight rows.
+template <int M, int C = WCH, bool BF16 = false>
 __device__ __forceinline__ void mma_layer_fwd(const FieldArgs& f, WeightRing& ring,
                                               const float* H, const float* bias, int k_pad,
                                               float (&acc)[M][8][4]) {
@@ -239,6 +260,21 @@ __device__ __forceinline__ void mma_layer_fwd(const FieldArgs& f, WeightRing& ri
   for (int kc = 0; kc < k_pad; kc += C) {
     const float* W = ring_acquire<C>(f, ring);
     const int kn = min(C, k_pad - kc);
+    if (BF16) {
+#pragma unroll 2
+      for (int kk = 0; kk < kn; kk += 16) {
+        const bool hi = kc + kk + 16 <= LDH;
+        FragA16 a[M];
+        FragB16 b[8];
+#pragma unroll
+        for (int i = 0; i < M; ++i)
+          a[i] = load_a16(H + (row0 + 16 * i) * LDH + kc + kk, LDH, 1, hi);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) b[j] = load_b16(W + kk * LDW + col0 + 8 * j, LDW, 1);
+        mma_bf16_block(acc, a, b);
+      }
+      continue;
+    }
 #pragma unroll 2
     for (int kk = 0; kk < kn; kk += 8) {
       FragA a[M];
@@ -252,20 +288,38 @@ __device__ __forceinline__ void mma_layer_fwd(const FieldArgs& f, WeightRing& ri
   }
 }
 
-// dst[p][n] = relu(acc) for this warp's block (row stride ld).
-template <int M>
+// dst[p][n] = relu(acc) for this warp's block (row stride ld); ROUND: each
+// value rounded to bf16 (kept as f32).
+template <int M, bool ROUND = false>
 __device__ __forceinline__ void store_relu_frag(float* dst, int ld, const float (&acc)[M][8][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = 16 * M * (warp & 3), col0 = 64 * (warp >> 2);
+  auto relu = [](float x) { return ROUND ? round_bf16(fmaxf(x, 0.f)) : fmaxf(x, 0.f); };
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float* d = dst + (long)(row0 + 16 * i + g) * ld + col0 + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(d) = make_float2(relu(acc[i][j][0]), relu(acc[i][j][1]));
+      *reinterpret_cast<float2*>(d + 8 * ld) =
+          make_float2(relu(acc[i][j][2]), relu(acc[i][j][3]));
+    }
+}
+
+// As store_relu_frag, each value rounded to bf16 and stored as bf16 (dst
+// holds bf16 pairs; ld in bf16 elements).
+template <int M>
+__device__ __forceinline__ void store_relu_frag_bf16(uint32_t* dst, int ld,
+                                                     const float (&acc)[M][8][4]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int row0 = 16 * M * (warp & 3), col0 = 64 * (warp >> 2);
 #pragma unroll
   for (int i = 0; i < M; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      float* d = dst + (long)(row0 + 16 * i + g) * ld + col0 + 8 * j + 2 * t;
-      *reinterpret_cast<float2*>(d) =
-          make_float2(fmaxf(acc[i][j][0], 0.f), fmaxf(acc[i][j][1], 0.f));
-      *reinterpret_cast<float2*>(d + 8 * ld) =
-          make_float2(fmaxf(acc[i][j][2], 0.f), fmaxf(acc[i][j][3], 0.f));
+      const long e = (long)(row0 + 16 * i + g) * ld + col0 + 8 * j + 2 * t;
+      dst[e >> 1] = pack_bf16x2(fmaxf(acc[i][j][0], 0.f), fmaxf(acc[i][j][1], 0.f));
+      dst[(e + 8 * ld) >> 1] = pack_bf16x2(fmaxf(acc[i][j][2], 0.f), fmaxf(acc[i][j][3], 0.f));
     }
 }
 
@@ -273,7 +327,12 @@ __device__ __forceinline__ void store_relu_frag(float* dst, int ld, const float 
 // input of the last layer (for the first backward layer), g_sm the tile's
 // cotangents, and the scratch the encoded input ([BTP][LDH]) and the input
 // of every hidden layer but the last ((n_hidden - 1) x [BTP][WIDTH]).
-template <bool FOURIER>
+// BF16: the products in bf16 (mma_layer_fwd). RES_BF16 (bf16 residual
+// storage, f32 products): the hidden inputs go to the scratch as bf16, and
+// D and H are rounded to bf16 too, H only after the last layer's product
+// has read it, so the forward chain stays f32 and only what the backward
+// reads is rounded. The encoded input is not a residual and stays f32.
+template <bool FOURIER, bool BF16 = false, bool RES_BF16 = false>
 __device__ __forceinline__ void k2_forward(const FieldArgs& f, const RayArgs& r, const float* g,
                                            long tile0, WeightRing& ring, float* H, float* D,
                                            int* phase_sm, float* g_sm, float* scratch) {
@@ -285,10 +344,11 @@ __device__ __forceinline__ void k2_forward(const FieldArgs& f, const RayArgs& r,
   encode_tile<FOURIER>(f, r, tile0, H, phase_sm);
   encode_tile<FOURIER>(f, r, tile0 + TP, H + TP * LDH, phase_sm + TP);
   const int k0 = f.enc + f.n_lat, k4 = round4(k0), k_pad = round8(k0);
-  // the mma steps are 8 deep: zero the columns encode_tile leaves
-  for (int t = threadIdx.x; t < BTP * (k_pad - k4); t += NTHREADS) {
-    const int p = t / (k_pad - k4);
-    H[p * LDH + k4 + t - p * (k_pad - k4)] = 0.f;
+  // the mma steps are 8 deep (16 in bf16): zero the columns encode_tile leaves
+  const int k_zero = BF16 ? min(round16(k0), LDH) : k_pad;
+  for (int t = threadIdx.x; t < BTP * (k_zero - k4); t += NTHREADS) {
+    const int p = t / (k_zero - k4);
+    H[p * LDH + k4 + t - p * (k_zero - k4)] = 0.f;
   }
   __syncthreads();
   for (int t = threadIdx.x; t < BTP * (k_pad / 4); t += NTHREADS) {
@@ -297,13 +357,29 @@ __device__ __forceinline__ void k2_forward(const FieldArgs& f, const RayArgs& r,
         *reinterpret_cast<const float4*>(H + p * LDH + 4 * q);
   }
   float acc[MT][8][4];
-  mma_layer_fwd(f, ring, H, f.b0, k_pad, acc);
+  mma_layer_fwd<MT, WCH, BF16>(f, ring, H, f.b0, BF16 ? round16(k0) : k_pad, acc);
   for (int l = 0; l < f.n_hidden; ++l) {
     __syncthreads();  // every read of H is done
     store_relu_frag(H, LDH, acc);
-    if (l + 1 < f.n_hidden)  // the last hidden layer's input stays in H
-      store_relu_frag(scratch + BTP * LDH + (long)l * BTP * WIDTH, WIDTH, acc);
-    mma_layer_fwd(f, ring, H, f.bh + l * WIDTH, WIDTH, acc);
+    if (l + 1 < f.n_hidden) {  // the last hidden layer's input stays in H
+      if (RES_BF16)
+        store_relu_frag_bf16(reinterpret_cast<uint32_t*>(scratch + BTP * LDH) +
+                                 (long)l * BTP * WIDTH / 2, WIDTH, acc);
+      else
+        store_relu_frag(scratch + BTP * LDH + (long)l * BTP * WIDTH, WIDTH, acc);
+    }
+    mma_layer_fwd<MT, WCH, BF16>(f, ring, H, f.bh + l * WIDTH, WIDTH, acc);
+  }
+  if (RES_BF16) {
+    store_relu_frag<MT, true>(D, LDD, acc);
+    if (f.n_hidden > 0) {
+      __syncthreads();  // the last product has read H
+      for (int q = threadIdx.x; q < BTP * WIDTH; q += NTHREADS) {
+        float* h = H + (q / WIDTH) * LDH + (q & (WIDTH - 1));
+        *h = round_bf16(*h);
+      }
+    }
+    return;
   }
   store_relu_frag(D, LDD, acc);  // D's last reader was behind a barrier
 }
@@ -311,7 +387,8 @@ __device__ __forceinline__ void k2_forward(const FieldArgs& f, const RayArgs& r,
 // part[k][n] += sum_p H[p][k] D[p][n] for k < k_real (k_pad rounds k_real
 // up to 8); warp w owns k in kc + 32 (w & 3) + 0..31, n in 64 (w >> 2) + 0..63.
 // The partial is loaded into the accumulators before the products, so its
-// round trip overlaps them.
+// round trip overlaps them. BF16: bf16 products, 16 points a step.
+template <bool BF16 = false>
 __device__ __forceinline__ void mma_accumulate_dw(const float* H, const float* D, int k_real,
                                                   int k_pad, float* part) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -334,17 +411,30 @@ __device__ __forceinline__ void mma_accumulate_dw(const float* H, const float* D
           acc[i][j][2 * h + 1] = v.y;
         }
       }
+    if (BF16) {
 #pragma unroll 2
-    for (int p = 0; p < BTP; p += 8) {
-      // rows of the second m-tile past k_pad read other columns of H (or
-      // the start of D); their sums are never stored
-      FragA a[2];
-      FragB b[8];
+      for (int p = 0; p < BTP; p += 16) {
+        FragA16 a[2];
+        FragB16 b[8];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) a[i] = load_a<true>(H + p * LDH + m0 + 16 * i, 1, LDH);
+        for (int i = 0; i < 2; ++i) a[i] = load_a16(H + p * LDH + m0 + 16 * i, 1, LDH);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = load_b<true>(D + p * LDD + col0 + 8 * j, LDD, 1);
-      mma_3xtf32(acc, a, b);
+        for (int j = 0; j < 8; ++j) b[j] = load_b16(D + p * LDD + col0 + 8 * j, LDD, 1);
+        mma_bf16_block(acc, a, b);
+      }
+    } else {
+#pragma unroll 2
+      for (int p = 0; p < BTP; p += 8) {
+        // rows of the second m-tile past k_pad read other columns of H (or
+        // the start of D); their sums are never stored
+        FragA a[2];
+        FragB b[8];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) a[i] = load_a<true>(H + p * LDH + m0 + 16 * i, 1, LDH);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) b[j] = load_b<true>(D + p * LDD + col0 + 8 * j, LDD, 1);
+        mma_3xtf32(acc, a, b);
+      }
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -373,7 +463,8 @@ __device__ __forceinline__ void accumulate_db(const float* D, float* part) {
 }
 
 // acc = D W^T for this warp's MT x 16 points and the 64 inputs of W, the
-// layer's half that holds them (64 (w >> 2) + 0..63).
+// layer's half that holds them (64 (w >> 2) + 0..63). BF16: bf16 products.
+template <bool BF16 = false>
 __device__ __forceinline__ void mma_dx(const float* D, const float* W, float (&acc)[MT][8][4]) {
   const int row0 = (BTP / 4) * ((threadIdx.x >> 5) & 3);
 #pragma unroll
@@ -382,6 +473,19 @@ __device__ __forceinline__ void mma_dx(const float* D, const float* W, float (&a
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+  if (BF16) {
+#pragma unroll 2
+    for (int n = 0; n < WIDTH; n += 16) {
+      FragA16 a[MT];
+      FragB16 b[8];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) a[i] = load_a16(D + (row0 + 16 * i) * LDD + n, LDD, 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = load_b16(W + 8 * j * LDW + n, 1, LDW);
+      mma_bf16_block(acc, a, b);
+    }
+    return;
+  }
 #pragma unroll 2
   for (int n = 0; n < WIDTH; n += 8) {
     FragA a[MT];
@@ -395,9 +499,29 @@ __device__ __forceinline__ void mma_dx(const float* D, const float* W, float (&a
 }
 
 // H <- the input of layer l from the scratch, with cp.async (committed, not
-// waited for).
+// waited for). RES_BF16: a hidden input (l > 0) is bf16 in the scratch and
+// is converted into H with plain loads and stores (an empty group is
+// committed, so the group count stays that of the cp.async route).
+template <bool RES_BF16 = false>
 __device__ __forceinline__ void prefetch_layer_input(const FieldArgs& f, const float* scratch,
                                                      int l, float* H) {
+  if (RES_BF16 && l > 0) {
+    const uint4* src = reinterpret_cast<const uint4*>(scratch + BTP * LDH) +
+                       (long)(l - 1) * BTP * WIDTH / 8;
+    for (int q = threadIdx.x; q < BTP * WIDTH / 8; q += NTHREADS) {
+      const int p = q / (WIDTH / 8), c = q - p * (WIDTH / 8);
+      const uint4 v = src[q];
+      float* d = H + p * LDH + 8 * c;
+      *reinterpret_cast<float4*>(d) =
+          make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                      __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+      *reinterpret_cast<float4*>(d + 4) =
+          make_float4(__uint_as_float(v.z << 16), __uint_as_float(v.z & 0xffff0000u),
+                      __uint_as_float(v.w << 16), __uint_as_float(v.w & 0xffff0000u));
+    }
+    cp_async_commit();
+    return;
+  }
   const int k_pad = l > 0 ? WIDTH : round8(f.enc + f.n_lat);
   const float* src = l > 0 ? scratch + BTP * LDH + (long)(l - 1) * BTP * WIDTH : scratch;
   const int ld_src = l > 0 ? WIDTH : LDH;
@@ -410,7 +534,11 @@ __device__ __forceinline__ void prefetch_layer_input(const FieldArgs& f, const f
 
 // Backward of one field on one tile, after k2_forward. Layer l's input is
 // in H when its step starts: the forward leaves the last layer's there, and
-// each dX step copies the next one in while its products run.
+// each dX step copies the next one in while its products run. BF16: the
+// products in bf16, and the CUDA-core products (dwo, the output layer's
+// dh, the latent cotangent) of bf16-rounded operands, as the JAX kernel's
+// _field_bwd casts them; the bias sums stay f32 sums of the uncast values.
+template <bool BF16 = false, bool RES_BF16 = false>
 __device__ __forceinline__ void k2_backward(const FieldArgs& f, WeightRing& ring, int n_phases,
                                             float* H, float* D, const int* phase_sm,
                                             const float* g_sm, float* dlat_sm,
@@ -426,7 +554,9 @@ __device__ __forceinline__ void k2_backward(const FieldArgs& f, WeightRing& ring
     const float old = part[L.wo + threadIdx.x];
     float s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 8
-    for (int p = 0; p < BTP; ++p) s[p & 3] = fmaf(g_sm[p], D[p * LDD + threadIdx.x], s[p & 3]);
+    for (int p = 0; p < BTP; ++p)
+      s[p & 3] = BF16 ? fmaf(round_bf16(g_sm[p]), round_bf16(D[p * LDD + threadIdx.x]), s[p & 3])
+                      : fmaf(g_sm[p], D[p * LDD + threadIdx.x], s[p & 3]);
     part[L.wo + threadIdx.x] = old + ((s[0] + s[1]) + (s[2] + s[3]));
   } else if (threadIdx.x == WIDTH) {
     const float old = part[L.bo];
@@ -438,11 +568,11 @@ __device__ __forceinline__ void k2_backward(const FieldArgs& f, WeightRing& ring
   {
     // dpre_L[p][n] = wo[n] g[p] (h_L > 0), in place; a thread keeps one n
     const int n = threadIdx.x & (WIDTH - 1);
-    const float wo = f.wo[n];
+    const float wo = BF16 ? round_bf16(f.wo[n]) : f.wo[n];
 #pragma unroll 8
     for (int p = threadIdx.x / WIDTH; p < BTP; p += NTHREADS / WIDTH) {
       float* d = D + p * LDD + n;
-      *d = *d > 0.f ? __fmul_rn(wo, g_sm[p]) : 0.f;
+      *d = *d > 0.f ? __fmul_rn(wo, BF16 ? round_bf16(g_sm[p]) : g_sm[p]) : 0.f;
     }
   }
   float* lat_w = ring.buf;  // the latent rows of w0 (row stride LDW), staged once the ring is idle
@@ -455,7 +585,7 @@ __device__ __forceinline__ void k2_backward(const FieldArgs& f, WeightRing& ring
                    f.w0 + (long)f.enc * WIDTH + 4 * q);
       cp_async_commit();
     }
-    mma_accumulate_dw(H, D, l > 0 ? WIDTH : k0, l > 0 ? WIDTH : round8(k0),
+    mma_accumulate_dw<BF16>(H, D, l > 0 ? WIDTH : k0, l > 0 ? WIDTH : round8(k0),
                       part + (l > 0 ? L.wh + (long)(l - 1) * WIDTH * WIDTH : L.w0));
     accumulate_db(D, part + (l > 0 ? L.bh + (long)(l - 1) * WIDTH : L.b0));
     if (l > 0) {
@@ -476,9 +606,9 @@ __device__ __forceinline__ void k2_backward(const FieldArgs& f, WeightRing& ring
             mask[i] |= (hv.y > 0.f ? 1u : 0u) << (bit + 1);
           }
       const int c = ring_acquire_pair(ring);  // after its barrier H is free
-      prefetch_layer_input(f, scratch, l - 1, H);
+      prefetch_layer_input<RES_BF16>(f, scratch, l - 1, H);
       float acc[MT][8][4];
-      mma_dx(D, ring.buf + ((c + (warp >> 2)) & 1) * WCH * LDW, acc);
+      mma_dx<BF16>(D, ring.buf + ((c + (warp >> 2)) & 1) * WCH * LDW, acc);
       __syncthreads();  // every read of D and of the ring is done
       ring_top_up(f, ring);
 #pragma unroll
@@ -514,7 +644,9 @@ __device__ __forceinline__ void k2_backward(const FieldArgs& f, WeightRing& ring
         for (int n = 0; n < WIDTH; ++n)
 #pragma unroll
           for (int u = 0; u < 4; ++u)
-            s[u] = fmaf(D[p[u] * LDD + n], lat_w[j[u] * LDW + n], s[u]);
+            s[u] = BF16 ? fmaf(round_bf16(D[p[u] * LDD + n]), round_bf16(lat_w[j[u] * LDW + n]),
+                               s[u])
+                        : fmaf(D[p[u] * LDD + n], lat_w[j[u] * LDW + n], s[u]);
 #pragma unroll
         for (int u = 0; u < 4; ++u)
           if (q0 + u * NTHREADS < n_items) dlat_sm[p[u] * MAX_LAT + j[u]] = s[u];
@@ -531,7 +663,7 @@ __device__ __forceinline__ void k2_backward(const FieldArgs& f, WeightRing& ring
   }
 }
 
-template <int NF, bool FOURIER>
+template <int NF, bool FOURIER, bool BF16, bool RES_BF16>
 __global__ void __launch_bounds__(NTHREADS, 1)
 bwd_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, const float* g_s, const float* g_t,
            float* partials, long part_stride, float* scratch_all, long scratch_stride) {
@@ -559,8 +691,10 @@ bwd_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, const float* g_s, const float*
   float lat_acc = 0.f;
   for (long tile = first; tile < n_tiles; tile += stride) {
     WeightRing ring = ring_begin(f, ring_buf);
-    k2_forward<FOURIER>(f, r, g, tile * BTP, ring, H, D, phase_sm, g_sm, scratch);
-    k2_backward(f, ring, r.n_phases, H, D, phase_sm, g_sm, dlat_sm, scratch, fpart, &lat_acc);
+    k2_forward<FOURIER, BF16, RES_BF16>(f, r, g, tile * BTP, ring, H, D, phase_sm, g_sm,
+                                        scratch);
+    k2_backward<BF16, RES_BF16>(f, ring, r.n_phases, H, D, phase_sm, g_sm, dlat_sm, scratch,
+                                fpart, &lat_acc);
   }
   if (f.n_lat > 0 && threadIdx.x < r.n_phases * f.n_lat)
     fpart[grad_layout(f, r.n_phases).lat + threadIdx.x] += lat_acc;
@@ -593,7 +727,7 @@ __global__ void reduce_kernel(const float* partials, long part_stride, int n_par
 constexpr int k1_smem(int np, int c) { return (np * LDH + 2 * c * LDW) * 4 + np * 4; }
 
 // two CTAs per SM where their shared memory fits (1 KB of each is reserved)
-template <int M, int C, int NF, bool FOURIER>
+template <int M, int C, int NF, bool FOURIER, bool BF16>
 __global__ void __launch_bounds__(NTHREADS, 2 * (k1_smem(64 * M, C) + 1024) <= 233472 ? 2 : 1)
 fwd_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, float* out_s, float* out_t) {
   constexpr int NP = 64 * M;
@@ -609,18 +743,20 @@ fwd_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, float* out_s, float* out_t) {
 #pragma unroll
   for (int h = 0; h < M; ++h)
     encode_tile<FOURIER>(f, r, tile0 + h * TP, H + h * TP * LDH, phase_sm + h * TP);
-  const int k0 = f.enc + f.n_lat, k4 = round4(k0), k_pad = round8(k0);
-  // the mma steps are 8 deep: zero the columns encode_tile leaves
-  for (int t = threadIdx.x; t < NP * (k_pad - k4); t += NTHREADS) {
-    const int p = t / (k_pad - k4);
-    H[p * LDH + k4 + t - p * (k_pad - k4)] = 0.f;
+  const int k0 = f.enc + f.n_lat, k4 = round4(k0);
+  const int k_pad = BF16 ? round16(k0) : round8(k0);
+  // the mma steps are 8 deep (16 in bf16): zero the columns encode_tile leaves
+  const int k_zero = BF16 ? min(k_pad, LDH) : k_pad;
+  for (int t = threadIdx.x; t < NP * (k_zero - k4); t += NTHREADS) {
+    const int p = t / (k_zero - k4);
+    H[p * LDH + k4 + t - p * (k_zero - k4)] = 0.f;
   }
   float acc[M][8][4];
-  mma_layer_fwd<M, C>(f, ring, H, f.b0, k_pad, acc);  // its first barrier publishes H
+  mma_layer_fwd<M, C, BF16>(f, ring, H, f.b0, k_pad, acc);  // its first barrier publishes H
   for (int l = 0; l < f.n_hidden; ++l) {
     __syncthreads();  // every read of H is done
     store_relu_frag(H, LDH, acc);
-    mma_layer_fwd<M, C>(f, ring, H, f.bh + l * WIDTH, WIDTH, acc);
+    mma_layer_fwd<M, C, BF16>(f, ring, H, f.bh + l * WIDTH, WIDTH, acc);
   }
   __syncthreads();
   store_relu_frag(H, LDH, acc);
@@ -628,13 +764,14 @@ fwd_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, float* out_s, float* out_t) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float wo[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) wo[j] = f.wo[lane + 32 * j];
+  for (int j = 0; j < 4; ++j) wo[j] = BF16 ? round_bf16(f.wo[lane + 32 * j]) : f.wo[lane + 32 * j];
   const float bo = f.bo[0];
   float* out = temporal ? out_t : out_s;
   for (int p = warp; p < NP; p += NTHREADS / 32) {
     float s = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s = fmaf(H[p * LDH + lane + 32 * j], wo[j], s);
+    for (int j = 0; j < 4; ++j)
+      s = fmaf(BF16 ? round_bf16(H[p * LDH + lane + 32 * j]) : H[p * LDH + lane + 32 * j], wo[j], s);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
     if (lane == 0 && tile0 + p < n_pts) out[tile0 + p] = s + bo;
@@ -647,35 +784,54 @@ static const int FWD_SMEM = k1_smem(K1_TP, K1_WCH);
 static const int BWD_SMEM =
     (BTP * LDH + BTP * LDD + 2 * WCH * LDW + BTP + BTP * MAX_LAT) * 4 + BTP * 4;
 
-// The launches of one instantiation (NF fields, FOURIER; the C entries
-// pick both).
-template <int NF, bool FOURIER>
+// The launches of one instantiation (NF fields, FOURIER, BF16 and, for K2,
+// RES_BF16; the C entries pick them).
+template <int NF, bool FOURIER, bool BF16>
 static int launch_fwd(const FieldArgs& fs, const FieldArgs& ft, const RayArgs& r, float* out_s,
                       float* out_t, cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(fwd_kernel<K1_TP / 64, K1_WCH, NF, FOURIER>,
+  cudaError_t e = cudaFuncSetAttribute(fwd_kernel<K1_TP / 64, K1_WCH, NF, FOURIER, BF16>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
   if (e != cudaSuccess) return (int)e;
   const long n_pts = (long)r.n_rays * r.n_samples;
   const long n_tiles = (n_pts + K1_TP - 1) / K1_TP;
   if (n_tiles == 0) return 0;
-  fwd_kernel<K1_TP / 64, K1_WCH, NF, FOURIER>
+  fwd_kernel<K1_TP / 64, K1_WCH, NF, FOURIER, BF16>
       <<<(unsigned)(NF * n_tiles), NTHREADS, FWD_SMEM, st>>>(fs, ft, r, out_s, out_t);
   return (int)cudaGetLastError();
 }
 
-template <int NF, bool FOURIER>
+template <int NF, bool FOURIER, bool BF16, bool RES_BF16>
 static cudaError_t launch_bwd(const FieldArgs& fs, const FieldArgs& ft, const RayArgs& r,
                               const float* g_s, const float* g_t, int n_ctas, float* partials,
                               long part_stride, float* scratch, long scratch_stride,
                               cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(bwd_kernel<NF, FOURIER>,
+  cudaError_t e = cudaFuncSetAttribute(bwd_kernel<NF, FOURIER, BF16, RES_BF16>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
   if (e != cudaSuccess) return e;
   e = cudaMemsetAsync(partials, 0, sizeof(float) * part_stride * n_ctas, st);
   if (e != cudaSuccess) return e;
-  bwd_kernel<NF, FOURIER><<<n_ctas, NTHREADS, BWD_SMEM, st>>>(fs, ft, r, g_s, g_t, partials,
-                                                     part_stride, scratch, scratch_stride);
+  bwd_kernel<NF, FOURIER, BF16, RES_BF16><<<n_ctas, NTHREADS, BWD_SMEM, st>>>(
+      fs, ft, r, g_s, g_t, partials, part_stride, scratch, scratch_stride);
   return cudaGetLastError();
+}
+
+// K2's instantiation for one field (ft NULL) or two, FOURIER and BF16.
+template <bool FOURIER, bool BF16>
+static cudaError_t launch_bwd_nf(const FieldArgs* fs, const FieldArgs* ft, const RayArgs& r,
+                                 const float* g_s, const float* g_t, int n_ctas, float* partials,
+                                 long part_stride, float* scratch, long scratch_stride,
+                                 cudaStream_t st) {
+  return ft ? launch_bwd<2, FOURIER, BF16, false>(*fs, *ft, r, g_s, g_t, n_ctas, partials,
+                                                  part_stride, scratch, scratch_stride, st)
+            : launch_bwd<1, FOURIER, BF16, false>(*fs, *fs, r, g_s, g_t, n_ctas, partials,
+                                                  part_stride, scratch, scratch_stride, st);
+}
+
+template <bool FOURIER, bool BF16>
+static int launch_fwd_nf(const FieldArgs* fs, const FieldArgs* ft, const RayArgs& r,
+                         float* out_s, float* out_t, cudaStream_t st) {
+  return ft ? launch_fwd<2, FOURIER, BF16>(*fs, *ft, r, out_s, out_t, st)
+            : launch_fwd<1, FOURIER, BF16>(*fs, *fs, r, out_s, out_t, st);
 }
 
 extern "C" {
@@ -693,37 +849,52 @@ long fused_field_grad_size(const FieldArgs* fs, const FieldArgs* ft, int n_phase
   return grad_layout(*fs, n_phases).size + (ft ? grad_layout(*ft, n_phases).size : 0);
 }
 
-// out_t is unused with one field.
+// The modes of the C entries: f32 products (3xTF32), bf16 products, and
+// (K2 with two fields only) f32 products over bf16 residuals.
+enum { MODE_F32 = 0, MODE_BF16 = 1, MODE_RES_BF16 = 2 };
+
+// out_t is unused with one field; mode MODE_F32 or MODE_BF16.
 int fused_field_fwd(const FieldArgs* fs, const FieldArgs* ft, const RayArgs* r,
-                    float* out_s, float* out_t, void* stream) {
+                    float* out_s, float* out_t, int mode, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (mode != MODE_F32 && mode != MODE_BF16) return (int)cudaErrorInvalidValue;
+  const bool bf16 = mode == MODE_BF16;
   if (is_fourier(*fs) || (ft && is_fourier(*ft)))
-    return ft ? launch_fwd<2, true>(*fs, *ft, *r, out_s, out_t, st)
-              : launch_fwd<1, true>(*fs, *fs, *r, out_s, out_t, st);
-  return ft ? launch_fwd<2, false>(*fs, *ft, *r, out_s, out_t, st)
-            : launch_fwd<1, false>(*fs, *fs, *r, out_s, out_t, st);
+    return bf16 ? launch_fwd_nf<true, true>(fs, ft, *r, out_s, out_t, st)
+                : launch_fwd_nf<true, false>(fs, ft, *r, out_s, out_t, st);
+  return bf16 ? launch_fwd_nf<false, true>(fs, ft, *r, out_s, out_t, st)
+              : launch_fwd_nf<false, false>(fs, ft, *r, out_s, out_t, st);
 }
 
 // partials: [n_ctas, part_stride] zero-initialized by this call;
-// scratch: [n_ctas, scratch_stride]; grads: [grad_size] output. Two fields
-// need an even n_ctas; g_t is unused with one field.
+// scratch: [n_ctas, scratch_stride] (MODE_RES_BF16: the hidden inputs as
+// bf16, half the floats); grads: [grad_size] output. Two fields need an
+// even n_ctas; g_t is unused with one field; MODE_RES_BF16 needs two.
 int fused_field_bwd(const FieldArgs* fs, const FieldArgs* ft, const RayArgs* r,
                     const float* g_s, const float* g_t, int n_ctas, float* partials,
                     long part_stride, float* scratch, long scratch_stride, float* grads,
-                    void* stream) {
+                    int mode, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const long n = fused_field_grad_size(fs, ft, r->n_phases);
+  if (mode < MODE_F32 || mode > MODE_RES_BF16 || (mode == MODE_RES_BF16 && !ft))
+    return (int)cudaErrorInvalidValue;
+  const bool fourier = is_fourier(*fs) || (ft && is_fourier(*ft));
   cudaError_t e;
-  if (is_fourier(*fs) || (ft && is_fourier(*ft)))
-    e = ft ? launch_bwd<2, true>(*fs, *ft, *r, g_s, g_t, n_ctas, partials, part_stride,
-                                 scratch, scratch_stride, st)
-           : launch_bwd<1, true>(*fs, *fs, *r, g_s, g_t, n_ctas, partials, part_stride,
-                                 scratch, scratch_stride, st);
+  if (mode == MODE_RES_BF16)
+    e = fourier ? launch_bwd<2, true, false, true>(*fs, *ft, *r, g_s, g_t, n_ctas, partials,
+                                                   part_stride, scratch, scratch_stride, st)
+                : launch_bwd<2, false, false, true>(*fs, *ft, *r, g_s, g_t, n_ctas, partials,
+                                                    part_stride, scratch, scratch_stride, st);
+  else if (mode == MODE_BF16)
+    e = fourier ? launch_bwd_nf<true, true>(fs, ft, *r, g_s, g_t, n_ctas, partials,
+                                            part_stride, scratch, scratch_stride, st)
+                : launch_bwd_nf<false, true>(fs, ft, *r, g_s, g_t, n_ctas, partials,
+                                             part_stride, scratch, scratch_stride, st);
   else
-    e = ft ? launch_bwd<2, false>(*fs, *ft, *r, g_s, g_t, n_ctas, partials, part_stride,
-                                  scratch, scratch_stride, st)
-           : launch_bwd<1, false>(*fs, *fs, *r, g_s, g_t, n_ctas, partials, part_stride,
-                                  scratch, scratch_stride, st);
+    e = fourier ? launch_bwd_nf<true, false>(fs, ft, *r, g_s, g_t, n_ctas, partials,
+                                             part_stride, scratch, scratch_stride, st)
+                : launch_bwd_nf<false, false>(fs, ft, *r, g_s, g_t, n_ctas, partials,
+                                              part_stride, scratch, scratch_stride, st);
   if (e != cudaSuccess) return (int)e;
   reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(partials, part_stride, n_ctas,
                                                              n, grads);

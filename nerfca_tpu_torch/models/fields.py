@@ -2,6 +2,8 @@
 parameter dict (port of ``nerfca_tpu/models/fields.py``).
 
     encode(x) -> [input layer -> ReLU] -> num_early x [hidden -> ReLU]
+              -> optional skip: concat(encoded, h) -> [skip layer -> ReLU]
+                 -> (num_late - 1) x [hidden -> ReLU]
               -> linear output (1 channel of raw density)
 
 The temporal field concatenates a learnable per-phase latent row
@@ -12,8 +14,14 @@ Parameter layout: the same tree as the JAX package, ``{"early": [{"w",
 kept in the ``nn.Linear`` layout ``[out, in]`` (JAX keeps ``[in, out]``);
 :func:`params_from_jax` and :func:`params_to_jax` convert. A ``fourier``
 field carries its fixed Gaussian projection as the leaf ``"fourier"``,
-drawn as JAX draws it; it is a buffer that no gradient reaches. Skip/late
-layers (``num_late_layers > 0``) are not ported yet.
+drawn as JAX draws it; it is a buffer that no gradient reaches. A field
+with ``num_late_layers > 0`` adds the leaves ``"skip"`` and ``"late"``.
+
+``compute_dtype`` ``torch.bfloat16`` (or ``"bfloat16"``) rounds every
+matmul operand to bf16 (round to nearest even) and keeps the products, the
+biases and the ReLUs in f32, as JAX's ``astype`` + ``preferred_element_type``
+does; autograd through the casts then rounds each weight's and each
+activation's gradient to bf16, as the transpose of JAX's ``astype`` does.
 """
 
 from __future__ import annotations
@@ -65,11 +73,6 @@ class FieldConfig:
         return self.encoded_features
 
 
-def _check_ported(cfg: FieldConfig) -> None:
-    if cfg.num_late_layers > 0:
-        raise NotImplementedError("skip/late layers are not ported yet")
-
-
 def _init_linear(key, fan_in: int, fan_out: int, use_bias: bool, device) -> Params:
     """Uniform(-1/sqrt(fan_in), 1/sqrt(fan_in)) weight and bias, the
     ``nn.Linear`` default, drawn as the JAX package draws them (the weight
@@ -84,14 +87,19 @@ def _init_linear(key, fan_in: int, fan_out: int, use_bias: bool, device) -> Para
 
 
 def _init_mlp(key, cfg: FieldConfig, device) -> Params:
-    _check_ported(cfg)
     keys = iter(prng.split(key, cfg.num_early_layers + cfg.num_late_layers + 3))
     f_in, width = cfg.input_features, cfg.num_filters
     early = [_init_linear(next(keys), f_in, width, cfg.use_bias, device)]
     for _ in range(cfg.num_early_layers):
         early.append(_init_linear(next(keys), width, width, cfg.use_bias, device))
-    return {"early": early,
-            "out": _init_linear(next(keys), width, cfg.num_output_channels, cfg.use_bias, device)}
+    params: Params = {"early": early}
+    if cfg.num_late_layers > 0:
+        params["skip"] = _init_linear(next(keys), width + f_in, width, cfg.use_bias, device)
+        params["late"] = [_init_linear(next(keys), width, width, cfg.use_bias, device)
+                          for _ in range(cfg.num_late_layers - 1)]
+    params["out"] = _init_linear(next(keys), width, cfg.num_output_channels, cfg.use_bias,
+                                 device)
+    return params
 
 
 def init_static_field(key, cfg: FieldConfig, device=None) -> Params:
@@ -118,17 +126,44 @@ def init_temporal_field(key, cfg: FieldConfig, device=None) -> Params:
     return params
 
 
+def torch_dtype(compute_dtype) -> torch.dtype:
+    """``compute_dtype`` (a torch dtype, its name, or None for f32) as a torch
+    dtype: float32 or bfloat16."""
+    if compute_dtype in (torch.float32, "float32", None):
+        return torch.float32
+    if compute_dtype in (torch.bfloat16, "bfloat16"):
+        return torch.bfloat16
+    raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
+
+
+def _linear(layer: Params, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """``x @ w.T + b`` with both operands rounded to ``compute_dtype``, the
+    product accumulated and the bias added in f32."""
+    w = layer["w"]
+    if compute_dtype == torch.bfloat16:
+        x, w = x.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
+    return F.linear(x, w, layer.get("b"))
+
+
 def apply_mlp(params: Params, features: torch.Tensor, cfg: FieldConfig,
-              return_intermediates: bool = False):
+              return_intermediates: bool = False, compute_dtype=torch.float32):
     """Run the MLP trunk on already-encoded features ``[..., F]``."""
-    _check_ported(cfg)
+    cd = torch_dtype(compute_dtype)
     intermediates = []
     h = features
     for layer in params["early"]:
-        h = torch.relu(F.linear(h, layer["w"], layer.get("b")))
+        h = torch.relu(_linear(layer, h, cd))
         if return_intermediates:
             intermediates.append(h)
-    out = F.linear(h, params["out"]["w"], params["out"].get("b"))
+    if cfg.num_late_layers > 0:
+        h = torch.relu(_linear(params["skip"], torch.cat([features, h], dim=-1), cd))
+        if return_intermediates:
+            intermediates.append(h)
+        for layer in params["late"]:
+            h = torch.relu(_linear(layer, h, cd))
+            if return_intermediates:
+                intermediates.append(h)
+    out = _linear(params["out"], h, cd)
     if return_intermediates:
         return out, intermediates
     return out
@@ -136,22 +171,23 @@ def apply_mlp(params: Params, features: torch.Tensor, cfg: FieldConfig,
 
 def apply_static_field(params: Params, points: torch.Tensor, cfg: FieldConfig,
                        window: Optional[torch.Tensor] = None,
-                       return_intermediates: bool = False):
+                       return_intermediates: bool = False, compute_dtype=torch.float32):
     """``points [..., 3] -> raw density [..., C_out]``."""
     enc = posenc(points, cfg.pos_enc, cfg.pos_enc_basis, window=window,
                  fourier_coefficients=params.get("fourier"))
-    return apply_mlp(params, enc, cfg, return_intermediates)
+    return apply_mlp(params, enc, cfg, return_intermediates, compute_dtype)
 
 
 def apply_temporal_field(params: Params, points: torch.Tensor, phases: torch.Tensor,
                          cfg: FieldConfig, window: Optional[torch.Tensor] = None,
-                         return_intermediates: bool = False):
+                         return_intermediates: bool = False, compute_dtype=torch.float32):
     """``points [..., 3]``, integer ``phases [...]`` -> raw density; the
     phase's latent row is concatenated to the encoded position."""
     enc = posenc(points, cfg.pos_enc, cfg.pos_enc_basis, window=window,
                  fourier_coefficients=params.get("fourier"))
     latents = params["latents"][phases.long()]
-    return apply_mlp(params, torch.cat([enc, latents], dim=-1), cfg, return_intermediates)
+    return apply_mlp(params, torch.cat([enc, latents], dim=-1), cfg, return_intermediates,
+                     compute_dtype)
 
 
 def _map_tree(tree, leaf_fn):

@@ -27,8 +27,20 @@ Entries, each with its plain twin:
     K1 and K2 (``NF == 1`` in the source: half the CTAs of a composite
     launch, the gradient the static block alone).
 
-Dispatch: CPU tensors take the plain twin (encode + MLP in torch, gradients
-from autograd); CUDA tensors launch the kernels or raise. The kernels are
+bf16 compute (``compute_dtype="bfloat16"``, ``nerfca_tpu/ops/pallas/
+fused_field.py:709,730-738,793``): the kernels' BF16 instantiations round
+every matmul operand (weights, encoding, latents, each hidden ``h``) to
+bf16 at the fragment load and run one bf16 ``mma.sync.m16n8k16`` product
+per MAC into f32; biases, ReLUs and the output stay f32, and every
+gradient leaves in f32 with the JAX kernel's cast points (``_field_bwd``).
+The weights stay f32 in memory: the kernels convert, so there is no copy
+per step. K3 also launches K2 over bf16 residual storage
+(``fused_field_bwd(..., res_bf16=True)``, f32 products).
+
+Dispatch: CPU tensors take the plain twin (:func:`twin_composite_fields_rays`
+and its kin: encode + MLP in torch; in f32 the plain fields with autograd,
+in bf16 :class:`_TwinMLP`, whose backward follows the JAX kernel's cast
+points); CUDA tensors launch the kernels or raise. The kernels are
 built with ``nvcc`` into ``build/kernels/`` at first use (a plain C
 interface loaded with ``ctypes``; see ``build.py``).
 
@@ -41,8 +53,10 @@ launch the kernels' FOURIER instantiation when a field is fourier.
 
 Launch counts: ``LAUNCHES["fused_field_fwd"]`` / ``["fused_field_bwd"]``
 (two fields) and ``["fused_static_field_fwd"]`` /
-``["fused_static_field_bwd"]`` (one field) grow by one at each kernel
-launch and nowhere else.
+``["fused_static_field_bwd"]`` (one field) grow by one at each launch of
+the f32 instantiations and nowhere else; the same names with ``_bf16``
+count the bf16 ones, and ``["fused_field_bwd_res_bf16"]`` K2 over bf16
+residuals.
 """
 
 from __future__ import annotations
@@ -54,10 +68,13 @@ import torch
 
 from nerfca_tpu_torch.models.fields import (
     FieldConfig,
+    apply_mlp,
     apply_static_field,
     apply_temporal_field,
+    torch_dtype,
 )
 from nerfca_tpu_torch.ops.cuda import build
+from nerfca_tpu_torch.ops.encoding import posenc
 
 WIDTH = 128
 ROW_STRIDE = 140  # LDH in the source
@@ -67,8 +84,15 @@ MAX_LAT = 8
 MAX_PHASES = 16
 BWD_CTAS = 132  # fixed so the gradient reduction order never depends on the card
 
+# the C entries' modes: f32 products (3xTF32), bf16 products, and (K2 with
+# two fields) f32 products over bf16 residual storage
+MODE_F32, MODE_BF16, MODE_RES_BF16 = 0, 1, 2
+_SUFFIX = {MODE_F32: "", MODE_BF16: "_bf16", MODE_RES_BF16: "_res_bf16"}
+
 LAUNCHES = {"fused_field_fwd": 0, "fused_field_bwd": 0, "fused_static_field_fwd": 0,
-            "fused_static_field_bwd": 0}
+            "fused_static_field_bwd": 0, "fused_field_fwd_bf16": 0, "fused_field_bwd_bf16": 0,
+            "fused_static_field_fwd_bf16": 0, "fused_static_field_bwd_bf16": 0,
+            "fused_field_bwd_res_bf16": 0}
 
 
 def reset_launch_counts() -> None:
@@ -92,6 +116,10 @@ def kernel_supported(cfg: FieldConfig) -> bool:
     )
 
 
+def is_bf16(compute_dtype) -> bool:
+    return torch_dtype(compute_dtype) == torch.bfloat16
+
+
 def enc_table(params, cfg: FieldConfig, window):
     """What a field's encoding reads besides the points: its projection for
     ``'fourier'`` (the window is then unused, as in JAX), else its window."""
@@ -108,27 +136,140 @@ def _points(origins, directions, z):
 
 
 def plain_composite_fields_rays(params_s, params_t, origins, directions, z, ray_phases,
-                                cfg_s: FieldConfig, cfg_t: FieldConfig, window_s, window_t):
-    """Encode + both MLPs in torch: ``[R, S, 1]`` raw densities per field."""
+                                cfg_s: FieldConfig, cfg_t: FieldConfig, window_s, window_t,
+                                compute_dtype="float32"):
+    """Encode + both MLPs in torch (the plain fields, autograd through them):
+    ``[R, S, 1]`` raw densities per field."""
     pts = _points(origins, directions, z)
     phases = ray_phases.long()[:, None].expand(pts.shape[:2])
-    raw_s = apply_static_field(params_s, pts, cfg_s, window=window_s)
-    raw_t = apply_temporal_field(params_t, pts, phases, cfg_t, window=window_t)
-    return raw_s, raw_t
+    return plain_composite_fields(params_s, params_t, pts, phases, cfg_s, cfg_t, window_s,
+                                  window_t, compute_dtype)
 
 
 def plain_composite_fields(params_s, params_t, points, point_phases, cfg_s: FieldConfig,
-                           cfg_t: FieldConfig, window_s, window_t):
+                           cfg_t: FieldConfig, window_s, window_t, compute_dtype="float32"):
     """Point form in torch: ``points [R, S, 3]``, integer ``point_phases
     [R, S]`` -> two ``[R, S, 1]`` raw-density tensors."""
-    raw_s = apply_static_field(params_s, points, cfg_s, window=window_s)
-    raw_t = apply_temporal_field(params_t, points, point_phases.long(), cfg_t, window=window_t)
+    raw_s = apply_static_field(params_s, points, cfg_s, window=window_s,
+                               compute_dtype=compute_dtype)
+    raw_t = apply_temporal_field(params_t, points, point_phases.long(), cfg_t, window=window_t,
+                                 compute_dtype=compute_dtype)
     return raw_s, raw_t
 
 
-def plain_static_field(params, points, cfg: FieldConfig, window):
+def plain_static_field(params, points, cfg: FieldConfig, window, compute_dtype="float32"):
     """The static field in torch: ``points [R, S, 3] -> [R, S, 1]``."""
-    return apply_static_field(params, points, cfg, window=window)
+    return apply_static_field(params, points, cfg, window=window, compute_dtype=compute_dtype)
+
+
+# The kernels' twins: in f32 the plain fields above; in bf16 (or over bf16
+# residuals) the same forward with the backward of the JAX kernel
+# (``nerfca_tpu/ops/pallas/fused_field.py::_field_bwd``), whose cast points
+# differ from autograd through the plain bf16 fields: it returns f32 weight
+# gradients (autograd rounds them to bf16) and casts g, dpre and h to bf16
+# at each product.
+
+
+def _round(x: torch.Tensor, on: bool) -> torch.Tensor:
+    return x.to(torch.bfloat16).float() if on else x
+
+
+class _TwinMLP(torch.autograd.Function):
+    """One field's MLP on ``[..., k0]`` features (the encoding, then the
+    latents) with the JAX kernel's backward. ``bf16``: bf16 operands at
+    every product, forward and backward. ``res_bf16`` (f32 products): the
+    stored post-ReLU activations are rounded to bf16 before the backward
+    reads them (ReLU masks, dW and dwo operands), as the JAX K3 stores its
+    residuals; the forward is the f32 one, bit for bit. Gradients flow to
+    the leaves (``_leaves`` order) and to ``lat``; ``enc`` is constant."""
+
+    @staticmethod
+    def forward(ctx, cfg, bf16, res_bf16, enc, lat, *leaves):
+        feats = enc if lat is None else torch.cat([enc, lat], -1)
+        n_layers = len(leaves) // 2 - 1
+        params = {"early": [{"w": leaves[2 * i], "b": leaves[2 * i + 1]}
+                            for i in range(n_layers)],
+                  "out": {"w": leaves[-2], "b": leaves[-1]}}
+        out, hs = apply_mlp(params, feats, cfg, return_intermediates=True,
+                            compute_dtype=torch.bfloat16 if bf16 else torch.float32)
+        ctx.flags = (bf16, res_bf16, enc.shape[-1], None if lat is None else lat.shape)
+        ctx.save_for_backward(feats, *hs, *leaves)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        bf16, res_bf16, n_enc, lat_shape = ctx.flags
+        feats, *rest = ctx.saved_tensors
+        n_layers = len(rest) // 3
+        hs, leaves = rest[:n_layers], rest[n_layers:]
+        rc = lambda x: _round(x, bf16)  # noqa: E731 - a product operand
+        k0 = feats.shape[-1]
+        feats, g = feats.reshape(-1, k0), g.reshape(-1, 1)
+        hs = [_round(h.reshape(-1, h.shape[-1]), res_bf16) for h in hs]  # the stored residuals
+        ws = leaves[0:-2:2]
+        grads = [None] * len(leaves)
+        grads[-2] = rc(g).t() @ rc(hs[-1])
+        grads[-1] = g.sum(0)
+        dh = rc(leaves[-2]) * rc(g)
+        for l in range(n_layers - 1, -1, -1):
+            dpre = dh * (hs[l] > 0)
+            grads[2 * l] = rc(dpre).t() @ rc(feats if l == 0 else hs[l - 1])
+            grads[2 * l + 1] = dpre.sum(0)
+            if l > 0:
+                dh = rc(dpre) @ rc(ws[l])
+        d_lat = None
+        if lat_shape is not None and ctx.needs_input_grad[4]:
+            d_lat = (rc(dpre) @ rc(ws[0][:, n_enc:])).reshape(lat_shape)
+        return (None, None, None, None, d_lat, *grads)
+
+
+def _twin_field(params, enc, lat, cfg: FieldConfig, bf16: bool, res_bf16: bool):
+    if cfg.num_late_layers:
+        raise NotImplementedError("skip/late layers lie outside the field kernels' envelope")
+    return _TwinMLP.apply(cfg, bf16, res_bf16, enc, lat, *_leaves(params))
+
+
+def twin_composite_fields(params_s, params_t, points, point_phases, cfg_s: FieldConfig,
+                          cfg_t: FieldConfig, window_s, window_t, compute_dtype="float32",
+                          res_bf16: bool = False, hand_backward: bool = False):
+    """The kernels' twin in the point form: :func:`plain_composite_fields`
+    in f32; with bf16 compute (or ``res_bf16``) the same forward with the
+    JAX kernel's backward (:class:`_TwinMLP`). ``hand_backward`` takes that
+    backward in f32 too: the same sums as the ``res_bf16`` twin's but for
+    the rounding, the reference that its change is read against."""
+    bf16 = is_bf16(compute_dtype)
+    if not (bf16 or res_bf16 or hand_backward):
+        return plain_composite_fields(params_s, params_t, points, point_phases, cfg_s, cfg_t,
+                                      window_s, window_t)
+    enc_s = posenc(points, cfg_s.pos_enc, cfg_s.pos_enc_basis, window=window_s,
+                   fourier_coefficients=params_s.get("fourier"))
+    enc_t = posenc(points, cfg_t.pos_enc, cfg_t.pos_enc_basis, window=window_t,
+                   fourier_coefficients=params_t.get("fourier"))
+    lat = params_t["latents"][point_phases.long()]
+    return (_twin_field(params_s, enc_s, None, cfg_s, bf16, res_bf16),
+            _twin_field(params_t, enc_t, lat, cfg_t, bf16, res_bf16))
+
+
+def twin_composite_fields_rays(params_s, params_t, origins, directions, z, ray_phases,
+                               cfg_s: FieldConfig, cfg_t: FieldConfig, window_s, window_t,
+                               compute_dtype="float32", res_bf16: bool = False,
+                               hand_backward: bool = False):
+    """The kernels' twin in the ray form (:func:`twin_composite_fields` on
+    the rays' points)."""
+    pts = _points(origins, directions, z)
+    phases = ray_phases.long()[:, None].expand(pts.shape[:2])
+    return twin_composite_fields(params_s, params_t, pts, phases, cfg_s, cfg_t, window_s,
+                                 window_t, compute_dtype, res_bf16, hand_backward)
+
+
+def twin_static_field(params, points, cfg: FieldConfig, window, compute_dtype="float32"):
+    """The one-field kernels' twin: :func:`plain_static_field` in f32, else
+    :class:`_TwinMLP` on the static field."""
+    if not is_bf16(compute_dtype):
+        return plain_static_field(params, points, cfg, window)
+    enc = posenc(points, cfg.pos_enc, cfg.pos_enc_basis, window=window,
+                 fourier_coefficients=params.get("fourier"))
+    return _twin_field(params, enc, None, cfg, True, False)
 
 
 # ---------------------------------------------------------------------------
@@ -159,12 +300,14 @@ def _lib() -> ctypes.CDLL:
         lib = build.load("fused_field")
         ptr = ctypes.POINTER
         lib.fused_field_fwd.argtypes = [ptr(FieldArgs), ptr(FieldArgs), ptr(RayArgs),
-                                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_void_p]
         lib.fused_field_fwd.restype = ctypes.c_int
         lib.fused_field_bwd.argtypes = [ptr(FieldArgs), ptr(FieldArgs), ptr(RayArgs),
                                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                         ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
-                                        ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p]
+                                        ctypes.c_long, ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_void_p]
         lib.fused_field_bwd.restype = ctypes.c_int
         lib.fused_field_grad_size.argtypes = [ptr(FieldArgs), ptr(FieldArgs), ctypes.c_int]
         lib.fused_field_grad_size.restype = ctypes.c_long
@@ -196,9 +339,11 @@ class _Pack:
     """Contiguous [in, out] weights of one field plus its FieldArgs; keeps
     the tensors alive while their pointers are in use. ``table`` is the
     field's :func:`enc_table`: its window (None: every band open) or its
-    fourier projection."""
+    fourier projection. ``bf16`` selects the kernels' bf16 instantiations;
+    the weights stay f32 and the kernels round them as they load them."""
 
-    def __init__(self, cfg: FieldConfig, leaves, table, device):
+    def __init__(self, cfg: FieldConfig, leaves, table, device, bf16: bool = False):
+        self.bf16 = bf16
         n_hidden = cfg.num_early_layers
         ws, bs = leaves[0:-2:2], leaves[1:-2:2]
         self.w0 = ws[0].detach().t().contiguous()
@@ -272,26 +417,33 @@ def _field_ptr(pack: Optional[_Pack]):
 
 def fused_field_fwd(pack_s: _Pack, pack_t: Optional[_Pack], origins, directions, z, phases,
                     latents):
-    """Launch K1: the ``[R*S]`` raw densities of the static field and of
-    the temporal field (None when ``pack_t`` is None: the one-field
-    launch)."""
+    """Launch K1 (its bf16 instantiation when ``pack_s.bf16``): the
+    ``[R*S]`` raw densities of the static field and of the temporal field
+    (None when ``pack_t`` is None: the one-field launch)."""
     n = origins.shape[0] * z.shape[-1]
     out_s = torch.empty(n, device=origins.device)
     out_t = None if pack_t is None else torch.empty(n, device=origins.device)
     rays = _ray_args(origins, directions, z, phases, latents)
-    LAUNCHES["fused_field_fwd" if pack_t is not None else "fused_static_field_fwd"] += 1
+    mode = MODE_BF16 if pack_s.bf16 else MODE_F32
+    name = "fused_field_fwd" if pack_t is not None else "fused_static_field_fwd"
+    LAUNCHES[name + _SUFFIX[mode]] += 1
     _check(_lib().fused_field_fwd(ctypes.byref(pack_s.args), _field_ptr(pack_t),
                                   ctypes.byref(rays), out_s.data_ptr(),
-                                  None if out_t is None else out_t.data_ptr(), _stream()),
+                                  None if out_t is None else out_t.data_ptr(), mode, _stream()),
            "fused_field_fwd")
     return out_s, out_t
 
 
 def fused_field_bwd(pack_s: _Pack, pack_t: Optional[_Pack], origins, directions, z, phases,
-                    latents, g_s, g_t) -> torch.Tensor:
+                    latents, g_s, g_t, res_bf16: bool = False) -> torch.Tensor:
     """Launch K2 (+ its fixed-order reduction): the flat gradient vector,
     static block then temporal block (the static block alone, and ``g_t``
-    unused, when ``pack_t`` is None)."""
+    unused, when ``pack_t`` is None). The bf16 instantiation when
+    ``pack_s.bf16``; otherwise with ``res_bf16`` (two fields) the f32 one
+    over bf16 residual storage."""
+    mode = MODE_BF16 if pack_s.bf16 else MODE_RES_BF16 if res_bf16 else MODE_F32
+    if mode == MODE_RES_BF16 and pack_t is None:
+        raise ValueError("bf16 residual storage is a two-field launch (K3's)")
     dev = origins.device
     n_phases = latents.shape[0]
     lib = _lib()
@@ -307,18 +459,21 @@ def fused_field_bwd(pack_s: _Pack, pack_t: Optional[_Pack], origins, directions,
     n_ctas = max(nf, min(BWD_CTAS, nf * n_tiles))
     n_hidden = max(p.cfg.num_early_layers for p in packs)
     # residuals of one tile: the encoded input, then the input of each hidden
-    # layer but the last (which stays in shared memory)
-    scratch_stride = BWD_TILE_POINTS * (ROW_STRIDE + max(n_hidden - 1, 0) * WIDTH)
+    # layer but the last (which stays in shared memory), as bf16 pairs over
+    # bf16 residual storage
+    per_hidden = WIDTH // 2 if mode == MODE_RES_BF16 else WIDTH
+    scratch_stride = BWD_TILE_POINTS * (ROW_STRIDE + max(n_hidden - 1, 0) * per_hidden)
     partials = torch.empty(n_ctas * size, device=dev)
     scratch = torch.empty(n_ctas * scratch_stride, device=dev)
     grads = torch.empty(size, device=dev)
     rays = _ray_args(origins, directions, z, phases, latents)
-    LAUNCHES["fused_field_bwd" if pack_t is not None else "fused_static_field_bwd"] += 1
+    LAUNCHES[("fused_field_bwd" if pack_t is not None else "fused_static_field_bwd")
+             + _SUFFIX[mode]] += 1
     _check(lib.fused_field_bwd(ctypes.byref(pack_s.args), _field_ptr(pack_t),
                                ctypes.byref(rays), g_s.data_ptr(),
                                None if g_t is None else g_t.data_ptr(), n_ctas,
                                partials.data_ptr(), size, scratch.data_ptr(), scratch_stride,
-                               grads.data_ptr(), _stream()), "fused_field_bwd")
+                               grads.data_ptr(), mode, _stream()), "fused_field_bwd")
     return grads
 
 
@@ -327,22 +482,23 @@ class FusedCompositeFields(torch.autograd.Function):
     both fields and to the latent table; the ray geometry and the encoding
     tables (windows, fourier projections) are constant. With ``cfg_t`` None
     the leaves are the static field's alone, the launch is the one-field
-    one, and the temporal output is None."""
+    one, and the temporal output is None. ``bf16``: the bf16 instantiations."""
 
     @staticmethod
-    def _packs(cfg_s, cfg_t, leaves, tables, device):
+    def _packs(cfg_s, cfg_t, leaves, tables, device, bf16):
         n_s = 2 * (cfg_s.num_early_layers + 2)
-        pack_s = _Pack(cfg_s, leaves[:n_s], tables[0], device)
-        pack_t = None if cfg_t is None else _Pack(cfg_t, leaves[n_s:], tables[1], device)
+        pack_s = _Pack(cfg_s, leaves[:n_s], tables[0], device, bf16)
+        pack_t = None if cfg_t is None else _Pack(cfg_t, leaves[n_s:], tables[1], device, bf16)
         return pack_s, pack_t
 
     @staticmethod
-    def forward(ctx, cfg_s, cfg_t, origins, directions, z, phases, table_s, table_t,
+    def forward(ctx, cfg_s, cfg_t, bf16, origins, directions, z, phases, table_s, table_t,
                 latents, *leaves):
         pack_s, pack_t = FusedCompositeFields._packs(cfg_s, cfg_t, leaves,
-                                                     (table_s, table_t), origins.device)
+                                                     (table_s, table_t), origins.device, bf16)
         out_s, out_t = fused_field_fwd(pack_s, pack_t, origins, directions, z, phases,
                                        latents.detach())
+        ctx.bf16 = bf16
         ctx.cfgs = (cfg_s, cfg_t)
         ctx.tables = (table_s, table_t)
         ctx.save_for_backward(origins, directions, z, phases, latents, *leaves)
@@ -352,7 +508,7 @@ class FusedCompositeFields(torch.autograd.Function):
     def backward(ctx, g_s, g_t):
         origins, directions, z, phases, latents, *leaves = ctx.saved_tensors
         pack_s, pack_t = FusedCompositeFields._packs(*ctx.cfgs, leaves, ctx.tables,
-                                                     origins.device)
+                                                     origins.device, ctx.bf16)
         flat = fused_field_bwd(pack_s, pack_t, origins, directions, z, phases,
                                latents.detach(), g_s.contiguous(),
                                None if pack_t is None else g_t.contiguous())
@@ -362,7 +518,8 @@ class FusedCompositeFields(torch.autograd.Function):
         grads_t, d_lat = [], None
         if pack_t is not None:
             grads_t, d_lat = pack_t.leaf_grads(flat[size_s:], n_phases)
-        return (None, None, None, None, None, None, None, None, d_lat, *grads_s, *grads_t)
+        return (None, None, None, None, None, None, None, None, None, d_lat, *grads_s,
+                *grads_t)
 
 
 def _leaf_shapes(cfg: FieldConfig) -> list:
@@ -423,23 +580,27 @@ def _check_inputs(params_s, params_t, origins, directions, z, cfg_s, cfg_t, wind
 
 
 def fused_composite_fields_rays(params_s, params_t, origins, directions, z, ray_phases,
-                                cfg_s: FieldConfig, cfg_t: FieldConfig, window_s, window_t):
+                                cfg_s: FieldConfig, cfg_t: FieldConfig, window_s, window_t,
+                                compute_dtype="float32"):
     """Ray-form entry: ``origins/directions [R, 3]``, depths ``z`` as the
     shared ``[S]`` or per-ray ``[R, S]``, integer ``ray_phases [R]`` -> two
     ``[R, S, 1]`` raw-density tensors, differentiable w.r.t. both parameter
-    dicts. CPU tensors take the plain version; CUDA tensors the kernels."""
+    dicts; ``compute_dtype`` ``"bfloat16"`` for bf16 products. CPU tensors
+    take the twin (:func:`twin_composite_fields_rays`); CUDA tensors the
+    kernels."""
     if origins.device.type == "cpu":
-        return plain_composite_fields_rays(params_s, params_t, origins, directions, z,
-                                           ray_phases, cfg_s, cfg_t, window_s, window_t)
+        return twin_composite_fields_rays(params_s, params_t, origins, directions, z,
+                                          ray_phases, cfg_s, cfg_t, window_s, window_t,
+                                          compute_dtype)
     if origins.device.type != "cuda":
         raise ValueError(f"no field kernel for device {origins.device}")
     _check_inputs(params_s, params_t, origins, directions, z, cfg_s, cfg_t, (window_s, window_t))
     phases = ray_phases.to(device=origins.device, dtype=torch.int32).contiguous()
     r, s = origins.shape[0], z.shape[-1]
     out_s, out_t = FusedCompositeFields.apply(
-        cfg_s, cfg_t, origins, directions, z, phases, enc_table(params_s, cfg_s, window_s),
-        enc_table(params_t, cfg_t, window_t), params_t["latents"], *_leaves(params_s),
-        *_leaves(params_t),
+        cfg_s, cfg_t, is_bf16(compute_dtype), origins, directions, z, phases,
+        enc_table(params_s, cfg_s, window_s), enc_table(params_t, cfg_t, window_t),
+        params_t["latents"], *_leaves(params_s), *_leaves(params_t),
     )
     return out_s.view(r, s, 1), out_t.view(r, s, 1)
 
@@ -463,16 +624,16 @@ def _check_points(points) -> None:
 
 
 def fused_composite_fields(params_s, params_t, points, point_phases, cfg_s: FieldConfig,
-                           cfg_t: FieldConfig, window_s, window_t):
+                           cfg_t: FieldConfig, window_s, window_t, compute_dtype="float32"):
     """Point-form entry: ``points [R, S, 3]`` and integer ``point_phases
     [R, S]`` -> two ``[R, S, 1]`` raw-density tensors, differentiable
     w.r.t. both parameter dicts (not the points). CPU tensors take
-    :func:`plain_composite_fields`; CUDA tensors the kernels, over the
+    :func:`twin_composite_fields`; CUDA tensors the kernels, over the
     points as ``R*S`` rays of one sample. Prefer the ray form where the
     points lie on rays: it never materializes them."""
     if points.device.type == "cpu":
-        return plain_composite_fields(params_s, params_t, points, point_phases, cfg_s, cfg_t,
-                                      window_s, window_t)
+        return twin_composite_fields(params_s, params_t, points, point_phases, cfg_s, cfg_t,
+                                     window_s, window_t, compute_dtype)
     if points.device.type != "cuda":
         raise ValueError(f"no field kernel for device {points.device}")
     _check_points(points)
@@ -484,21 +645,21 @@ def fused_composite_fields(params_s, params_t, points, point_phases, cfg_s: Fiel
     _check_inputs(params_s, params_t, origins, directions, z, cfg_s, cfg_t, (window_s, window_t))
     phases = point_phases.to(device=points.device, dtype=torch.int32).reshape(-1).contiguous()
     out_s, out_t = FusedCompositeFields.apply(
-        cfg_s, cfg_t, origins, directions, z, phases, enc_table(params_s, cfg_s, window_s),
-        enc_table(params_t, cfg_t, window_t), params_t["latents"], *_leaves(params_s),
-        *_leaves(params_t),
+        cfg_s, cfg_t, is_bf16(compute_dtype), origins, directions, z, phases,
+        enc_table(params_s, cfg_s, window_s), enc_table(params_t, cfg_t, window_t),
+        params_t["latents"], *_leaves(params_s), *_leaves(params_t),
     )
     return out_s.view(r, s, 1), out_t.view(r, s, 1)
 
 
-def fused_static_field(params, points, cfg: FieldConfig, window):
+def fused_static_field(params, points, cfg: FieldConfig, window, compute_dtype="float32"):
     """The static method's field: ``points [R, S, 3] -> [R, S, 1]``,
     differentiable w.r.t. ``params``. CPU tensors take
-    :func:`plain_static_field`; CUDA tensors the one-field K1/K2 over the
+    :func:`twin_static_field`; CUDA tensors the one-field K1/K2 over the
     points as ``R*S`` rays of one sample (the point form with no temporal
     field, where the JAX entry runs a zero dummy one)."""
     if points.device.type == "cpu":
-        return plain_static_field(params, points, cfg, window)
+        return twin_static_field(params, points, cfg, window, compute_dtype)
     if points.device.type != "cuda":
         raise ValueError(f"no field kernel for device {points.device}")
     _check_points(points)
@@ -510,7 +671,8 @@ def fused_static_field(params, points, cfg: FieldConfig, window):
     # every point takes phase 0 of a one-row table that is never read
     phases = torch.zeros(r * s, dtype=torch.int32, device=dev)
     latents = torch.zeros(1, MAX_LAT, device=dev)
-    out_s, _ = FusedCompositeFields.apply(cfg, None, origins, directions, z, phases,
+    out_s, _ = FusedCompositeFields.apply(cfg, None, is_bf16(compute_dtype), origins,
+                                          directions, z, phases,
                                           enc_table(params, cfg, window), None, latents,
                                           *_leaves(params))
     return out_s.view(r, s, 1)

@@ -18,6 +18,15 @@ gradient. On the card it runs in three launches:
 3. K2 (``fused_field_bwd``) backpropagates those cotangents into every
    weight gradient and the latent-table gradient.
 
+``hp.compute_dtype == "bfloat16"`` launches K1 and K2's bf16
+instantiations (bf16 products, f32 gradients, the JAX kernel's cast
+points); ``hp.pallas_bf16_residuals`` (``fused_train.py:562``) launches
+K2 over bf16 residual storage: the stored post-ReLU activations are
+rounded to bf16 while the forward and the loss stay f32, so the loss and
+the terms are the f32 ones bit for bit. Under bf16 compute the residual
+option changes nothing (the products already round every operand), as in
+JAX.
+
 The TPU kernel differentiates its loss with an in-kernel ``jax.vjp``;
 here the cotangent is derived by hand (:func:`loss_cotangents_plain`
 writes the same math as tensor ops, and the CPU tests hold it against
@@ -273,16 +282,26 @@ def _results(terms, grads_s, grads_t) -> tuple:
     return terms[T_LOSS], _term_dict(terms), grads_s, grads_t
 
 
+def _precision(hp) -> tuple:
+    """``(bf16 products, bf16 residual storage)`` of a step; the residual
+    option is moot under bf16 products."""
+    bf16 = ff.is_bf16(hp.compute_dtype)
+    return bf16, hp.pallas_bf16_residuals and not bf16
+
+
 def _plain_terms_grads(params_s, params_t, origins, directions, z, ray_phases, pixels, weights,
                        initial_intensities, cfg_s: FieldConfig, cfg_t: FieldConfig, window_s,
                        window_t, loss_weights_vec, hp, total_rays: Optional[int] = None,
                        hull=None):
     """The plain version's ``(terms [16], flat grads, unpack)``: the
     gradients in ``_leaves`` order (the latent table last) concatenated,
-    and ``unpack(flat) -> (grads_s, grads_t)``."""
+    and ``unpack(flat) -> (grads_s, grads_t)``. The fields are the kernels'
+    twin (``fused_field.twin_composite_fields_rays``) under the step's
+    compute dtype and residual storage."""
     ts, tt, leaves = _param_trees(params_s, params_t)
-    raw_s, raw_t = ff.plain_composite_fields_rays(ts, tt, origins, directions, z, ray_phases,
-                                                  cfg_s, cfg_t, window_s, window_t)
+    raw_s, raw_t = ff.twin_composite_fields_rays(ts, tt, origins, directions, z, ray_phases,
+                                                 cfg_s, cfg_t, window_s, window_t,
+                                                 hp.compute_dtype, _precision(hp)[1])
     raw_s, raw_t = raw_s[..., 0], raw_t[..., 0]
     gate = hull_gate_rays(hull, origins, directions, z) if hull is not None else None
     terms, g_s, g_t = loss_cotangents_plain(
@@ -428,8 +447,11 @@ def _terms_grads(params_s, params_t, origins, directions, z, ray_phases, pixels,
     dev = origins.device
     phases = ray_phases.to(device=dev, dtype=torch.int32).contiguous()
     latents = params_t["latents"].detach()
-    pack_s = ff._Pack(cfg_s, ff._leaves(params_s), ff.enc_table(params_s, cfg_s, window_s), dev)
-    pack_t = ff._Pack(cfg_t, ff._leaves(params_t), ff.enc_table(params_t, cfg_t, window_t), dev)
+    bf16, res_bf16 = _precision(hp)
+    pack_s = ff._Pack(cfg_s, ff._leaves(params_s), ff.enc_table(params_s, cfg_s, window_s), dev,
+                      bf16)
+    pack_t = ff._Pack(cfg_t, ff._leaves(params_t), ff.enc_table(params_t, cfg_t, window_t), dev,
+                      bf16)
     gate = None
     if hull is not None:
         gate = hull_gate_rays(hull, origins, directions, z).contiguous()
@@ -438,7 +460,8 @@ def _terms_grads(params_s, params_t, origins, directions, z, ray_phases, pixels,
                       total_rays if total_rays is not None else r, s)
     raw_s, raw_t = ff.fused_field_fwd(pack_s, pack_t, origins, directions, z, phases, latents)
     terms, g_s, g_t = fused_train_loss(raw_s, raw_t, z, largs)
-    flat = ff.fused_field_bwd(pack_s, pack_t, origins, directions, z, phases, latents, g_s, g_t)
+    flat = ff.fused_field_bwd(pack_s, pack_t, origins, directions, z, phases, latents, g_s, g_t,
+                              res_bf16=res_bf16)
     n_phases = latents.shape[0]
     size_s = pack_s.grad_layout(n_phases)["size"]
 

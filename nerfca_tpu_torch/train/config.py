@@ -117,9 +117,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr_decay_steps", type=int, default=100000)
     p.add_argument("--weight_decay", type=float, default=0.0,
                    help="decoupled AdamW decay on MLP weight matrices "
-                        "only (framework extension, default off = "
-                        "exact reference Adam); counters 4-view "
-                        "memorization once the encoding window opens")
+                        "only (the w leaves; biases and latents exempt), "
+                        "as optax.adamw with the JAX package's mask "
+                        "(framework extension, default off = exact "
+                        "reference Adam); counters 4-view memorization "
+                        "once the encoding window opens")
 
     p.add_argument("--sample_mode", type=str, default="pixel")
     p.add_argument("--sample_weights_name", type=str, default=None)
@@ -203,7 +205,10 @@ def build_parser() -> argparse.ArgumentParser:
 
     # --- framework extensions (absent in the reference) ---
     p.add_argument("--compute_dtype", type=str, default="float32",
-                   help="matmul dtype for field MLPs: float32 | bfloat16")
+                   help="matmul dtype for field MLPs: float32 | bfloat16 "
+                        "(bf16 operands, f32 sums; the kernels' bf16 "
+                        "mma.sync with --use_pallas, except the static "
+                        "method's kernel branch, which stays f32 as in JAX)")
     p.add_argument("--mesh_shape", type=str, default=None,
                    help="accepted for config compatibility: the CLIs train on one card "
                         "and the port ignores it, as the JAX package does; data "
@@ -233,8 +238,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pallas_vmem_mb", type=int, default=0,
                    help="accepted for config compatibility (TPU knob)")
     p.add_argument("--pallas_bf16_residuals", type=_bool, default=False,
-                   help="bf16 residual storage in the fused-loss step; not "
-                        "ported yet: true raises NotImplementedError")
+                   help="bf16 residual storage in the fused-loss step: K2 "
+                        "stores the post-ReLU activations as bf16 (half the "
+                        "scratch) while the forward and the loss stay f32; "
+                        "no effect under --compute_dtype bfloat16")
     p.add_argument("--steps_per_chunk", type=int, default=None,
                    help="train steps between metric read-backs "
                         "(default 100, clamped to divide display_every)")

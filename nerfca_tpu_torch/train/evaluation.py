@@ -31,8 +31,10 @@ def render_test_view(params, test_origins, test_directions, test_phases, depth_v
                      step: int, cfgs: dict, hp: CompositeHParams, initial_intensity: float,
                      tile: int = 4096, hull=None) -> dict:
     """Render one full test view; per-pixel composite and decomposed
-    intensity maps plus the scaled sigmas and dists. ``hull``: optional
-    ``MotionHull`` gating the dynamic density exactly as in training."""
+    intensity maps plus the scaled sigmas and dists, the fields under
+    ``hp.compute_dtype`` (``nerfca_tpu/train/evaluation.py:80``). ``hull``:
+    optional ``MotionHull`` gating the dynamic density exactly as in
+    training."""
     dev = test_origins.device
     windows = {k: field_window(cfgs[k], step, dev) for k in ("static", "temp")}
     s_parts, t_parts, g_parts = [], [], []
@@ -68,13 +70,14 @@ def render_static_test_view(params, test_origins, test_directions, depth_values,
     the dists. The JAX package renders it through its composite renderer
     beside a zero temporal field, on the plain path (its hyperparameters
     there leave ``use_pallas`` off), and scores ``pix_static``, which that
-    field does not enter; this renders the static field alone, plain."""
+    field does not enter; this renders the static field alone, plain, under
+    ``hp.compute_dtype`` (``nerfca_tpu/train/evaluation.py:261``)."""
     window = field_window(cfg, step, test_origins.device)
     parts = []
     for start in range(0, test_origins.shape[0], tile):
         o, d = test_origins[start:start + tile], test_directions[start:start + tile]
         pts = o[:, None, :] + d[:, None, :] * depth_values[:, None]
-        parts.append(plain_static_field(params["static"], pts, cfg, window)[..., 0])
+        parts.append(plain_static_field(params["static"], pts, cfg, window, hp.dtype)[..., 0])
     raw = torch.cat(parts)
     i0 = torch.full((raw.shape[0],), initial_intensity, device=test_origins.device)
     pix, sigma, dists = render_transmission(raw[..., None], i0, depth_values,

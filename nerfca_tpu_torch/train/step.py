@@ -27,8 +27,10 @@ The static step (:func:`make_static_train_step`, the ``run_nerf`` method)
 evaluates one field on the batch's materialized points, through the
 one-field K1/K2 with ``use_pallas`` (:func:`static_loss_fn`), and takes the
 pixel loss plus the occlusion loss; it draws three keys a step
-(:func:`static_step_draws`). Not ported yet: the fine pass, bf16 compute
-and residuals, and AdamW decay.
+(:func:`static_step_draws`). As in JAX, the static step's kernel branch
+runs in f32 whatever ``compute_dtype`` says (``nerfca_tpu/train/
+step.py:843`` passes no dtype to ``fused_static_field``); its plain branch
+takes ``compute_dtype``. Not ported yet: the fine pass.
 """
 
 from __future__ import annotations
@@ -41,7 +43,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from nerfca_tpu_torch.models.fields import FieldConfig, params_from_jax, params_to_jax
+from nerfca_tpu_torch.models.fields import (
+    FieldConfig, params_from_jax, params_to_jax, torch_dtype,
+)
 from nerfca_tpu_torch.ops.cuda.fused_field import (
     fused_composite_fields,
     fused_composite_fields_rays,
@@ -106,7 +110,14 @@ class CompositeHParams:
     ray_jitter: float = 0.0
     use_pallas: bool = False
     use_fused_loss: bool = False
+    # the fused-loss step stores its post-ReLU residuals in bf16 (K2 over
+    # bf16 scratch); the forward and the loss stay f32
     pallas_bf16_residuals: bool = False
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The plain fields' matmul dtype (``compute_dtype`` as a torch dtype)."""
+        return torch_dtype(self.compute_dtype)
 
 
 def field_window(cfg: FieldConfig, step: int, device=None) -> Optional[torch.Tensor]:
@@ -286,10 +297,14 @@ def along_ray_tv(sigma):
 def evaluate_fields(params, origins, directions, depth_values, phases, windows, cfgs,
                     hp: CompositeHParams):
     """Both fields' raw densities ``[R, S, 1]``: the CUDA kernels with
-    ``use_pallas`` (plain torch on CPU tensors), plain torch otherwise."""
-    fn = fused_composite_fields_rays if hp.use_pallas else plain_composite_fields_rays
+    ``use_pallas`` (their twin on CPU tensors) under ``hp.compute_dtype``,
+    the plain fields under ``hp.dtype`` otherwise."""
+    if hp.use_pallas:
+        fn, dtype = fused_composite_fields_rays, hp.compute_dtype
+    else:
+        fn, dtype = plain_composite_fields_rays, hp.dtype
     return fn(params["static"], params["temp"], origins, directions, depth_values, phases,
-              cfgs["static"], cfgs["temp"], windows["static"], windows["temp"])
+              cfgs["static"], cfgs["temp"], windows["static"], windows["temp"], dtype)
 
 
 def evaluate_composite(params, points, point_phases, cfgs: dict, windows,
@@ -299,10 +314,12 @@ def evaluate_composite(params, points, point_phases, cfgs: dict, windows,
     ``use_pallas`` when both configs of the pair ``suffix`` names lie in
     the envelope, plain torch otherwise."""
     cfg_s, cfg_t = cfgs["static" + suffix], cfgs["temp" + suffix]
-    use_kernels = hp.use_pallas and kernel_supported(cfg_s) and kernel_supported(cfg_t)
-    fn = fused_composite_fields if use_kernels else plain_composite_fields
+    if hp.use_pallas and kernel_supported(cfg_s) and kernel_supported(cfg_t):
+        fn, dtype = fused_composite_fields, hp.compute_dtype
+    else:
+        fn, dtype = plain_composite_fields, hp.dtype
     return fn(params["static" + suffix], params["temp" + suffix], points, point_phases, cfg_s,
-              cfg_t, windows["static"], windows["temp"])
+              cfg_t, windows["static"], windows["temp"], dtype)
 
 
 def composite_forward(params, batch, depth_values, windows, cfgs, hp: CompositeHParams,
@@ -392,7 +409,7 @@ def param_items(params) -> list:
     """``(name, tensor)`` for every leaf Adam holds, in a fixed order: the
     early layers, a ``fourier`` field's projection (a buffer: its gradient
     is zero, so Adam leaves it as it is, as optax does), the output layer,
-    the latent table."""
+    the latent table, then a field's skip and late layers."""
     items = []
     for group in sorted(params):
         p = params[group]
@@ -403,6 +420,10 @@ def param_items(params) -> list:
         items += [(f"{group}/out/{k}", p["out"][k]) for k in sorted(p["out"])]
         if "latents" in p:
             items.append((f"{group}/latents", p["latents"]))
+        if "skip" in p:
+            items += [(f"{group}/skip/{k}", p["skip"][k]) for k in sorted(p["skip"])]
+        for i, layer in enumerate(p.get("late", [])):
+            items += [(f"{group}/late/{i}/{k}", layer[k]) for k in sorted(layer)]
     return items
 
 
@@ -418,6 +439,10 @@ def params_from_leaves(params, leaves) -> dict:
         g["out"] = {k: next(it) for k in sorted(p["out"])}
         if "latents" in p:
             g["latents"] = next(it)
+        if "skip" in p:
+            g["skip"] = {k: next(it) for k in sorted(p["skip"])}
+        if "late" in p:
+            g["late"] = [{k: next(it) for k in sorted(layer)} for layer in p["late"]]
         out[group] = g
     return out
 
@@ -498,7 +523,9 @@ def _fused_loss_metrics_grads(params, batch, depth_values, step: int, cfgs,
 
 @dataclasses.dataclass(frozen=True)
 class AdamConfig:
-    """optax.adam(linear_schedule(lr, lr*end_factor, decay_steps), 0.9, 0.999, 1e-8)."""
+    """optax.adam(linear_schedule(lr, lr*end_factor, decay_steps), 0.9, 0.999, 1e-8);
+    with ``weight_decay`` optax.adamw with the same schedule and moments,
+    the decay masked to the ``w`` leaves (``nerfca_tpu/train/step.py:906-935``)."""
 
     lr: float
     lr_end_factor: float
@@ -506,6 +533,7 @@ class AdamConfig:
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    weight_decay: float = 0.0
 
     def learning_rate(self, count: int) -> float:
         """optax.linear_schedule at the pre-increment count, in float32."""
@@ -518,9 +546,15 @@ class AdamConfig:
 
 def make_optimizer(lr: float, lr_end_factor: float, lr_decay_steps: int,
                    weight_decay: float = 0.0) -> AdamConfig:
-    if weight_decay:
-        raise NotImplementedError("AdamW weight decay is not ported yet")
-    return AdamConfig(lr, lr_end_factor, lr_decay_steps)
+    """Adam with linear LR decay; ``weight_decay`` > 0 adds the decoupled
+    (AdamW) decay on the MLP weight matrices (the ``w`` leaves: biases,
+    latents and fourier projections are exempt), as JAX's optax.adamw."""
+    return AdamConfig(lr, lr_end_factor, lr_decay_steps, weight_decay=float(weight_decay))
+
+
+def is_decayed(name: str) -> bool:
+    """A leaf AdamW decays: a weight matrix (the JAX mask: a ``w`` key)."""
+    return name.rsplit("/", 1)[-1] == "w"
 
 
 def init_opt_state(params) -> dict:
@@ -561,8 +595,10 @@ def adam_update(params, opt_state: dict, grads, tx: AdamConfig, step: int,
     """One functional Adam step in place, as optax computes it: moments of
     EVERY leaf are updated, bias correction uses the incremented count, the
     LR is the schedule at the pre-increment count, and ``eps`` sits outside
-    the square root. Past ``static_freeze_step`` the static updates are
-    multiplied by 0 after the moments moved (``step.py:700-714``)."""
+    the square root; AdamW adds ``weight_decay * p`` to the update of each
+    ``w`` leaf before the LR scales it (optax's ``add_decayed_weights``).
+    Past ``static_freeze_step`` the static updates are multiplied by 0
+    after the moments moved (``step.py:700-714``)."""
     count = opt_state["count"]
     lr = tx.learning_rate(count)
     c = count + 1
@@ -575,6 +611,8 @@ def adam_update(params, opt_state: dict, grads, tx: AdamConfig, step: int,
         mu.mul_(tx.b1).add_(g, alpha=1 - tx.b1)
         nu.mul_(tx.b2).add_(g * g, alpha=1 - tx.b2)
         upd = (mu / bc1) / (torch.sqrt(nu / bc2) + tx.eps)
+        if tx.weight_decay and is_decayed(name):
+            upd = upd + tx.weight_decay * p
         gate = static_gate if name.startswith("static") else 1.0
         p.add_(upd * (-lr * gate))
     opt_state["count"] = c
@@ -611,10 +649,6 @@ def make_composite_train_step(cfgs: dict, hp: CompositeHParams, tx: AdamConfig,
     ported (ROADMAP §1 item 10) and raise."""
     if hp.depth_samples_fine > 0:
         raise NotImplementedError("the fine pass is not ported yet")
-    if hp.compute_dtype != "float32":
-        raise NotImplementedError("bf16 compute is not ported yet")
-    if hp.pallas_bf16_residuals:
-        raise NotImplementedError("bf16 residual storage is not ported yet")
     fused = hp.use_pallas and hp.use_fused_loss
     if fused and not fused_train_supported(cfgs["static"], cfgs["temp"], hp):
         warnings.warn("config outside the fused-loss kernel's envelope (coarse pass, no "
@@ -672,20 +706,28 @@ class StaticHParams:
     compute_dtype: str = "float32"
     use_pallas: bool = False
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The plain field's matmul dtype (``compute_dtype`` as a torch dtype)."""
+        return torch_dtype(self.compute_dtype)
+
 
 def static_loss_fn(params, batch, depth_values, step: int, cfg: FieldConfig,
                    hp: StaticHParams):
     """Pixel + occlusion loss of the static method and its metrics
     (``nerfca_tpu/train/step.py:830-863``). The field runs on the batch's
-    points through the one-field kernels with ``use_pallas`` (plain torch on
-    CPU tensors or outside the envelope); the occlusion term takes the
-    UNSCALED sigma of the single-field renderer, as the reference does."""
+    points through the one-field kernels with ``use_pallas`` (their twin on
+    CPU tensors), in f32 as JAX's kernel branch runs whatever
+    ``compute_dtype`` says; otherwise (or outside the envelope) the plain
+    field under ``compute_dtype``. The occlusion term takes the UNSCALED
+    sigma of the single-field renderer, as the reference does."""
     window = field_window(cfg, step, batch["origins"].device)
     pts = (batch["origins"][:, None, :]
            + batch["directions"][:, None, :] * depth_values[:, None])
-    use_kernel = hp.use_pallas and kernel_supported(cfg)
-    raw = (fused_static_field if use_kernel else plain_static_field)(
-        params["static"], pts, cfg, window)
+    if hp.use_pallas and kernel_supported(cfg):
+        raw = fused_static_field(params["static"], pts, cfg, window)
+    else:
+        raw = plain_static_field(params["static"], pts, cfg, window, hp.dtype)
     pix, sigma, dists = render_transmission(raw, batch["initial_intensities"], depth_values,
                                             hp.output_activation)
     pixel_loss = torch.mean(weighted_mse(pix, batch["pixels"], batch["weights"]))
@@ -717,8 +759,6 @@ def make_static_train_step(cfg: FieldConfig, hp: StaticHParams, tx: AdamConfig,
     hyperparameter set that carries only the batch size and the
     high-variance share; the method has no hull, no schedule of loss
     weights and no freeze gate (``hull`` is accepted and ignored)."""
-    if hp.compute_dtype != "float32":
-        raise NotImplementedError("bf16 compute is not ported yet")
     comp_hp = CompositeHParams(img_sample_size=hp.img_sample_size, nb_var_rays=hp.nb_var_rays)
 
     def train_step(state: TrainState, rays, phases, var_ids, non_var_ids, hull=None):

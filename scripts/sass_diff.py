@@ -6,16 +6,17 @@
 Compiles ``fused_field.cu`` from ``nerfca_tpu_torch/csrc`` and from
 ``--parent`` to cubins with the device flags of ``ops/cuda/build.py``
 (``sm_90a``, ``-O3``), disassembles both with ``cuobjdump -sass`` and
-compares each kernel of the parent with its counterpart here instruction by
-instruction (addresses and encodings dropped). A kernel that gained a
-template parameter is paired by its other template arguments: the parent's
-``fwd_kernel<2, 32, NF>`` and ``bwd_kernel<NF>`` (NF = 2 the composite pair,
-1 the static field) with ``fwd_kernel<2, 32, NF, false>`` and
-``bwd_kernel<NF, false>`` here, the instantiations without the fourier
-mode. Prints one JSON object (per kernel: identical or not, instruction
-counts, the first differing line; branch labels are renamed per kernel,
-since their numbers run across the whole cubin) and exits 1 when a pair
-differs. Needs ``nvcc`` and ``cuobjdump``.
+compares every kernel of the parent with its counterpart here instruction by
+instruction (addresses and encodings dropped). A kernel that gained template
+parameters since is paired by the parent's arguments followed by ``false``
+for each new one: the parent's ``fwd_kernel<2, 32, NF, FOURIER>`` and
+``bwd_kernel<NF, FOURIER>`` with ``fwd_kernel<2, 32, NF, FOURIER, false>``
+and ``bwd_kernel<NF, FOURIER, false, false>`` here (the f32 instantiations,
+without bf16 compute or bf16 residuals), and so on back to the older names.
+Prints one JSON object (per kernel: identical or not, instruction counts,
+the first differing line; branch labels are renamed per kernel, since their
+numbers run across the whole cubin) and exits 1 when a pair differs or a
+parent kernel has no counterpart. Needs ``nvcc`` and ``cuobjdump``.
 """
 
 from __future__ import annotations
@@ -31,12 +32,8 @@ import tempfile
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "nerfca_tpu_torch", "csrc")
 CUDA_BIN = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin")
-# (kernel in the parent, its counterpart here), as demangled names
-PAIRS = [("void fwd_kernel<2, 32, 2>(", "void fwd_kernel<2, 32, 2, false>("),
-         ("void fwd_kernel<2, 32, 1>(", "void fwd_kernel<2, 32, 1, false>("),
-         ("void bwd_kernel<2>(", "void bwd_kernel<2, false>("),
-         ("void bwd_kernel<1>(", "void bwd_kernel<1, false>("),
-         ("reduce_kernel(", "reduce_kernel(")]
+FAMILIES = ("fwd_kernel<", "bwd_kernel<", "reduce_kernel(")
+MAX_NEW_PARAMS = 4
 
 
 def tool(name: str) -> str:
@@ -81,11 +78,17 @@ def relabel(lines: list) -> list:
     return [re.sub(r"\.L_x_\d+", sub, line) for line in lines]
 
 
-def find(kernels: dict, prefix: str) -> str:
-    hits = [k for k in kernels if k.startswith(prefix) or k.startswith("void " + prefix)]
-    if len(hits) != 1:
-        raise RuntimeError(f"{prefix!r} matches {hits} of {sorted(kernels)}")
-    return hits[0]
+def counterpart(parent: str, kernels: dict):
+    """The kernel here that is ``parent`` with zero or more ``false``
+    template arguments appended (None if there is none)."""
+    head, sep, tail = parent.partition(">(")
+    if not sep:
+        return parent if parent in kernels else None
+    for extra in range(MAX_NEW_PARAMS + 1):
+        name = head + ", false" * extra + ">(" + tail
+        if name in kernels:
+            return name
+    return None
 
 
 def main() -> int:
@@ -96,12 +99,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         old, new = sass(args.parent, work, "parent"), sass(CSRC, work, "this")
     result, same = {"kernels_here": sorted(new)}, True
-    for p_old, p_new in PAIRS:
-        a, b = old[find(old, p_old)], new[find(new, p_new)]
+    for p_old in sorted(k for k in old if any(f in k for f in FAMILIES)):
+        p_new = counterpart(p_old, new)
+        if p_new is None:
+            result[p_old] = {"identical": False, "counterpart": None}
+            same = False
+            continue
+        a, b = old[p_old], new[p_new]
         diff = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
                     None if len(a) == len(b) else min(len(a), len(b)))
-        result[p_new.rstrip("(")] = {
-            "parent": find(old, p_old), "identical": diff is None,
+        result[p_new.split("(")[0]] = {
+            "parent": p_old, "identical": diff is None,
             "instructions": [len(a), len(b)],
             "first_difference": None if diff is None else
             [a[diff] if diff < len(a) else None, b[diff] if diff < len(b) else None]}

@@ -1,5 +1,6 @@
 """The CUDA kernels K1/K2 and K3's loss kernel against their plain PyTorch
-versions on the card. Imports torch only (the machine with the card has no JAX), so it runs
+versions on the card, and their bf16 instantiations (bf16 compute, bf16
+residual storage) against the bf16 twin. Imports torch only (the machine with the card has no JAX), so it runs
 there without this directory's conftest:
 
     python -m pytest --noconftest -o "markers=gpu: needs a CUDA device" tests/test_torch_gpu.py -q
@@ -630,3 +631,251 @@ def test_static_entry_checks_inputs(dev):
         ff.fused_static_field(params, pts[..., :2], cfg, w)
     with pytest.raises(NotImplementedError):
         ff.fused_static_field(params, pts, dataclasses.replace(cfg, num_filters=64), w)
+
+
+# bf16 compute and bf16 residual storage. The bf16 kernels take bf16
+# operands and f32 sums, as their twin does (fused_field.twin_*), so only
+# the f32 summation order, and the rare bf16 rounding of an activation it
+# flips, separate them. Each statistic of the kernel against its twin must
+# lie within BF16_GATE of the same statistic between the bf16 and the f32
+# twins on the same inputs, so that an f32 kernel cannot pass it: the mean
+# |difference| of each field's raw densities (a rounding flip moves one
+# point by up to ~2e-3 of scale and leaves the others alone: by the mean
+# the kernel sits ~1e-3 of the way to f32), and for the gradients the worst
+# leaf's max |difference| over max(its scale, 1e-2 x the largest), K2's
+# normalization (one flipped ReLU unit moves its row by ~1/sqrt(N) of
+# scale, so the gradient checks take 32,000 points: ~5e-3 against a bf16
+# gap of ~0.2).
+BF16_GATE = 0.1
+
+
+def mean_gap(a, b) -> float:
+    return float((a - b).detach().abs().mean())
+
+
+def leaf_gap(got, want) -> float:
+    top = max(float(b.abs().max()) for b in want)
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-2 * top)
+               for a, b in zip(got, want))
+
+
+def assert_bf16_forward(k_out, t_out, f_out) -> None:
+    for k, t, f in zip(k_out, t_out, f_out):
+        if t is None:
+            continue
+        assert k.shape == t.shape and torch.isfinite(k).all()
+        err, gap = mean_gap(k, t), mean_gap(t, f)
+        print(f"bf16 forward: mean |kernel - twin| {err:.3e}, mean |twin - f32 twin| {gap:.3e}")
+        assert err <= BF16_GATE * gap
+
+
+def assert_bf16_grads(k_g, t_g, f_g) -> None:
+    for a in k_g:
+        assert torch.isfinite(a).all()
+    err, gap = leaf_gap(k_g, t_g), leaf_gap(t_g, f_g)
+    print(f"bf16 gradients: worst leaf {err:.3e} of scale, bf16 vs f32 twin {gap:.3e}")
+    assert err <= BF16_GATE * gap
+
+
+def check_bf16(args, leaves, gradients=True):
+    """The bf16 K1 (and K2) against the bf16 twin: one launch each of the
+    bf16 instantiations and none of the f32 ones."""
+    with torch.no_grad():
+        ref = ff.plain_composite_fields_rays(*args)
+    gen = case_generator(args)
+    cot = [torch.randn(x.shape, generator=gen, device=x.device) for x in ref]
+    before = dict(ff.LAUNCHES)
+    if not gradients:
+        with torch.no_grad():
+            k_out = ff.fused_composite_fields_rays(*args, compute_dtype="bfloat16")
+            t_out = ff.twin_composite_fields_rays(*args, compute_dtype="bfloat16")
+        assert ff.LAUNCHES["fused_field_fwd_bf16"] == before["fused_field_fwd_bf16"] + 1
+        assert ff.LAUNCHES["fused_field_fwd"] == before["fused_field_fwd"]
+        assert_bf16_forward(k_out, t_out, ref)
+        return
+    k_out, k_g = grads(lambda *a: ff.fused_composite_fields_rays(*a, compute_dtype="bfloat16"),
+                       args, leaves, cot)
+    for name in ("fused_field_fwd", "fused_field_bwd"):
+        assert ff.LAUNCHES[name + "_bf16"] == before[name + "_bf16"] + 1
+        assert ff.LAUNCHES[name] == before[name]
+    t_out, t_g = grads(lambda *a: ff.twin_composite_fields_rays(*a, compute_dtype="bfloat16"),
+                       args, leaves, cot)
+    f_out, f_g = grads(ff.plain_composite_fields_rays, args, leaves, cot)
+    assert_bf16_forward(k_out, t_out, f_out)
+    assert_bf16_grads(k_g, t_g, f_g)
+    return k_out, k_g, cot
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("enc,basis,layers", [("free_windowed", 12, 4), ("fourier", 12, 4),
+                                              ("free_windowed", 20, 2), ("none", 0, 1)])
+def test_bf16_kernels_match_twin(dev, enc, basis, layers):
+    # the flagship fields, fourier, and basis 20: the temporal field's
+    # 131-column input layer, whose last 16-deep step runs past the
+    # 140-float row (its upper half reads as zero)
+    check_bf16(*make(dev, r=64, s=500, enc=enc, basis=basis, layers=layers))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared_z", [False, True])
+@pytest.mark.parametrize("r,s", [(3, 33), (3, 43), (5, 51), (37, 100), (2, 50)])
+def test_bf16_forward_at_tile_edges(dev, shared_z, r, s):
+    check_bf16(*make(dev, r=r, s=s, shared_z=shared_z), gradients=False)
+
+
+@pytest.mark.gpu
+def test_bf16_kernels_are_deterministic(dev):
+    args, leaves = make(dev, r=64, s=500)
+    out, g, cot = check_bf16(args, leaves)
+    again, g2 = grads(lambda *a: ff.fused_composite_fields_rays(*a, compute_dtype="bfloat16"),
+                      args, leaves, cot)
+    for a, b in zip((*out, *g), (*again, *g2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("enc", ["free_windowed", "fourier"])
+def test_bf16_static_field_matches_twin(dev, enc):
+    params, pts, cfg, w, leaves = static_points(dev, 64, 500, enc=enc)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cot = torch.randn(*pts.shape[:2], 1, generator=gen, device=dev)
+    before = dict(ff.LAUNCHES)
+    outs, gs = [], []
+    for fn, cd in ((ff.fused_static_field, "bfloat16"), (ff.twin_static_field, "bfloat16"),
+                   (ff.plain_static_field, "float32")):
+        out = fn(params, pts, cfg, w, cd)
+        outs.append(out)
+        gs.append(torch.autograd.grad((out * cot).sum(), leaves))
+    for name in ("fused_static_field_fwd", "fused_static_field_bwd"):
+        assert ff.LAUNCHES[name + "_bf16"] == before[name + "_bf16"] + 1
+        assert ff.LAUNCHES[name] == before[name]
+    assert_bf16_forward(*([o] for o in outs))
+    assert_bf16_grads(*gs)
+
+
+@pytest.mark.gpu
+def test_bf16_point_form_equals_ray_form(dev):
+    # as in f32: the same points in the same order give bitwise-equal
+    # outputs and gradients
+    args, leaves = make(dev, r=37, s=100)
+    ps, pt, o, d, z, ph, cfg_s, cfg_t, w_s, w_t = args
+    with torch.no_grad():
+        pts = ff._points(o, d, z).contiguous()
+    pph = ph[:, None].expand(37, 100)
+    cot = [torch.randn(37, 100, 1, device=dev) for _ in range(2)]
+    ray = grads(lambda *a: ff.fused_composite_fields_rays(*a, compute_dtype="bfloat16"), args,
+                leaves, cot)
+    point = grads(lambda *a: ff.fused_composite_fields(*a, compute_dtype="bfloat16"),
+                  (ps, pt, pts, pph, cfg_s, cfg_t, w_s, w_t), leaves, cot)
+    for a, b in zip((*ray[0], *ray[1]), (*point[0], *point[1])):
+        assert torch.equal(a, b)
+
+
+def k3_bf16(args, h, **kw):
+    return args[:-1] + (dataclasses.replace(args[-1], **kw),), h
+
+
+def term_gap(got, want) -> float:
+    return max(abs(float(got[k]) - float(want[k])) / abs(float(want[k]))
+               for k in want if float(want[k]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hull", [False, True])
+@pytest.mark.parametrize("enc", ["free_windowed", "fourier"])
+def test_bf16_fused_train_matches_twin(dev, enc, hull):
+    # K3 under bf16 compute: the gradients within BF16_GATE of the bf16
+    # twin's distance from the f32 twin; the loss and terms, which the f32
+    # loss kernel forms from bf16 K1's raw densities and which bf16 moves by
+    # only ~1e-5, by K3_REL as in f32
+    from nerfca_tpu_torch.ops.cuda import fused_train as ft
+
+    args, h = k3_inputs(dev, r=64, s=500, hull=hull, enc=enc)
+    bargs, _ = k3_bf16(args, h, compute_dtype="bfloat16")
+    before = dict(ff.LAUNCHES)
+    k = ft.fused_train_loss_and_grads(*bargs, hull=h)
+    for name in ("fused_field_fwd", "fused_field_bwd"):
+        assert ff.LAUNCHES[name + "_bf16"] == before[name + "_bf16"] + 1
+        assert ff.LAUNCHES[name] == before[name]
+    t = ft.plain_train_loss_and_grads(*bargs, hull=h)
+    f = ft.plain_train_loss_and_grads(*args, hull=h)
+    assert abs(float(k[0]) - float(t[0])) <= K3_REL * abs(float(t[0]))
+    assert term_gap(k[1], t[1]) <= K3_REL
+    leaves = [[x for tree in r[2:] for _, x in param_items({"g": tree})] for r in (k, t, f)]
+    assert_bf16_grads(*leaves)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hull", [False, True])
+def test_bf16_residuals_keep_the_f32_loss(dev, hull):
+    # K3 over bf16 residual storage: loss and terms equal the f32 K3's bit
+    # for bit (the forward and the loss kernel are the f32 ones), and so do
+    # the gradients of every leaf whose dW reads no stored activation
+    # (biases, latents, the input layer), while the others move
+    from nerfca_tpu_torch.ops.cuda import fused_train as ft
+
+    args, h = k3_inputs(dev, r=64, s=500, hull=hull)
+    rargs, _ = k3_bf16(args, h, pallas_bf16_residuals=True)
+    before = dict(ff.LAUNCHES)
+    k_res = ft.fused_train_loss_and_grads(*rargs, hull=h)
+    assert ff.LAUNCHES["fused_field_bwd_res_bf16"] == before["fused_field_bwd_res_bf16"] + 1
+    assert ff.LAUNCHES["fused_field_bwd"] == before["fused_field_bwd"]
+    k_f32 = ft.fused_train_loss_and_grads(*args, hull=h)
+    assert float(k_res[0]) == float(k_f32[0])
+    assert all(float(k_res[1][n]) == float(k_f32[1][n]) for n in k_f32[1])
+    moved = 0
+    for (name, kr), (_, kf) in zip(*[param_items({"static": r[2], "temp": r[3]})
+                                     for r in (k_res, k_f32)]):
+        if name.endswith("/w") and "/early/0/" not in name:
+            moved += not torch.equal(kr, kf)
+        else:
+            assert torch.equal(kr, kf), name
+    assert moved > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("enc", ["free_windowed", "fourier"])
+def test_bf16_residuals_k2_change_matches_twin(dev, enc):
+    # K2 over bf16 residual storage against the f32 K2 on the same
+    # cotangents: each hidden or output weight's change, dk, carries the
+    # twin's change, dt (its backward with and without the rounding, the
+    # same sums apart from it): the share beta = <dk, dt> / <dt, dt> within
+    # BF16_GATE of 1 (an f32 kernel, which changes nothing, sits at 0). The
+    # f32 sums that separate the kernel's forward from the twin's make ~0.2%
+    # of the stored activations round the other way: that moves dk - dt by
+    # up to 0.16 of |dt| on the card, but beta by ~1%. Every other leaf
+    # keeps its bits.
+    args, _ = make(dev, r=64, s=500, enc=enc)
+    ps, pt, o, d, z, ph, cfg_s, cfg_t, w_s, w_t = args
+    gen = case_generator(args)
+    cot = [torch.randn(64 * 500, generator=gen, device=dev) for _ in range(2)]
+    packs = [ff._Pack(c, ff._leaves(p), ff.enc_table(p, c, w), dev)
+             for p, c, w in ((ps, cfg_s, w_s), (pt, cfg_t, w_t))]
+    before = dict(ff.LAUNCHES)
+    flats = [ff.fused_field_bwd(*packs, o, d, z, ph.to(torch.int32), pt["latents"].detach(),
+                                *cot, res_bf16=res) for res in (True, False)]
+    assert ff.LAUNCHES["fused_field_bwd_res_bf16"] == before["fused_field_bwd_res_bf16"] + 1
+    n_phases = pt["latents"].shape[0]
+    size_s = packs[0].grad_layout(n_phases)["size"]
+    kernel = [[g for pk, part in zip(packs, (f[:size_s], f[size_s:]))
+               for g in pk.leaf_grads(part, n_phases)[0]] for f in flats]
+    leaves = ff._leaves(ps) + ff._leaves(pt)
+    twin = []
+    for res in (True, False):
+        out = ff.twin_composite_fields_rays(*args, "float32", res, hand_backward=True)
+        twin.append(torch.autograd.grad(
+            sum((x * c.view(x.shape)).sum() for x, c in zip(out, cot)), leaves))
+    names = [f"{n}/{k}" for c in (cfg_s, cfg_t)
+             for n in [f"early/{i}" for i in range(c.num_early_layers + 1)] + ["out"] for k in "wb"]
+    moved = 0
+    for name, kr, kf, tr, tf_ in zip(names, *kernel, *twin):
+        if not name.endswith("/w") or name.startswith("early/0/"):
+            assert torch.equal(kr, kf), name
+            continue
+        moved += 1
+        dk, dt = (kr - kf).double(), (tr - tf_).double()
+        beta = float((dk * dt).sum() / (dt * dt).sum())
+        print(f"{name}: share of the twin's change {beta:.4f}, |dk - dt| / |dt| "
+              f"{float((dk - dt).norm() / dt.norm()):.3e}")
+        assert abs(beta - 1) <= BF16_GATE, name
+    assert moved == 2 * (cfg_s.num_early_layers + 1)

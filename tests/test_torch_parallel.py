@@ -213,6 +213,39 @@ def test_sharded_k3_matches_jax_sharded(ranks, problem, interpret_mode):
     assert_k3_close(ranks[0]["k3"], want)
 
 
+def test_sharded_k3_bf16_residuals_match_jax_sharded(ranks, problem, interpret_mode):
+    # the sharded entry with bf16 residual storage against JAX's on its
+    # 2-device mesh: the loss and terms at the tolerances above and equal to
+    # the f32 sharded call's bit for bit (the forward and the loss stay
+    # f32); gradients within 1e-3 of each leaf's scale (the K3 tests'
+    # bound: a stored activation whose bf16 rounding the f32 summation
+    # order flips moves its terms by 2^-8)
+    k3 = problem["k3"]
+    cs, ct = (jf.FieldConfig(**kw) for kw in k3["cfgs"])
+    b = {k: jnp.asarray(v) for k, v in k3["batch"].items()}
+    w = jnp.asarray(k3["window"])
+    loss, terms, gs, gt = jax_sharded(
+        jax_make_mesh(WORLD), "data", k3["ps"], k3["pt"], b["origins"], b["directions"],
+        jnp.asarray(k3["z"]), b["phases"], b["pixels"], b["weights"],
+        b["initial_intensities"], cs, ct, w, w, jnp.asarray(k3["lw"]),
+        js.CompositeHParams(**k3["hp"], pallas_bf16_residuals=True))
+    got = ranks[0]["k3_res"]
+    np.testing.assert_allclose(got["loss"], float(loss), rtol=LOSS_RTOL)
+    for k in terms:
+        np.testing.assert_allclose(got["terms"][k], float(terms[k]), err_msg=k, **TERM_TOL)
+    assert got["loss"] == ranks[0]["k3"]["loss"] and got["terms"] == ranks[0]["k3"]["terms"]
+    for mine, theirs in ((got["gs"], gs), (got["gt"], gt)):
+        assert jax.tree_util.tree_structure(mine) == jax.tree_util.tree_structure(theirs)
+        for (path, y), x in zip(jax.tree_util.tree_flatten_with_path(theirs)[0],
+                                jax.tree_util.tree_leaves(mine)):
+            y = np.asarray(y)
+            assert np.abs(x - y).max() <= 1e-3 * np.abs(y).max(), path
+    moved = [not np.array_equal(x, y) for x, y in zip(
+        jax.tree_util.tree_leaves((got["gs"], got["gt"])),
+        jax.tree_util.tree_leaves((ranks[0]["k3"]["gs"], ranks[0]["k3"]["gt"])))]
+    assert any(moved)
+
+
 def test_sharded_k3_matches_the_unsharded_call(ranks, problem):
     k3 = problem["k3"]
     cs, ct = (tf.FieldConfig(**kw) for kw in k3["cfgs"])

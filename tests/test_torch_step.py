@@ -291,12 +291,9 @@ def test_unported_options_raise():
     c = cfgs(ts)
     tx = ts.make_optimizer(1e-3, 0.01, 300)
     z = torch.linspace(3.6, 5.4, 8)
-    for kw in (dict(depth_samples_fine=8), dict(pallas_bf16_residuals=True),
-               dict(compute_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError):
-            ts.make_composite_train_step(c, dataclasses.replace(hparams(ts), **kw), tx, z, 2.16)
     with pytest.raises(NotImplementedError):
-        ts.make_optimizer(1e-3, 0.01, 300, weight_decay=1e-4)
+        ts.make_composite_train_step(c, dataclasses.replace(hparams(ts), depth_samples_fine=8),
+                                     tx, z, 2.16)
 
 
 def test_trainer_fused_loss_with_hull_runs_finite(tmp_path, capsys):

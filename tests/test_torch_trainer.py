@@ -107,7 +107,7 @@ def test_platform_cuda_raises_without_a_gpu(tmp_path):
     ("--best_metric", "always dominate ones below it"),
     ("--sep_corr_threshold", "dyn_corr gate for --best_metric separated_psnr"),
     ("--profile_steps", "torch.profiler trace for the first N steps"),
-    ("--pallas_bf16_residuals", "raises NotImplementedError"),
+    ("--pallas_bf16_residuals", "the forward and the loss stay f32"),
     ("--mesh_shape", "ignores it"),
 ])
 def test_help_says_what_unported_flags_do(flag, says):

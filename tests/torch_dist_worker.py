@@ -58,6 +58,15 @@ def run(rank: int, world: int, port: int, out_path: str, problem: dict) -> None:
         torch.tensor(k3["window"]), torch.tensor(k3["lw"]), ts.CompositeHParams(**k3["hp"]))
     out["k3"] = {"loss": float(loss), "terms": {k: float(v) for k, v in terms.items()},
                  "gs": tf.params_to_jax(gs), "gt": tf.params_to_jax(gt)}
+    # the same with bf16 residual storage
+    loss, terms, gs, gt = tk3.fused_train_loss_and_grads_sharded(
+        mesh, "data", tf.params_from_jax(k3["ps"]), tf.params_from_jax(k3["pt"]),
+        tb["origins"], tb["directions"], torch.tensor(k3["z"]), tb["phases"], tb["pixels"],
+        tb["weights"], tb["initial_intensities"], cs, ct, torch.tensor(k3["window"]),
+        torch.tensor(k3["window"]), torch.tensor(k3["lw"]),
+        ts.CompositeHParams(**k3["hp"], pallas_bf16_residuals=True))
+    out["k3_res"] = {"loss": float(loss), "terms": {k: float(v) for k, v in terms.items()},
+                     "gs": tf.params_to_jax(gs), "gt": tf.params_to_jax(gt)}
     # a batch of 15 rays does not split over 2 ranks
     odd = slice(0, 15)
     try:
