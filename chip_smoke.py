@@ -20,7 +20,8 @@
    then bf16 compute: the BF16 instantiations of K1 and K2 (two fields,
    one field, free_windowed and fourier) and K3 against their bf16 twin,
    and bf16 residual storage: K3 and its K2 over the bf16 scratch against
-   theirs, each under ``BF16_GATE`` (below);
+   theirs, each under ``BF16_GATE`` (below); then K1 and K2 at the fine
+   pass's shapes (1024 rays x 628 sorted per-ray depths from ``sample_pdf``);
 4. drives the main paths through ``nerfca_tpu_torch.train.run_composite.main``,
    each with the launch counts set to 0 just before and read just after:
    a. the two-kernel step (``configs/composite.txt --use_pallas true``):
@@ -61,6 +62,21 @@
       bfloat16`` (1000 steps each on phase c's dataset, ``run_eval`` of
       checkpoint-1000 beside the f32 run's; gated on finite values and on
       the selection view's PSNR rising from step 0);
+   j. the fine pass: ``configs/composite.txt`` with 128 fine samples a ray
+      and a 128-wide fine pair, ``--use_fused_loss true``, on the flagship
+      dataset, 10 steps and an eval: no K3 (it has no fine pass), K1 and
+      K2 twice a step (the coarse pair, then the fine pair at per-ray
+      depths); the step-0 loss and the step-10 PSNRs (coarse and fine)
+      held against the JAX record (``JAX_FINE``) under phase d's gates;
+      the warm fine step, kernels and plain, and the eval view;
+   j'. the shipped 64-wide fine pair: 6 steps and an eval; the trainer warns
+      that the fine pair lies outside the envelope, the coarse pair keeps
+      K1/K2 and the fine pass runs plain;
+   k. after phase c, a hyperband sweep (``configs/sweep-4view-data.yaml``'s
+      grid, max_iter 9) through ``run_composite.main --wandb_sweep_yaml`` on
+      ``configs/synth-4view-best.txt`` and phase c's dataset: the rung
+      budgets, K3 on every step of every run, and the promoted configs
+      resumed from their checkpoints;
    g. data parallelism at the flagship widths: world 1 over NCCL in this
       process (the sharded K3 entry equals K3 bitwise), then ``DP_WORLD``
       ranks over gloo on the one card in spawned processes (the sharded K3
@@ -186,6 +202,23 @@ DP_WORLD, DP_STEPS = 2, 3
 # rounding apart).
 GATE_STATIC_LOSS0_REL = 1e-4
 GATE_STATIC_PSNR_DB = 1.0
+# the fine pass (phase 4j): configs/composite.txt with FINE_SAMPLES fine
+# samples a ray (the classic coarse-to-fine NeRF count; the flagship sets 0)
+# and a 128-wide fine pair, which takes the ray form of K1/K2 with per-ray
+# depths; FINE_STEPS steps and an eval at steps 0 and FINE_STEPS, held
+# against the JAX record of the same command and seed
+# (scripts/composite_fine_jax_record.py, JAX's plain fields on the CPU)
+# under phase 4d's gates, set before the first card run: the step-0 train
+# loss and the step-FINE_STEPS test_image_psnr and test_image_psnr_fine
+FINE_SAMPLES = 128
+FINE_ARGV = ["--depth_samples_per_ray_fine", str(FINE_SAMPLES),
+             "--static_num_filters_fine", "128", "--temp_num_filters_fine", "128"]
+FINE_STEPS = 10
+JAX_FINE = os.path.join(REPO, "artifacts", "port", "composite_fine_jax-10.json")
+# phase 4k: configs/sweep-4view-data.yaml's 4-config grid under hyperband
+# (max_iter SWEEP_MAX_ITER: rungs 1, 3, 9) on configs/synth-4view-best.txt
+SWEEP_YAML = os.path.join(REPO, "configs", "sweep-4view-data.yaml")
+SWEEP_MAX_ITER = 9
 
 
 def log(msg: str) -> None:
@@ -319,10 +352,12 @@ def trained_leaves(params) -> tuple:
 
 
 def check_kernels(n_rays: int = 1024, n_samples: int = 500, seed: int = 0,
-                  fourier: bool = False) -> dict:
+                  fourier: bool = False, n_fine: int = 0) -> dict:
     """K1 and K2 against the plain version on the same inputs (the flagship
-    pair, or with ``fourier`` the pair on the fourier encoding). Raises on a
-    disagreement; returns errors and times."""
+    pair, or with ``fourier`` the pair on the fourier encoding). With
+    ``n_fine`` the rays carry the fine pass's per-ray depths ``[R, S +
+    n_fine]`` (:func:`fine_rays`). Raises on a disagreement; returns errors
+    and times."""
     import torch
 
     from nerfca_tpu_torch.ops.cuda import fused_field as ff
@@ -331,7 +366,10 @@ def check_kernels(n_rays: int = 1024, n_samples: int = 500, seed: int = 0,
     cfg_s, cfg_t = flagship_cfgs(fourier)
     params = flagship_params(seed, dev, fourier)
     names, leaves = trained_leaves(params)
-    origins, dirs, z, phases = flagship_rays(n_rays, n_samples, seed, dev)
+    if n_fine:
+        origins, dirs, z, phases = fine_rays(params, n_rays, n_samples, n_fine, seed, dev)
+    else:
+        origins, dirs, z, phases = flagship_rays(n_rays, n_samples, seed, dev)
     # every band open: the hardest case (a fourier field reads no window)
     window = None if fourier else torch.ones(12, device=dev)
     args = (params["static"], params["temp"], origins, dirs, z, phases, cfg_s, cfg_t,
@@ -376,9 +414,42 @@ def check_kernels(n_rays: int = 1024, n_samples: int = 500, seed: int = 0,
     loss = (out_s * g_s).sum() + (out_t * g_t).sum()
     res["k2_plain_ms"] = cuda_time_ms(
         lambda: torch.autograd.grad(loss, leaves, retain_graph=True))
-    res["shapes"] = {"n_rays": n_rays, "n_samples": n_samples, "param_floats":
-                     sum(t.numel() for t in leaves)}
+    res["shapes"] = {"n_rays": n_rays, "n_samples": z.shape[-1], "depth_floats": z.numel(),
+                     "param_floats": sum(t.numel() for t in leaves)}
     return res
+
+
+def fine_rays(params, n_rays: int, n_coarse: int, n_fine: int, seed: int, device):
+    """The fine pass's inputs at its shapes: :func:`flagship_rays` with
+    their stratified coarse depths, the plain coarse pair's sigmas there
+    (every band open), and the sorted per-ray union ``[R, n_coarse +
+    n_fine]`` of the coarse depths and ``sample_pdf``'s draws from them
+    (``train/step.py::fine_depths``, seeded uniforms)."""
+    import torch
+
+    from nerfca_tpu_torch.ops.cuda import fused_field as ff
+    from nerfca_tpu_torch.ops.render import render_transmission_composite
+    from nerfca_tpu_torch.train.step import fine_depths
+
+    cfg_s, cfg_t = flagship_cfgs()
+    origins, dirs, z, phases = flagship_rays(n_rays, n_coarse, seed, device)
+    window = torch.ones(12, device=device)
+    with torch.no_grad():
+        s_raw, t_raw = ff.plain_composite_fields_rays(
+            params["static"], params["temp"], origins, dirs, z, phases, cfg_s, cfg_t, window,
+            window)
+        i0 = torch.full((n_rays,), 2.16, device=device)
+        _, s_sig, t_sig, _ = render_transmission_composite(s_raw, t_raw, i0, z)
+        u = torch.rand((n_rays, n_fine), generator=torch.Generator(device=device).manual_seed(
+            seed + 7), device=device)
+        return origins, dirs, fine_depths(s_sig, t_sig, z, n_fine, u), phases
+
+
+def check_kernels_fine(seed: int = 0) -> dict:
+    """K1 and K2 (two fields) at the fine pass's shapes, 1024 rays x (500 +
+    FINE_SAMPLES) sorted per-ray depths, against the plain version under
+    :func:`check_kernels`' gates."""
+    return check_kernels(n_rays=1024, n_samples=500, seed=seed, n_fine=FINE_SAMPLES)
 
 
 def flagship_hull(device):
@@ -951,6 +1022,213 @@ def drive_main_path(workdir: str, extra_argv: list, n_steps: int,
         raise AssertionError(f"{k1_key} not launched during the eval render: {res}")
     res["eval"] = evals[0]
     return res
+
+
+def fine_phase(workdir: str, extra_argv: tuple = ()) -> dict:
+    """Phase 4j: the fine pass on the kernels through ``run_composite.main``
+    (``configs/composite.txt``, ``FINE_ARGV``, ``--use_pallas true
+    --use_fused_loss true``) on the flagship dataset, ``FINE_STEPS`` steps
+    and an eval at step ``FINE_STEPS``, the counts set to 0 just before:
+    no K3 (it has no fine pass), K1 and K2 twice a step (the coarse pair,
+    then the fine pair at per-ray depths), K1 twice per eval tile. Then the
+    step-0 eval of the seed's initial params, the warm fine step on the
+    kernels and plain in turns, and the eval view. Raises on a failure; the
+    gates against the JAX record are :func:`report_fine`'s. ``extra_argv``
+    is appended to the command line (a smaller rehearsal)."""
+    import torch
+
+    from nerfca_tpu_torch.train import evaluation, trainer
+    from nerfca_tpu_torch.train.config import parse_args
+
+    argv = ["--config", os.path.join(REPO, "configs", "composite.txt"), "--use_pallas", "true",
+            "--use_fused_loss", "true", *FINE_ARGV, "--platform", "cuda", "--n_iters",
+            str(FINE_STEPS), "--display_every", str(FINE_STEPS), "--seed", "0", "--log_every",
+            "1", "--data_root", os.path.join(workdir, "data"),
+            "--log_dir_root", tempfile.mkdtemp(prefix="cases-", dir=workdir), *extra_argv]
+    res = counted_run(argv)
+    out, tl, el = res["run"], res["train_launches"], res["eval_launches"]
+    n_total = FINE_STEPS + 1
+    if len(res["train"]) != n_total or not all(math.isfinite(r["train_loss"])
+                                               for r in res["train"]):
+        raise AssertionError(f"fine pass: {len(res['train'])} logged steps, not all finite")
+    if [r["step"] for r in res["evals"]] != [FINE_STEPS] or not all(
+            math.isfinite(res["evals"][0][k]) for k in ("test_image_psnr",
+                                                        "test_image_psnr_fine")):
+        raise AssertionError(f"fine pass: evals {res['evals']}")
+    tiles = -(-len(out["setup"]["test_views"][0]["phases"]) // 4096)
+    if (tl["fused_train_loss"] or tl["fused_field_fwd"] != 2 * n_total
+            or tl["fused_field_bwd"] != 2 * n_total or el.get("fused_field_fwd") != 2 * tiles):
+        raise AssertionError(f"fine pass: expected no K3, K1 and K2 twice a step and K1 twice "
+                             f"per eval tile: training {tl}, eval {el}")
+
+    setup, state = out["setup"], out["state"]
+    args = parse_args(argv)
+    dd = setup["device_data"]
+    dev = dd["rays"].device
+    view = setup["test_views"][0]
+    info = setup["info"]
+    depths = {"coarse": trainer.eval_depths(info, args.depth_samples_per_ray_coarse,
+                                            args.seed + 1, dev),
+              "fine": trainer.eval_depths(info, FINE_SAMPLES, args.seed + 2, dev)}
+
+    def eval_view(params, step):
+        render = evaluation.render_test_view(
+            params, view["origins"], view["directions"], view["phases"], depths["coarse"], step,
+            setup["cfgs"], setup["hp"], setup["max_pixel_value"],
+            depth_values_fine=depths["fine"], hull=setup["hull"])
+        return evaluation.test_metrics(render, view["image"], step, setup["hp"],
+                                       img_shape=view["shape"])
+
+    init = trainer._init_composite_state(args, setup["cfgs"], None, dev)
+    evals = {0: eval_view(init.params, 0), FINE_STEPS: res["evals"][0]}
+
+    steady: dict = {}
+    for path in ("kernels", "plain", "plain", "kernels"):
+        hp = dataclasses.replace(setup["hp"], use_pallas=path == "kernels")
+        step = trainer.make_composite_train_step(setup["cfgs"], hp, setup["tx"],
+                                                 setup["depth_values"],
+                                                 setup["max_pixel_value"])
+
+        def train_step():
+            step(state, dd["rays"], dd["phases"], dd["var_ids"], dd["non_var_ids"],
+                 hull=setup["hull"])
+
+        wall_ms(train_step, 2)
+        steady.setdefault(f"step_ms_{path}", []).append(wall_ms(train_step, 5))
+    wall_ms(lambda: eval_view(state.params, state.step), 1)
+    steady["eval_ms"] = [wall_ms(lambda: eval_view(state.params, state.step), 1)
+                         for _ in range(2)]
+    return {"res": res, "loss": {r["step"]: r["train_loss"] for r in res["train"]},
+            "evals": evals, "steady": steady, "tiles": tiles}
+
+
+def report_fine(fp: dict, card: str) -> bool:
+    """Print phase 4j beside the JAX record; True when its gates pass."""
+    with open(JAX_FINE) as f:
+        rec = json.load(f)
+    res, loss, evals = fp["res"], fp["loss"], fp["evals"]
+    log(f"fine pass (configs/composite.txt {' '.join(FINE_ARGV)}, K1/K2, {FINE_STEPS} steps; "
+        f"{card}): {res['wall_s']:.1f} s wall; {res['train_steps']} steps in "
+        f"{res['train_s']:.2f} s of train chunks; in-loop eval "
+        f"{[round(m, 1) for m in res['eval_ms']]} ms")
+    log(f"  launches: training {res['train_launches']}, in-loop eval {res['eval_launches']} "
+        f"({fp['tiles']} tiles a pass)")
+    for s in sorted(int(k) for k in rec["train_loss"]):
+        log(f"  step {s}: train_loss {loss[s]:.7g} (JAX {rec['train_loss'][str(s)]:.7g})")
+    for s in sorted(int(k) for k in rec["evals"]):
+        log(f"  eval at step {s}: test_image_psnr {evals[s]['test_image_psnr']:.4f} dB (JAX "
+            f"{rec['evals'][str(s)]['test_image_psnr']:.4f}), test_image_psnr_fine "
+            f"{evals[s]['test_image_psnr_fine']:.4f} dB (JAX "
+            f"{rec['evals'][str(s)]['test_image_psnr_fine']:.4f})")
+    log(f"  steady state in turns, kernels / plain then reversed: {json.dumps(fp['steady'])}")
+    loss0_rel = abs(loss[0] - rec["train_loss"]["0"]) / abs(rec["train_loss"]["0"])
+    last = rec["evals"][str(FINE_STEPS)]
+    gaps = {k: abs(evals[FINE_STEPS][k] - last[k])
+            for k in ("test_image_psnr", "test_image_psnr_fine")}
+    passed = loss0_rel <= GATE_STATIC_LOSS0_REL and max(gaps.values()) <= GATE_STATIC_PSNR_DB
+    log(f"  gates against the JAX record: step-0 train_loss rel {loss0_rel:.3e} <= "
+        f"{GATE_STATIC_LOSS0_REL}, step-{FINE_STEPS} PSNR gaps "
+        f"{json.dumps({k: round(v, 4) for k, v in gaps.items()})} dB <= {GATE_STATIC_PSNR_DB}: "
+        f"{'passed' if passed else 'FAILED'}")
+    fp.update(loss0_rel=loss0_rel, psnr_gaps=gaps)
+    return passed
+
+
+def shipped_fine_phase(workdir: str, extra_argv: tuple = ()) -> dict:
+    """Phase 4j': the shipped 64-wide fine pair (``configs/composite.txt``'s
+    ``*_num_filters_fine``) with FINE_SAMPLES fine samples, ``--use_pallas
+    true --use_fused_loss true``: 6 steps and one eval. The fine pair lies
+    outside the kernels' envelope, so the trainer warns and its pass runs
+    plain while the coarse pair keeps K1/K2 (one each a step, K1 once per
+    eval tile); every step and the fine PSNR are finite."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = drive_main_path(workdir, ["--use_fused_loss", "true", "--depth_samples_per_ray_fine",
+                                        str(FINE_SAMPLES), *extra_argv], 6)
+    said = [str(w.message) for w in caught if "fine-field config outside" in str(w.message)]
+    tl, el = res["train_launches"], res["eval_launches"]
+    tiles = -(-len(res["run"]["setup"]["test_views"][0]["phases"]) // 4096)
+    if not said:
+        raise AssertionError(f"shipped fine pair: no envelope warning in "
+                             f"{[str(w.message) for w in caught]}")
+    if (tl["fused_train_loss"] or tl["fused_field_fwd"] != 6 or tl["fused_field_bwd"] != 6
+            or el.get("fused_field_fwd") != tiles):
+        raise AssertionError(f"shipped fine pair: expected the coarse pair alone on K1/K2: "
+                             f"training {tl}, eval {el}")
+    if not math.isfinite(res["eval"]["test_image_psnr_fine"]):
+        raise AssertionError(f"shipped fine pair: eval {res['eval']}")
+    res["warning"] = said[0]
+    return res
+
+
+def sweep_phase(workdir: str, extra_argv: tuple = ()) -> dict:
+    """Phase 4k: a sweep on the card through ``run_composite.main
+    --wandb_sweep_yaml``: ``SWEEP_YAML``'s grid under ``early_terminate:
+    {type: hyperband, max_iter: SWEEP_MAX_ITER}`` on
+    ``configs/synth-4view-best.txt`` (K3 + hull), on phase 4c's dataset,
+    an eval every step (the selection metric). Each run's launches are
+    counted apart. Checks the rung budgets, that every run launched K3 on
+    each of its steps, and that each promoted config resumed from its last
+    checkpoint (its logged steps continue where the last run stopped).
+    ``extra_argv`` is appended to the command line (a smaller rehearsal)."""
+    import yaml
+
+    from nerfca_tpu_torch.train import run_composite
+    from nerfca_tpu_torch.train.sweep import hyperband_rungs, load_sweep_config
+
+    cfg = load_sweep_config(SWEEP_YAML)
+    cfg["early_terminate"] = {"type": "hyperband", "max_iter": SWEEP_MAX_ITER}
+    path = os.path.join(workdir, "sweep.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    root = os.path.join(workdir, "cases-sweep")
+    argv = ["--config", CLEAN_CONFIG, "--platform", "cuda", "--wandb_sweep_yaml", path,
+            "--data_root", os.path.join(workdir, "data"), "--log_dir_root", root,
+            "--display_every", "1", "--steps_per_chunk", "1", "--log_every", "1", *extra_argv]
+    runs, train = [], run_composite.train_composite
+
+    def counted_train(args, max_steps=None):
+        before = launch_counts()
+        out = train(args, max_steps=max_steps)
+        with open(os.path.join(out["log_dir"], "metrics.jsonl")) as f:
+            steps = [json.loads(line)["step"] for line in f if '"train_loss"' in line]
+        runs.append({"log_dir": out["log_dir"], "resume_from": args.resume_from, "steps": steps,
+                     "launches": {k: v - before[k] for k, v in launch_counts().items()},
+                     "final_step": out["final_step"]})
+        return out
+
+    run_composite.train_composite = counted_train
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ranked = run_composite.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        run_composite.train_composite = train
+    with open(os.path.join(root, "SYNTH-FOVHC", "sweep_results.json")) as f:
+        results = json.load(f)
+    hb = results["hyperband"]
+    grid = len(results["results"])
+    if hb["rung_iters"] != hyperband_rungs(SWEEP_MAX_ITER) or grid != 4:
+        raise AssertionError(f"sweep: rungs {hb['rung_iters']}, {grid} configs")
+    if [len(r["scores"]) for r in hb["rungs"]] != [4, 2, 1] or len(runs) != 7:
+        raise AssertionError(f"sweep: rungs {hb['rungs']}, {len(runs)} runs")
+    ends = {}
+    for r in runs:
+        n = len(r["steps"])
+        if r["launches"]["fused_train_loss"] != n or not n:
+            raise AssertionError(f"sweep: a run did not launch K3 on each of its steps: {r}")
+        start = 0
+        if r["resume_from"]:
+            start = ends[os.path.realpath(os.path.dirname(r["resume_from"]))]
+        if r["steps"] != list(range(start, r["final_step"])):
+            raise AssertionError(f"sweep: a run's steps do not continue its checkpoint's: {r}")
+        ends[os.path.realpath(r["log_dir"])] = r["final_step"]
+    if sum(1 for r in runs if r["resume_from"]) != 3:
+        raise AssertionError(f"sweep: expected 3 resumed runs: {runs}")
+    return {"wall_s": wall, "results": results, "runs": runs, "ranked": ranked}
 
 
 def load_state_file(ckpt: str) -> dict:
@@ -1883,8 +2161,10 @@ def bounds(shapes: dict, fourier: bool = False, bf16: bool = False) -> dict:
     r, s, n_par = shapes["n_rays"], shapes["n_samples"], shapes["param_floats"]
     n = r * s
     fwd = 2 * (field_macs(cfg_s) + field_macs(cfg_t)) * n  # forward flops
-    # origins, directions, depths, phases, the encodings' tables
-    ray_bytes = 4 * (6 * r + s + r + table_floats(cfg_s) + table_floats(cfg_t))
+    # origins, directions, depths (shared [S] or per-ray), phases, the
+    # encodings' tables
+    ray_bytes = 4 * (6 * r + shapes.get("depth_floats", s) + r + table_floats(cfg_s)
+                     + table_floats(cfg_t))
     f32_s = lambda flops: flops / PEAK_F32_FLOPS
     tc_s = lambda flops: 3 * flops / PEAK_TF32_FLOPS
     bf_s = lambda flops: flops / PEAK_BF16_FLOPS
@@ -2041,6 +2321,14 @@ def main() -> int:
         f"worst leaf {bk3['res_grad_err_vs_twin']:.3e} of scale; {bk3['res_ms']:.3f} ms vs twin "
         f"{bk3['res_plain_ms']:.3f} ms, f32 K3 {bk3['f32_ms']:.3f} ms ({card})")
 
+    # the fine pass's shapes: per-ray sorted depths, 1024 x (500 + 128)
+    fkc = check_kernels_fine()
+    log(f"fine shapes ({fkc['shapes']['n_rays']} rays x {fkc['shapes']['n_samples']} per-ray "
+        f"depths): K1 max abs err {fkc['k1_err']:.3e} (limit {K1_ATOL}); K2 max abs err "
+        f"{fkc['k2_err']:.3e}, worst leaf {fkc['k2_worst']} at {fkc['k2_norm']:.3e} of its "
+        f"scale (limit {K2_REL}); K1 {fkc['k1_ms']:.3f} ms vs plain {fkc['k1_plain_ms']:.3f} ms, "
+        f"K2 {fkc['k2_ms']:.3f} ms vs plain backward {fkc['k2_plain_ms']:.3f} ms ({card})")
+
     with tempfile.TemporaryDirectory() as workdir:
         mp = drive_main_path(workdir, [], 6)
         tl = mp["train_launches"]
@@ -2108,6 +2396,19 @@ def main() -> int:
         log(f"  eval render: {rp['eval_ms']} ms; test_image_psnr "
             f"{rp['eval']['test_image_psnr']:.3f}")
 
+        # phases 4j and 4j': the fine pass, on K1/K2 with a 128-wide fine
+        # pair and plain with the shipped 64-wide one
+        fine = fine_phase(workdir)
+        if not report_fine(fine, card):
+            raise AssertionError("fine pass: the run is outside the gates against the JAX record")
+        sfp = shipped_fine_phase(workdir)
+        log(f"shipped 64-wide fine pair ({FINE_SAMPLES} fine samples, --use_fused_loss true): "
+            f"{sfp['wall_s']:.1f} s wall; warned: {sfp['warning']!r}; train_loss "
+            f"{[round(r['train_loss'], 6) for r in sfp['train']]}")
+        log(f"  launches: training {sfp['train_launches']}, eval {sfp['eval_launches']}; eval "
+            f"render {sfp['eval_ms']} ms; test_image_psnr {sfp['eval']['test_image_psnr']:.3f}, "
+            f"test_image_psnr_fine {sfp['eval']['test_image_psnr_fine']:.3f}")
+
         cp = clean_protocol_phase(workdir)
         report_clean_protocol(cp, card)
         if not cp["gate_passed"]:
@@ -2120,6 +2421,18 @@ def main() -> int:
         for tag, what in (("res", "--pallas_bf16_residuals true"),
                           ("bf16", "--compute_dtype bfloat16")):
             report_clean_leg(legs[tag], what, cp["scores"][1000], card)
+
+        # phase 4k: a hyperband sweep through run_composite on 4c's dataset
+        sw = sweep_phase(workdir)
+        hb = sw["results"]["hyperband"]
+        log(f"sweep (configs/sweep-4view-data.yaml's grid, hyperband max_iter {SWEEP_MAX_ITER}, "
+            f"configs/synth-4view-best.txt; {card}): {sw['wall_s']:.1f} s wall, "
+            f"{len(sw['runs'])} runs; rungs {hb['rung_iters']}, promoted "
+            f"{[r.get('promoted') for r in hb['rungs']]}; scores "
+            f"{[r['scores'] for r in hb['rungs']]}")
+        runs = [(r["steps"][0], r["steps"][-1], r["launches"]["fused_train_loss"],
+                 bool(r["resume_from"])) for r in sw["runs"]]
+        log(f"  runs (first and last step, K3 launches, resumed): {runs}")
 
         sp = static_phase(workdir)
         if not report_static(sp, card):
@@ -2168,9 +2481,11 @@ def main() -> int:
                  bf16=True)
     fbbd = bounds({**bfk["shapes"], "static_param_floats": bfk["one_field"]["param_floats"]},
                   fourier=True, bf16=True)
+    fbd_fine = bounds(fkc["shapes"])
     for k, b in [*bd.items(), *((f"{k}_fourier", b) for k, b in fbd.items()),
                  *((f"{k}_bf16", b) for k, b in bbd.items()),
-                 *((f"{k}_fourier_bf16", b) for k, b in fbbd.items())]:
+                 *((f"{k}_fourier_bf16", b) for k, b in fbbd.items()),
+                 *((f"{k}_fine_shapes", b) for k, b in fbd_fine.items() if k != "k3")]:
         log(f"{k.upper()} runs {b['route']}: bound {b['bound_ms']:.3f} ms ({b['bound_by']}); "
             f"all f32 on the CUDA cores {b['bound_ms_f32_cuda_cores']:.3f} ms, all 3xTF32 on "
             f"the tensor cores {b['bound_ms_3xtf32_tensor_cores']:.3f} ms, all bf16 on the "
@@ -2386,6 +2701,27 @@ def main() -> int:
                   f"moves the gradients less than f32 sums do)",
          "ms": bk3["res_ms"], "f32_ms_same_call": bk3["f32_ms"], "plain_ms": bk3["res_plain_ms"],
          **bound_keys(bd["k3"]), "library_ms": None},
+        {"name": f"fused_field_fwd (K1), the fine pass's shapes (per-ray depths, 1024 x "
+                 f"{fkc['shapes']['n_samples']})", "route": "cuda",
+         "source": "nerfca_tpu_torch/csrc/fused_field.cu",
+         "replaces": "nerfca_tpu/ops/pallas/fused_field.py:527 (fused_composite_fields_rays "
+                     "with z [R, S+F], nerfca_tpu/train/step.py:361-373)",
+         "launches": fine["res"]["launches"]["fused_field_fwd"],
+         "launches_training": fine["res"]["train_launches"]["fused_field_fwd"],
+         "launches_eval": fine["res"]["eval_launches"]["fused_field_fwd"],
+         "launches_shipped_fine_pair": sfp["launches"]["fused_field_fwd"],
+         "max_abs_err": fkc["k1_err"], "limit": f"abs {K1_ATOL}", "ms": fkc["k1_ms"],
+         "plain_ms": fkc["k1_plain_ms"], **bound_keys(fbd_fine["k1"]), "library_ms": None},
+        {"name": f"fused_field_bwd (K2), the fine pass's shapes (per-ray depths, 1024 x "
+                 f"{fkc['shapes']['n_samples']})", "route": "cuda",
+         "source": "nerfca_tpu_torch/csrc/fused_field.cu",
+         "replaces": "nerfca_tpu/ops/pallas/fused_field.py:604 (fused_composite_fields_rays "
+                     "with z [R, S+F] under autograd)",
+         "launches": fine["res"]["launches"]["fused_field_bwd"],
+         "launches_shipped_fine_pair": sfp["launches"]["fused_field_bwd"],
+         "max_abs_err": fkc["k2_err"], "max_err_of_leaf_scale": fkc["k2_norm"],
+         "limit": f"{K2_REL} of leaf scale", "ms": fkc["k2_ms"], "plain_ms": fkc["k2_plain_ms"],
+         **bound_keys(fbd_fine["k2"]), "library_ms": None},
     ]
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,12 @@
 """Dataset builder, SYNTH family (port of ``nerfca_tpu/data/dataset.py``).
 
-Projects every train/test viewpoint of the built-in synthetic phantom with
-the torch cone-beam projector (on the chosen device) and writes the same
-artifact contract as the JAX builder to ``data/<name>/<size>/``, so either
-package reads the other's dataset:
+Projects every train/test viewpoint of each phase's volume with the torch
+cone-beam projector (on the chosen device) and writes the same artifact
+contract as the JAX builder to ``data/<name>/<size>/``, so either package
+reads the other's dataset. A phase's volume is
+``<volume_root>/<phase>/full_volume_tigre.npy`` and its artery-only volume
+``dyn_volume_tigre.npy`` beside it when ``--volume_root`` holds them, else
+the built-in synthetic phantom's:
 
   - ``general.json``: scaled geometry + near/far + log max_pixel_value;
   - per-view ``image-hrt=<p>-resp=<r>-angles=<t>-<f>.npy`` (min-max
@@ -12,10 +15,14 @@ package reads the other's dataset:
   - ``train-*.json`` / ``test-*.json`` / ``evaluate.json`` frame lists;
   - per-viewpoint temporal variance maps ``image-<t>-<f>-var.npy``/``.png``
     (weights in [1, 2]) when all 10 phases are processed;
-  - ``srcmatrices.json`` with the per-view 4x4 poses.
+  - ``srcmatrices.json`` with the per-view 4x4 poses;
+  - with ``--only_prepare_data``, the test views' maximum-intensity
+    projections ``<image>-mip.npy``/``.png``;
+  - with ``--visualize_geometry``, ``geometry.png``, the plot of the first
+    phase's acquisition.
 
-Not ported yet: XCAT/CCTA volumes from disk, experiment json files, MIP
-renders and the geometry plot.
+Not ported yet: the XCAT/CCTA families (their geometries and builders) and
+experiment json view lists.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -97,6 +104,41 @@ def _phantom_kwargs(args, vessel: bool = False) -> dict:
     return kw
 
 
+def _default_volume_provider(args) -> Callable[[int], np.ndarray]:
+    """A phase's volume: ``<volume_root>/<phase>/full_volume_tigre.npy``
+    when it exists, else the synthetic phantom's
+    (``nerfca_tpu/data/dataset.py:128-148``)."""
+    root = getattr(args, "volume_root", None)
+    size = int(getattr(args, "synth_vol_size", 64))
+
+    def provider(int_phase: int) -> np.ndarray:
+        if root:
+            path = os.path.join(root, str(int_phase), "full_volume_tigre.npy")
+            if os.path.isfile(path):
+                return np.load(path)
+        return synthetic_phantom_volume(size=size, phase=int_phase / 10, **_phantom_kwargs(args))
+
+    return provider
+
+
+def _default_dynamic_provider(args) -> Callable[[int], np.ndarray]:
+    """A phase's dynamic (artery-only) volume:
+    ``<volume_root>/<phase>/dyn_volume_tigre.npy`` when it exists, else the
+    synthetic vessel phantom's (``nerfca_tpu/data/dataset.py:151-174``)."""
+    root = getattr(args, "volume_root", None)
+    size = int(getattr(args, "synth_vol_size", 64))
+
+    def provider(int_phase: int) -> np.ndarray:
+        if root:
+            path = os.path.join(root, str(int_phase), "dyn_volume_tigre.npy")
+            if os.path.isfile(path):
+                return np.load(path)
+        return synthetic_vessel_volume(size=size, phase=int_phase / 10,
+                                       **_phantom_kwargs(args, vessel=True))
+
+    return provider
+
+
 def _save_png(path: str, img: np.ndarray, cmap: str = "gray") -> None:
     try:
         import matplotlib
@@ -128,7 +170,9 @@ def _store_frame(image_id, image_id_str, img_min, img_max, view_key, resp_phase,
 
 def build_dataset(args, root: str = "data", projector_samples: int = 1000,
                   device=None) -> DatasetPaths:
-    """Generate the SYNTH dataset on disk; projections run on ``device``."""
+    """Generate the SYNTH dataset on disk; projections run on ``device``.
+    A pure data-preparation pass (``args.only_prepare_data``) also writes
+    the test views' maximum-intensity projections."""
     name = str(args.data_name)
     if not name.startswith("SYNTH"):
         raise NotImplementedError(
@@ -138,14 +182,11 @@ def build_dataset(args, root: str = "data", projector_samples: int = 1000,
         raise NotImplementedError("experiment json view lists are not ported yet")
     paths = dataset_paths(args, root)
     os.makedirs(paths.folder, exist_ok=True)
-    size = int(getattr(args, "synth_vol_size", 64))
-
-    def volume(int_phase: int) -> np.ndarray:
-        return synthetic_phantom_volume(size=size, phase=int_phase / 10,
-                                        **_phantom_kwargs(args))
+    volume = _default_volume_provider(args)
+    dyn_volume_of = _default_dynamic_provider(args)
 
     first_phase = int(args.data_time_range_start)
-    vol0 = volume(first_phase)
+    vol0 = np.asarray(volume(first_phase), dtype=np.float32)
     geo = ConeGeometry.from_dict(synth_geometry(int(args.data_size), list(vol0.shape)),
                                  SCALE_FACTOR)
     near, far = get_near_far(geo)
@@ -167,9 +208,20 @@ def build_dataset(args, root: str = "data", projector_samples: int = 1000,
         selection_view=parse_selection_views(getattr(args, "selection_view", None)),
     )
 
-    def project(vol, theta, phi):
+    if getattr(args, "visualize_geometry", False) and phase_list:
+        # the scene plot of the first phase's acquisition
+        from nerfca_tpu_torch.utils.visualize import visualize_geometry
+
+        half = 0.5 * np.asarray(info["nVoxel"]) * np.asarray(info["dVoxel"])
+        off = np.asarray(info["offOrigin"])
+        visualize_geometry(phase_list[0]["train_viewpoints"], info,
+                           volume_bounds=np.stack([off - half, off + half], axis=-1),
+                           save_path=os.path.join(paths.folder, "geometry.png"))
+    write_mip = bool(getattr(args, "only_prepare_data", False))
+
+    def project(vol, theta, phi, mode="ct"):
         return project_view(vol, info, float(theta), float(phi), 0.0,
-                            n_samples=projector_samples, device=device).cpu().numpy()
+                            n_samples=projector_samples, mode=mode, device=device).cpu().numpy()
 
     train_frames: list[dict] = []
     test_frames: list[dict] = []
@@ -180,7 +232,7 @@ def build_dataset(args, root: str = "data", projector_samples: int = 1000,
         hrt_phase = phase_obj["hrt_phase"]
         int_hrt = int(round(hrt_phase * 10))
         resp = phase_obj["resp_phase"]
-        vol = vol0 if int_hrt == first_phase else volume(int_hrt)
+        vol = vol0 if int_hrt == first_phase else np.asarray(volume(int_hrt), dtype=np.float32)
 
         def process_view(theta, phi, frames):
             nonlocal image_id
@@ -206,11 +258,14 @@ def build_dataset(args, root: str = "data", projector_samples: int = 1000,
         for theta, phi in np.asarray(phase_obj["test_viewpoints"]):
             image_id_str = process_view(theta, phi, test_frames)
             if dyn_volume is None:
-                dyn_volume = synthetic_vessel_volume(
-                    size=size, phase=int_hrt / 10, **_phantom_kwargs(args, vessel=True))
+                dyn_volume = np.asarray(dyn_volume_of(int_hrt), dtype=np.float32)
             dyn_li = project(dyn_volume, theta, phi)
             np.save(os.path.join(paths.folder, f"{image_id_str}-dyn.npy"), dyn_li.T)
             _save_png(os.path.join(paths.folder, f"{image_id_str}-dyn.png"), dyn_li)
+            if write_mip:
+                mip = project(vol, theta, phi, mode="mip")
+                np.save(os.path.join(paths.folder, f"{image_id_str}-mip.npy"), mip)
+                _save_png(os.path.join(paths.folder, f"{image_id_str}-mip.png"), mip)
 
     with open(paths.train, "w") as fp:
         json.dump({"frames": train_frames}, fp)

@@ -238,6 +238,7 @@ def twin_composite_fields(params_s, params_t, points, point_phases, cfg_s: Field
     backward in f32 too: the same sums as the ``res_bf16`` twin's but for
     the rounding, the reference that its change is read against."""
     bf16 = is_bf16(compute_dtype)
+    points = points.detach()  # the kernels return no cotangent for the points or depths
     if not (bf16 or res_bf16 or hand_backward):
         return plain_composite_fields(params_s, params_t, points, point_phases, cfg_s, cfg_t,
                                       window_s, window_t)

@@ -1,8 +1,9 @@
 """Cone-beam forward projector in plain torch (port of
-``nerfca_tpu/ops/projector.py``, ``ct`` mode).
+``nerfca_tpu/ops/projector.py``).
 
-Trilinear sampling of the attenuation volume along each detector ray and a
-rectangle-rule sum over depth, with zero fill outside the volume. The
+Trilinear sampling of the attenuation volume along each detector ray, with
+zero fill outside the volume, then a rectangle-rule sum over depth (``ct``)
+or the maximum along the ray (``mip``). The
 8-corner gather is written out exactly as the JAX projector does it (clip
 to ``n-1-1e-6``, out-of-bounds samples zeroed): ``F.grid_sample`` uses other
 corner conventions and would not reproduce the stored datasets.
@@ -56,11 +57,14 @@ def world_to_voxel(points, vol_shape, d_voxel, off_origin_zyx):
 
 
 def project_view(volume, geo_info: dict, theta_deg: float, phi_deg: float,
-                 larm_deg: float = 0.0, n_samples: int = 1000,
+                 larm_deg: float = 0.0, n_samples: int = 1000, mode: str = "ct",
                  tile: int = 8192, device=None) -> torch.Tensor:
-    """Project one view: the ``[W, H]`` absorption line-integral image,
-    aligned pixel-for-pixel with ``detector_rays``. Runs on ``device``
-    (default: the volume's device), in ray tiles to bound memory."""
+    """Project one view: the ``[W, H]`` absorption line-integral image
+    (``mode='ct'``) or maximum-intensity image (``mode='mip'``), aligned
+    pixel-for-pixel with ``detector_rays``. Runs on ``device`` (default:
+    the volume's device), in ray tiles to bound memory."""
+    if mode not in ("ct", "mip"):
+        raise ValueError(f"unknown projection mode {mode!r}")
     volume = torch.as_tensor(volume, dtype=torch.float32, device=device)
     dev = volume.device
     origins, dirs = detector_rays(theta_deg, phi_deg, larm_deg, geo_info, device=dev)
@@ -80,8 +84,8 @@ def project_view(volume, geo_info: dict, theta_deg: float, phi_deg: float,
         o = flat_o[start:start + tile]
         d = flat_d[start:start + tile]
         pts = o[:, None, :] + d[:, None, :] * depth_values[:, None]
-        vox = world_to_voxel(pts, volume.shape, d_voxel, off)
-        out.append(torch.sum(trilinear_sample(volume, vox) * dists, dim=-1))
+        vals = trilinear_sample(volume, world_to_voxel(pts, volume.shape, d_voxel, off))
+        out.append(torch.amax(vals, dim=-1) if mode == "mip" else torch.sum(vals * dists, dim=-1))
     return torch.cat(out).reshape(w, h)
 
 

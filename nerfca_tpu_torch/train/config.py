@@ -16,6 +16,7 @@ Booleans accept any case of true/false (the reference's
 from __future__ import annotations
 
 import argparse
+import copy
 import os
 from typing import Optional, Sequence
 
@@ -251,7 +252,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="rolling checkpoint history size (the best-by-"
                         "metric checkpoint is always retained)")
     p.add_argument("--volume_root", type=str, default=None,
-                   help="directory with <phase>/full_volume_tigre.npy volumes")
+                   help="directory with <phase>/full_volume_tigre.npy volumes (and "
+                        "<phase>/dyn_volume_tigre.npy artery-only volumes), each read "
+                        "ahead of the SYNTH phantom when it exists")
     p.add_argument("--synth_vol_size", type=int, default=64)
     p.add_argument("--synth_lca_val", type=float, default=1.2,
                    help="SYNTH phantom vessel attenuation (contrast agent)")
@@ -337,3 +340,27 @@ def parse_args(
     if config_path:
         args.config = config_path
     return args
+
+
+def overwrite_args(run_args, overrides: dict):
+    """A copy of ``run_args`` with sweep overrides applied
+    (``nerfca_tpu/train/config.py:347-370``). A string value is converted
+    to the numeric type of the attribute it replaces (YAML reads ``1e-10``
+    as a string unless written ``1.0e-10``); a fractional value for an
+    int-typed attribute raises ``ValueError`` rather than being truncated."""
+    new_args = copy.deepcopy(run_args)
+    for key, val in overrides.items():
+        cur = getattr(new_args, key, None)
+        if isinstance(val, str) and isinstance(cur, (int, float)) and not isinstance(cur, bool):
+            try:
+                num = float(val)
+            except ValueError:
+                pass  # a non-numeric string passes through as it is
+            else:
+                if isinstance(cur, int) and not num.is_integer():
+                    raise ValueError(f"override {key}={val!r} is fractional but the attribute "
+                                     f"is int-typed (current value {cur!r}); refusing lossy "
+                                     f"truncation")
+                val = type(cur)(num)
+        setattr(new_args, key, val)
+    return new_args

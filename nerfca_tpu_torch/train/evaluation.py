@@ -1,12 +1,13 @@
 """Full-image test rendering and evaluation metrics (port of
-``nerfca_tpu/train/evaluation.py``, coarse pass).
+``nerfca_tpu/train/evaluation.py``).
 
 The W*H rays of a view are rendered in tiles of 4096 rays (2,048,000 points
 per field-kernel launch at 500 samples), then the composite and the
 decomposed static-only / dynamic-only intensity maps are formed, plus the
-reference's test losses and pure image PSNR / SSIM. The static method's
-view (:func:`render_static_test_view`) is the single-field render of the
-static field in plain torch, as the JAX package renders it.
+reference's test losses and pure image PSNR / SSIM. With the fine pass the
+fine pair is rendered the same way on its own fixed depth grid. The static
+method's view (:func:`render_static_test_view`) is the single-field render
+of the static field in plain torch, as the JAX package renders it.
 """
 
 from __future__ import annotations
@@ -17,37 +18,49 @@ import numpy as np
 import torch
 
 from nerfca_tpu_torch.ops.hull import hull_gate_rays
-from nerfca_tpu_torch.ops.losses import composite_losses, weighted_mse
+from nerfca_tpu_torch.ops.losses import weighted_mse
 from nerfca_tpu_torch.ops.render import render_transmission, render_transmission_composite
 from nerfca_tpu_torch.ops.cuda.fused_field import plain_static_field
 from nerfca_tpu_torch.train.step import (
     CompositeHParams, StaticHParams, evaluate_fields, field_window, loss_weights,
-    regularized_loss,
+    regularized_loss, regularizer_losses,
 )
+
+
+def _render_tiles(params, origins, directions, phases, depth_values, windows, cfgs,
+                  hp: CompositeHParams, tile: int, hull, suffix: str = "") -> tuple:
+    """The pair ``suffix`` names on every ray, ``tile`` rays at a time:
+    raw densities ``[N, S]`` of each field and the hull gate (or None)."""
+    s_parts, t_parts, g_parts = [], [], []
+    for start in range(0, origins.shape[0], tile):
+        o, d = origins[start:start + tile], directions[start:start + tile]
+        s_raw, t_raw = evaluate_fields(params, o, d, depth_values, phases[start:start + tile],
+                                       windows, cfgs, hp, suffix)
+        s_parts.append(s_raw[..., 0])
+        t_parts.append(t_raw[..., 0])
+        if hull is not None:
+            g_parts.append(hull_gate_rays(hull, o, d, depth_values))
+    return torch.cat(s_parts), torch.cat(t_parts), torch.cat(g_parts) if g_parts else None
 
 
 @torch.no_grad()
 def render_test_view(params, test_origins, test_directions, test_phases, depth_values,
                      step: int, cfgs: dict, hp: CompositeHParams, initial_intensity: float,
-                     tile: int = 4096, hull=None) -> dict:
+                     tile: int = 4096, depth_values_fine=None, hull=None) -> dict:
     """Render one full test view; per-pixel composite and decomposed
     intensity maps plus the scaled sigmas and dists, the fields under
     ``hp.compute_dtype`` (``nerfca_tpu/train/evaluation.py:80``). ``hull``:
     optional ``MotionHull`` gating the dynamic density exactly as in
-    training."""
+    training.
+
+    With ``depth_values_fine`` and fine params, the fine pair is rendered
+    directly on that fixed grid, as the reference's eval does (not a
+    resampled hierarchical pass): ``pix_fine`` and the fine sigmas and
+    dists."""
     dev = test_origins.device
     windows = {k: field_window(cfgs[k], step, dev) for k in ("static", "temp")}
-    s_parts, t_parts, g_parts = [], [], []
-    for start in range(0, test_origins.shape[0], tile):
-        o, d = test_origins[start:start + tile], test_directions[start:start + tile]
-        s_raw, t_raw = evaluate_fields(params, o, d, depth_values,
-                                       test_phases[start:start + tile], windows, cfgs, hp)
-        s_parts.append(s_raw[..., 0])
-        t_parts.append(t_raw[..., 0])
-        if hull is not None:
-            g_parts.append(hull_gate_rays(hull, o, d, depth_values))
-    s_raw, t_raw = torch.cat(s_parts), torch.cat(t_parts)
-    gate = torch.cat(g_parts) if hull is not None else None
+    s_raw, t_raw, gate = _render_tiles(params, test_origins, test_directions, test_phases,
+                                       depth_values, windows, cfgs, hp, tile, hull)
     i0 = torch.full((s_raw.shape[0],), initial_intensity, device=dev)
     pix, s_sig, t_sig, dists = render_transmission_composite(
         s_raw[..., None], t_raw[..., None], i0, depth_values, hp.output_activation,
@@ -56,8 +69,18 @@ def render_test_view(params, test_origins, test_directions, test_phases, depth_v
                                          hp.output_activation, gate=gate)
     pix_static, _, _ = render_transmission(s_raw[..., None], i0, depth_values,
                                            hp.output_activation)
-    return {"pix": pix, "pix_static": pix_static, "pix_temp": pix_temp,
-            "static_sigma": s_sig, "temp_sigma": t_sig, "dists": dists}
+    out = {"pix": pix, "pix_static": pix_static, "pix_temp": pix_temp,
+           "static_sigma": s_sig, "temp_sigma": t_sig, "dists": dists}
+    if depth_values_fine is not None and "static_fine" in params:
+        s_raw, t_raw, gate = _render_tiles(params, test_origins, test_directions, test_phases,
+                                           depth_values_fine, windows, cfgs, hp, tile, hull,
+                                           "_fine")
+        pix, s_sig, t_sig, dists = render_transmission_composite(
+            s_raw[..., None], t_raw[..., None], i0, depth_values_fine, hp.output_activation,
+            temp_gate=gate)
+        out.update(pix_fine=pix, static_sigma_fine=s_sig, temp_sigma_fine=t_sig,
+                   dists_fine=dists)
+    return out
 
 
 @torch.no_grad()
@@ -91,14 +114,18 @@ def test_metrics(render: dict, test_img_flat: torch.Tensor, step: int, hp: Compo
     weights = loss_weights(step, hp)
     ones = torch.ones_like(test_img_flat)
     pixel_loss = torch.mean(weighted_mse(render["pix"], test_img_flat, ones))
-    losses = composite_losses(
-        render["static_sigma"], render["temp_sigma"], render["dists"], ones,
-        skewness_val=hp.skewness_val, entro_mask_thre=hp.entro_mask_thre,
-        entro_use_weighting=hp.entro_use_weighting,
-        entro_weighted_thresh=hp.entro_weighted_thresh, occl_reg_perc=hp.occl_reg_perc,
-        entro_clip_threshold=hp.entro_clip_threshold, occl_front_only=hp.occl_front_only,
-    )
-    test_loss = float(regularized_loss(pixel_loss, losses, weights))
+    losses = regularizer_losses(render["static_sigma"], render["temp_sigma"], render["dists"],
+                                ones, hp)
+    test_loss = regularized_loss(pixel_loss, losses, weights)
+    pixel_loss_fine = None
+    if "pix_fine" in render:
+        # the fine terms add to test_loss, and the logged regularizers are
+        # the fine pass's (run_composite.py:380-389)
+        pixel_loss_fine = torch.mean(weighted_mse(render["pix_fine"], test_img_flat, ones))
+        losses = regularizer_losses(render["static_sigma_fine"], render["temp_sigma_fine"],
+                                    render["dists_fine"], ones, hp)
+        test_loss = test_loss + regularized_loss(pixel_loss_fine, losses, weights)
+    test_loss = float(test_loss)
     pred = render["pix"].double().cpu().numpy()
     gt = test_img_flat.double().cpu().numpy()
     out = {
@@ -111,6 +138,9 @@ def test_metrics(render: dict, test_img_flat: torch.Tensor, step: int, hp: Compo
         "test_d_entropy_loss": float(losses.dynamic_entropy_loss),
         "test_image_psnr": image_psnr(pred, gt),
     }
+    if pixel_loss_fine is not None:
+        out["test_pixel_loss_fine"] = float(pixel_loss_fine)
+        out["test_image_psnr_fine"] = image_psnr(render["pix_fine"].double().cpu().numpy(), gt)
     if img_shape is not None:
         lo, hi = float(gt.min()), float(gt.max())
         scale = (hi - lo) or 1.0

@@ -90,8 +90,18 @@ class MetricsLogger:
 
 def make_log_dir(root: str, data_name: str, suffix: str = "") -> str:
     """``cases/<data_name>/runs/<timestamp><suffix>/`` — the reference's
-    save-folder layout (``data_helpers.py:173-186``)."""
+    save-folder layout (``data_helpers.py:173-186``), a new directory for
+    every run: a run that starts in the same second as another (a sweep's
+    short runs on a card) gets ``-1``, ``-2``, ... appended, where the JAX
+    package's would share the other's directory, metrics and checkpoints."""
     exp_name = datetime.now().strftime("%Y-%m-%d-%H%M%S") + suffix
-    log_dir = os.path.join(root, str(data_name), "runs", exp_name)
-    os.makedirs(log_dir, exist_ok=True)
-    return log_dir
+    base = os.path.join(root, str(data_name), "runs", exp_name)
+    os.makedirs(os.path.dirname(base), exist_ok=True)
+    log_dir, n = base, 0
+    while True:
+        try:
+            os.mkdir(log_dir)
+            return log_dir
+        except FileExistsError:
+            n += 1
+            log_dir = f"{base}-{n}"

@@ -4,7 +4,9 @@
     python -m nerfca_tpu_torch.train.run_composite --config ... --only_prepare_data true
 
 ``--platform cpu`` runs on the CPU (plain torch in place of the kernels).
-Sweeps are not ported yet.
+``--wandb_sweep_yaml <yaml>`` runs a sweep of ``train_composite`` over the yaml's
+grid (``train/sweep.py``: wandb's agent with ``--use_wandb true`` when
+wandb is importable, else the local grid / hyperband executor).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 
 from nerfca_tpu_torch.data.dataset import build_dataset
 from nerfca_tpu_torch.train.config import parse_args
+from nerfca_tpu_torch.train.sweep import run_sweep
 from nerfca_tpu_torch.train.trainer import resolve_device, train_composite
 
 
@@ -23,7 +26,7 @@ def main(argv=None):
         build_dataset(args, args.data_root, device=resolve_device(args.platform))
         return None
     if args.wandb_sweep_yaml:
-        raise NotImplementedError("sweeps are not ported yet")
+        return run_sweep(args, train_composite)
     if args.debug_mode:
         print("DEBUG MODE ON")
         with torch.autograd.detect_anomaly():

@@ -1,5 +1,5 @@
 """Offline evaluation CLI: render held-out views from a checkpoint and score
-PSNR/SSIM (port of ``nerfca_tpu/train/run_eval.py``, coarse pass).
+PSNR/SSIM (port of ``nerfca_tpu/train/run_eval.py``).
 
     python -m nerfca_tpu_torch.train.run_eval --config configs/synth-4view-best.txt \
         --resume_from cases/SYNTH-FOVHC/runs/<ts>-composite/checkpoint-best
@@ -9,7 +9,10 @@ static/dynamic) through ``render_test_view``, so the field kernel K1 runs
 on the card with ``--use_pallas true``; writes per-view PNGs (best effort)
 and ``<checkpoint>/eval/eval_scores.json`` with per-view, per-angle and
 mean PSNR/SSIM and, where the dataset has the artery-only ground truth,
-the decomposition scores. ``--platform cpu`` runs on the CPU.
+the decomposition scores. A checkpoint with fine models, scored with
+``--depth_samples_per_ray_fine`` > 0, also gets each view's ``psnr_fine``
+and ``ssim_fine`` from the fine pair's render on the unjittered fine
+grid. ``--platform cpu`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -73,8 +76,10 @@ def load_for_render(args) -> dict:
     }
 
 
-def render_view(loaded: dict, theta: float, phi: float, larm: float, phase: int) -> dict:
-    """``render_test_view`` of one full detector view of the loaded model."""
+def render_view(loaded: dict, theta: float, phi: float, larm: float, phase: int,
+                depth_values_fine=None) -> dict:
+    """``render_test_view`` of one full detector view of the loaded model
+    (and of its fine models on ``depth_values_fine``, when given)."""
     info, device = loaded["info"], loaded["device"]
     w, h = (int(v) for v in info["nDetector"])
     origins, dirs = detector_rays(theta, phi, larm, info, device=device)
@@ -82,7 +87,7 @@ def render_view(loaded: dict, theta: float, phi: float, larm: float, phase: int)
         loaded["params"], origins.reshape(-1, 3).contiguous(), dirs.reshape(-1, 3).contiguous(),
         torch.full((w * h,), phase, dtype=torch.int32, device=device), loaded["depth_values"],
         loaded["step"], loaded["cfgs"], loaded["hp"], info["max_pixel_value"],
-        hull=loaded["hull"])
+        depth_values_fine=depth_values_fine, hull=loaded["hull"])
 
 
 def as_image(render: dict, key: str, w: int, h: int) -> np.ndarray:
@@ -99,6 +104,12 @@ def evaluate_checkpoint(args, write_images: bool = True) -> dict:
     with open(loaded["paths"].evaluate) as f:
         frames = json.load(f)["frames"]
     w, h = (int(v) for v in info["nDetector"])
+    # the fine models too when the checkpoint has them, on the unjittered grid
+    depth_values_fine = None
+    if args.depth_samples_per_ray_fine > 0 and "static_fine" in loaded["params"]:
+        depth_values_fine = linspace_depths(info["near_thresh"], info["far_thresh"],
+                                            args.depth_samples_per_ray_fine,
+                                            device=loaded["device"])
     out_dir = os.path.join(args.resume_from, "eval")
     os.makedirs(out_dir, exist_ok=True)
 
@@ -107,7 +118,7 @@ def evaluate_checkpoint(args, write_images: bool = True) -> dict:
         gt = denormalize_image(np.load(frame["file_path"]), w, h,
                                frame["img_min_max"]).astype(np.float32)
         render = render_view(loaded, frame["theta"], frame["phi"], frame["larm"],
-                             frame["heart_phase"])
+                             frame["heart_phase"], depth_values_fine)
         pred = as_image(render, "pix", w, h)
         psnr = evaluation.image_psnr(pred, gt)
         lo, hi = float(gt.min()), float(gt.max())
@@ -116,6 +127,10 @@ def evaluate_checkpoint(args, write_images: bool = True) -> dict:
         row = {"image_id_str": frame["image_id_str"], "theta": frame["theta"],
                "phi": frame["phi"], "heart_phase": frame["heart_phase"], "psnr": psnr,
                "ssim": ssim}
+        if "pix_fine" in render:
+            pred_f = as_image(render, "pix_fine", w, h)
+            row["psnr_fine"] = evaluation.image_psnr(pred_f, gt)
+            row["ssim_fine"] = evaluation.image_ssim((pred_f - lo) / scale, (gt - lo) / scale)
         # decomposition scores against the artery-only ground truth: the
         # temporal field's line integral I0 - pix_temp against the raw line
         # integral of the dynamic component

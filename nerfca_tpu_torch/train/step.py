@@ -1,17 +1,25 @@
-"""The composite (4-D) train step, coarse pass, and the static (3-D) train
-step (port of ``nerfca_tpu/train/step.py``).
+"""The composite (4-D) train step, coarse and fine passes, and the static
+(3-D) train step (port of ``nerfca_tpu/train/step.py``).
 
 One step: variance-oversampled ray batch -> optional sub-pixel ray jitter
 -> one shared stratified depth vector -> the loss and its gradients -> Adam
 with linear LR decay and the static-freeze gate. The gradients come from
 one of three paths:
 
-  - ``use_pallas`` and ``use_fused_loss`` inside the envelope: the
-    fused-loss kernel K3 (``ops/cuda/fused_train.py``), which returns the
-    loss terms and every gradient in one pass;
+  - ``use_pallas`` and ``use_fused_loss`` inside the envelope (no fine
+    pass): the fused-loss kernel K3 (``ops/cuda/fused_train.py``), which
+    returns the loss terms and every gradient in one pass;
   - ``use_pallas``: the field kernels K1/K2 under the loss battery in
     torch autograd;
   - otherwise both fields and the loss in plain torch autograd.
+
+With ``depth_samples_fine`` > 0 the hierarchical fine pass follows the
+coarse one (``nerfca_tpu/train/step.py:349-398``): ``sample_pdf`` draws
+fine depths per ray from the coarse pass's density, and a second field
+pair (``static_fine``/``temp_fine``) runs on the sorted union of coarse and
+fine depths, through the ray form of K1/K2 with per-ray depths when both
+fine configs lie in the envelope and plain otherwise; its render takes ray
+0's depths for every ray, as the reference does.
 
 An optional motion hull (``ops/hull.py``) gates the dynamic density on
 every path. Under a data-parallel mesh (``parallel/mesh.py``) the K3 path
@@ -30,7 +38,7 @@ pixel loss plus the occlusion loss; it draws three keys a step
 (:func:`static_step_draws`). As in JAX, the static step's kernel branch
 runs in f32 whatever ``compute_dtype`` says (``nerfca_tpu/train/
 step.py:843`` passes no dtype to ``fused_static_field``); its plain branch
-takes ``compute_dtype``. Not ported yet: the fine pass.
+takes ``compute_dtype``.
 """
 
 from __future__ import annotations
@@ -67,7 +75,7 @@ from nerfca_tpu_torch.ops import prng
 from nerfca_tpu_torch.ops.hull import hull_gate_rays
 from nerfca_tpu_torch.ops.losses import composite_losses, occlusion_loss, weighted_mse
 from nerfca_tpu_torch.ops.render import render_transmission, render_transmission_composite
-from nerfca_tpu_torch.ops.sampling import stratify_depths
+from nerfca_tpu_torch.ops.sampling import sample_pdf, stratify_depths
 from nerfca_tpu_torch.ops.schedules import linear_param_decay
 
 
@@ -202,6 +210,14 @@ def static_step_draws(rng: np.ndarray, hp: CompositeHParams, n_var_ids: int,
     return rng, positions, t
 
 
+def fine_uniforms(rng: np.ndarray, hp: CompositeHParams) -> np.ndarray:
+    """The fine pass's inverse-CDF uniforms ``[n, F]`` of the step that
+    draws from ``rng``: JAX's ``sample_pdf`` draws
+    ``jax.random.uniform(k_fine, (n, F))`` (``nerfca_tpu/train/step.py:663``)."""
+    k_fine = prng.split(rng, 4)[3]
+    return prng.uniform(k_fine, (hp.img_sample_size, hp.depth_samples_fine))
+
+
 def _batch_depth_draws(k_sample, k_depth, k_jitter, hp: CompositeHParams, n_var_ids: int,
                        n_non_var_ids: int, n_rays: int, n_samples: int) -> tuple:
     """Positions, jitter uniforms (None without ``k_jitter``) and depth
@@ -246,14 +262,18 @@ def sample_ray_batch(rays, phases, var_ids, non_var_ids, positions: torch.Tensor
 
 def to_device(device: torch.device, ints: np.ndarray, *floats) -> tuple:
     """``ints`` (as int64) and each f32 array of ``floats`` on ``device``,
-    through one pinned, non-blocking copy on a card."""
+    through one pinned, non-blocking copy on a card; a ``None`` among
+    ``floats`` comes back as ``None``."""
     buf = np.concatenate([ints.astype(np.int32)] + [f.astype(np.float32).ravel().view(np.int32)
-                                                    for f in floats])
+                                                    for f in floats if f is not None])
     t = torch.from_numpy(buf)
     if device.type == "cuda":
         t = t.pin_memory().to(device, non_blocking=True)
     out, start = [t[:len(ints)].long()], len(ints)
     for f in floats:
+        if f is None:
+            out.append(None)
+            continue
         out.append(t[start:start + f.size].view(torch.float32).reshape(f.shape))
         start += f.size
     return tuple(out)
@@ -289,22 +309,36 @@ def regularized_loss(pix_loss, losses, weights):
     )
 
 
+def regularizer_losses(static_sigma, temp_sigma, dists, pixel_weights, hp: CompositeHParams):
+    """The regularizer battery (``composite_losses``) on one pass's sigmas
+    and dists under ``hp``'s shape parameters."""
+    return composite_losses(
+        static_sigma, temp_sigma, dists, pixel_weights, skewness_val=hp.skewness_val,
+        entro_mask_thre=hp.entro_mask_thre, entro_use_weighting=hp.entro_use_weighting,
+        entro_weighted_thresh=hp.entro_weighted_thresh, occl_reg_perc=hp.occl_reg_perc,
+        entro_clip_threshold=hp.entro_clip_threshold, occl_front_only=hp.occl_front_only)
+
+
 def along_ray_tv(sigma):
     """Mean over rays of sum_i |sigma_{i+1} - sigma_i|."""
     return torch.mean(torch.sum(torch.abs(sigma[..., 1:] - sigma[..., :-1]), dim=-1))
 
 
 def evaluate_fields(params, origins, directions, depth_values, phases, windows, cfgs,
-                    hp: CompositeHParams):
-    """Both fields' raw densities ``[R, S, 1]``: the CUDA kernels with
-    ``use_pallas`` (their twin on CPU tensors) under ``hp.compute_dtype``,
-    the plain fields under ``hp.dtype`` otherwise."""
-    if hp.use_pallas:
+                    hp: CompositeHParams, suffix: str = ""):
+    """Both fields of the pair ``suffix`` names (``""`` coarse, ``"_fine"``)
+    on rays with shared ``[S]`` or per-ray ``[R, S]`` depths: raw densities
+    ``[R, S, 1]`` each, from the CUDA kernels (their twin on CPU tensors)
+    under ``hp.compute_dtype`` with ``use_pallas`` when both configs lie in
+    the envelope, from the plain fields under ``hp.dtype`` otherwise (JAX
+    gates each pass on its own pair)."""
+    cfg_s, cfg_t = cfgs["static" + suffix], cfgs["temp" + suffix]
+    if hp.use_pallas and kernel_supported(cfg_s) and kernel_supported(cfg_t):
         fn, dtype = fused_composite_fields_rays, hp.compute_dtype
     else:
         fn, dtype = plain_composite_fields_rays, hp.dtype
-    return fn(params["static"], params["temp"], origins, directions, depth_values, phases,
-              cfgs["static"], cfgs["temp"], windows["static"], windows["temp"], dtype)
+    return fn(params["static" + suffix], params["temp" + suffix], origins, directions,
+              depth_values, phases, cfg_s, cfg_t, windows["static"], windows["temp"], dtype)
 
 
 def evaluate_composite(params, points, point_phases, cfgs: dict, windows,
@@ -322,45 +356,75 @@ def evaluate_composite(params, points, point_phases, cfgs: dict, windows,
               cfg_t, windows["static"], windows["temp"], dtype)
 
 
+def fine_depths(static_sigma, temp_sigma, depth_values, n_fine: int, u_fine) -> torch.Tensor:
+    """The fine pass's sorted per-ray depths ``[R, S + F]``
+    (``nerfca_tpu/train/step.py:354-363``): ``sample_pdf`` over the coarse
+    midpoints with weights ``|differences|`` of the total coarse density (a
+    1e-10 first column), normalised by the batch's global max, its ``F``
+    draws from the uniforms ``u_fine [R, F]`` joined to the shared coarse
+    depths ``[S]``. Differentiable w.r.t. the sigmas, as JAX's is."""
+    total = static_sigma + temp_sigma
+    w = torch.cat([torch.full_like(total[:, :1], 1e-10),
+                   torch.abs(total[:, 1:] - total[:, :-1])], dim=-1)
+    w = w / torch.amax(w)
+    z = depth_values.expand(total.shape[0], depth_values.shape[0])
+    z_mid = 0.5 * (z[:, 1:] + z[:, :-1])
+    z_pdf = sample_pdf(None, z_mid, w[:, 1:-1], n_fine, u=u_fine)
+    return torch.sort(torch.cat([z_pdf, z], dim=-1), dim=-1).values.contiguous()
+
+
 def composite_forward(params, batch, depth_values, windows, cfgs, hp: CompositeHParams,
-                      hull=None) -> dict:
-    """Coarse forward pass -> render and sigmas. ``depth_values``: the
-    already-jittered shared ``[S]`` vector. ``hull``: optional
-    ``MotionHull`` gating the dynamic density."""
-    static_raw, temp_raw = evaluate_fields(
-        params, batch["origins"], batch["directions"], depth_values, batch["phases"],
-        windows, cfgs, hp)
+                      hull=None, u_fine=None) -> dict:
+    """Coarse (and fine) forward pass -> renders and sigmas. ``depth_values``:
+    the already-jittered shared ``[S]`` vector. ``hull``: optional
+    ``MotionHull`` gating the dynamic density. ``u_fine``: the fine pass's
+    uniforms ``[R, F]`` (:func:`fine_uniforms`) with ``depth_samples_fine``
+    > 0."""
+    origins, dirs = batch["origins"], batch["directions"]
+    i0 = batch["initial_intensities"]
+    static_raw, temp_raw = evaluate_fields(params, origins, dirs, depth_values, batch["phases"],
+                                           windows, cfgs, hp)
     temp_gate = None
     if hull is not None:
-        temp_gate = hull_gate_rays(hull, batch["origins"], batch["directions"], depth_values)
+        temp_gate = hull_gate_rays(hull, origins, dirs, depth_values)
     pix, s_sig, t_sig, dists = render_transmission_composite(
-        static_raw, temp_raw, batch["initial_intensities"], depth_values, hp.output_activation,
-        temp_gate=temp_gate)
+        static_raw, temp_raw, i0, depth_values, hp.output_activation, temp_gate=temp_gate)
     out = {"pix_coarse": pix, "static_sigma_coarse": s_sig, "temp_sigma_coarse": t_sig,
            "dists_coarse": dists, "static_raw_coarse": static_raw,
            "temp_raw_coarse": temp_raw}
     if temp_gate is not None:
         out["temp_gate_coarse"] = temp_gate  # reused by the hull-gated L1
+    if hp.depth_samples_fine > 0:
+        z_fine = fine_depths(s_sig, t_sig, depth_values, hp.depth_samples_fine, u_fine)
+        static_raw_f, temp_raw_f = evaluate_fields(params, origins, dirs, z_fine,
+                                                   batch["phases"], windows, cfgs, hp, "_fine")
+        temp_gate_f = None if hull is None else hull_gate_rays(hull, origins, dirs, z_fine)
+        # the reference renders the fine pass with ray 0's sorted depths
+        # (model_helpers.py:147, depth_vals_fine[0, :])
+        pix_f, s_sig_f, t_sig_f, dists_f = render_transmission_composite(
+            static_raw_f, temp_raw_f, i0, z_fine[0], hp.output_activation,
+            temp_gate=temp_gate_f)
+        out.update(pix_fine=pix_f, static_sigma_fine=s_sig_f, temp_sigma_fine=t_sig_f,
+                   dists_fine=dists_f)
     return out
 
 
 def composite_loss_fn(params, batch, depth_values, step: int, cfgs, hp: CompositeHParams,
-                      hull=None):
+                      hull=None, u_fine=None):
     """Total regularized loss + metric dict (same names as the JAX step).
     ``hull``: optional motion-hull gate; it adds the hull-gated static L1
-    (the mean over rays of the static line integral inside the hull)."""
+    (the mean over rays of the static line integral inside the hull).
+    ``u_fine``: the fine pass's uniforms, with ``depth_samples_fine`` > 0;
+    the fine pass adds its pixel loss, with unit pixel weights, and its
+    regularizers."""
     dev = batch["origins"].device
     windows = {k: field_window(cfgs[k], step, dev) for k in ("static", "temp")}
-    fwd = composite_forward(params, batch, depth_values, windows, cfgs, hp, hull=hull)
+    fwd = composite_forward(params, batch, depth_values, windows, cfgs, hp, hull=hull,
+                            u_fine=u_fine)
     weights = loss_weights(step, hp)
     pixel_loss_c = torch.mean(weighted_mse(fwd["pix_coarse"], batch["pixels"], batch["weights"]))
-    losses = composite_losses(
-        fwd["static_sigma_coarse"], fwd["temp_sigma_coarse"], fwd["dists_coarse"],
-        batch["weights"], skewness_val=hp.skewness_val, entro_mask_thre=hp.entro_mask_thre,
-        entro_use_weighting=hp.entro_use_weighting,
-        entro_weighted_thresh=hp.entro_weighted_thresh, occl_reg_perc=hp.occl_reg_perc,
-        entro_clip_threshold=hp.entro_clip_threshold, occl_front_only=hp.occl_front_only,
-    )
+    losses = regularizer_losses(fwd["static_sigma_coarse"], fwd["temp_sigma_coarse"],
+                                fwd["dists_coarse"], batch["weights"], hp)
     loss = regularized_loss(pixel_loss_c, losses, weights)
     zero = torch.zeros((), device=dev)
     static_tv = zero
@@ -396,6 +460,18 @@ def composite_loss_fn(params, batch, depth_values, step: int, cfgs, hp: Composit
         "train_static_windowed": window_alpha(cfgs["static"], step),
         "train_temp_windowed": window_alpha(cfgs["temp"], step),
     }
+    if hp.depth_samples_fine > 0:
+        # unit pixel weights (run_composite.py:296-301); the logged
+        # regularizers are overwritten with the fine pass's, as the
+        # reference logs them
+        pixel_loss_f = torch.mean(weighted_mse(fwd["pix_fine"], batch["pixels"],
+                                               torch.ones_like(batch["weights"])))
+        losses_f = regularizer_losses(fwd["static_sigma_fine"], fwd["temp_sigma_fine"],
+                                      fwd["dists_fine"], batch["weights"], hp)
+        loss = loss + regularized_loss(pixel_loss_f, losses_f, weights)
+        metrics.update(train_pixel_loss_fine=pixel_loss_f.detach(),
+                       train_favor_s_loss=losses_f.favor_s_loss.detach(),
+                       train_d_entropy_loss=losses_f.dynamic_entropy_loss.detach())
     metrics["train_loss"] = loss.detach()
     metrics["train_psnr"] = -10.0 * torch.log10(loss.detach())
     return loss, metrics
@@ -468,11 +544,12 @@ def _require_grads(params) -> None:
 
 
 def composite_grads(params, batch, depth_values, step: int, cfgs, hp: CompositeHParams,
-                    hull=None):
+                    hull=None, u_fine=None):
     """Loss, metrics and the gradient of every leaf (``param_items`` order)
-    for an injected batch and depths."""
+    for an injected batch, depths and (with the fine pass) fine uniforms."""
     _require_grads(params)
-    loss, metrics = composite_loss_fn(params, batch, depth_values, step, cfgs, hp, hull=hull)
+    loss, metrics = composite_loss_fn(params, batch, depth_values, step, cfgs, hp, hull=hull,
+                                      u_fine=u_fine)
     return loss.detach(), metrics, _grads_of(loss, params)
 
 
@@ -646,9 +723,12 @@ def make_composite_train_step(cfgs: dict, hp: CompositeHParams, tx: AdamConfig,
     bit. The batch must split evenly over the shards (the sharded entry
     raises otherwise); JAX also asks for whole Pallas tiles of rays, which
     the port's K3 does not have. The autograd paths under a mesh are not
-    ported (ROADMAP §1 item 10) and raise."""
-    if hp.depth_samples_fine > 0:
-        raise NotImplementedError("the fine pass is not ported yet")
+    ported (ROADMAP §1, "the autograd branches under a mesh") and raise; the fine
+    pass takes them.
+
+    With ``depth_samples_fine`` > 0 each step also draws the fine pass's
+    uniforms (:func:`fine_uniforms`) and takes the K1/K2 or plain path, as
+    K3 has no fine pass (``nerfca_tpu/ops/pallas/fused_train.py:80``)."""
     fused = hp.use_pallas and hp.use_fused_loss
     if fused and not fused_train_supported(cfgs["static"], cfgs["temp"], hp):
         warnings.warn("config outside the fused-loss kernel's envelope (coarse pass, no "
@@ -658,29 +738,29 @@ def make_composite_train_step(cfgs: dict, hp: CompositeHParams, tx: AdamConfig,
     if mesh is not None and not fused:
         raise NotImplementedError(
             "data parallelism runs through the fused-loss kernel K3 (use_pallas and "
-            "use_fused_loss); the autograd paths under a mesh are not ported yet (ROADMAP §1 "
-            "item 10)")
-    grads_fn = composite_grads
-    if fused:
-        grads_fn = functools.partial(
-            _fused_loss_metrics_grads, fused_fn=None if mesh is None else functools.partial(
-                fused_train_loss_and_grads_sharded, mesh, DATA_AXIS))
+            "use_fused_loss, no fine pass); the autograd paths under a mesh are not ported yet "
+            "(ROADMAP §1, \"the autograd branches under a mesh\")")
+    fused_fn = None if mesh is None else functools.partial(fused_train_loss_and_grads_sharded,
+                                                           mesh, DATA_AXIS)
 
     def train_step(state: TrainState, rays, phases, var_ids, non_var_ids, hull=None):
+        u_fine = fine_uniforms(state.rng, hp) if hp.depth_samples_fine > 0 else None
         state.rng, positions, u, t = step_draws(
             state.rng, hp, var_ids.shape[0], non_var_ids.shape[0], rays.shape[0],
             depth_values_base.shape[0])
-        if u is None:
-            positions, t = to_device(rays.device, positions, t)
-        else:
-            positions, t, u = to_device(rays.device, positions, t, u)
+        positions, t, u, u_fine = to_device(rays.device, positions, t, u, u_fine)
         batch = sample_ray_batch(rays, phases, var_ids, non_var_ids, positions, hp)
         if u is not None:
             batch["directions"] = jitter_directions(batch["directions"], hp.ray_jitter, u)
         batch["initial_intensities"] = torch.full(
             (hp.img_sample_size,), initial_intensity, device=rays.device)
         z = stratify_depths(depth_values_base, t_rand=t)
-        _, metrics, grads = grads_fn(state.params, batch, z, state.step, cfgs, hp, hull=hull)
+        if fused:
+            _, metrics, grads = _fused_loss_metrics_grads(state.params, batch, z, state.step, cfgs,
+                                                          hp, hull=hull, fused_fn=fused_fn)
+        else:
+            _, metrics, grads = composite_grads(state.params, batch, z, state.step, cfgs, hp,
+                                                hull=hull, u_fine=u_fine)
         adam_update(state.params, state.opt_state, grads, tx, state.step, hp)
         state.step += 1
         return metrics

@@ -92,9 +92,12 @@ def field_configs_from_args(args) -> dict:
         use_time_latents=args.use_time_latents,
         num_time_dim=args.num_time_dim,
     )
+    cfgs = {"static": static, "temp": temp}
     if args.depth_samples_per_ray_fine > 0:
-        raise NotImplementedError("the fine pass is not ported yet")
-    return {"static": static, "temp": temp}
+        # the fine pass's own pair: the coarse configs at the fine widths
+        cfgs["static_fine"] = dataclasses.replace(static, num_filters=args.static_num_filters_fine)
+        cfgs["temp_fine"] = dataclasses.replace(temp, num_filters=args.temp_num_filters_fine)
+    return cfgs
 
 
 def composite_hparams_from_args(args) -> CompositeHParams:
@@ -155,11 +158,22 @@ def static_hparams_from_args(args) -> StaticHParams:
 
 def resolve_pallas_support(hp, cfgs):
     """Downgrade ``use_pallas`` (and ``use_fused_loss``) to the plain torch
-    path, with a warning, when a field config falls outside the CUDA
-    kernels' envelope. ``cfgs``: the composite's dict of configs, or the
-    static trainer's single ``FieldConfig``."""
-    configs = cfgs.values() if isinstance(cfgs, dict) else [cfgs]
-    if not hp.use_pallas or all(kernel_supported(c) for c in configs):
+    path, with a warning, when a field config the coarse pass evaluates
+    falls outside the CUDA kernels' envelope (JAX's rule,
+    ``nerfca_tpu/train/trainer.py:153-196``). ``cfgs``: the composite's
+    dict of configs, or the static trainer's single ``FieldConfig``. Only
+    the coarse pair decides: a fine pair outside the envelope only warns,
+    and its pass runs plain (``composite_forward`` gates each pass on its
+    own pair) while the coarse pass keeps the kernels."""
+    if not hp.use_pallas:
+        return hp
+    coarse = [cfgs[k] for k in ("static", "temp") if k in cfgs] if isinstance(cfgs, dict) \
+        else [cfgs]
+    if all(kernel_supported(c) for c in coarse):
+        if isinstance(cfgs, dict) and not all(kernel_supported(c) for c in cfgs.values()):
+            warnings.warn("fine-field config outside the CUDA field-kernel envelope; the fine "
+                          "pass runs on the plain torch path (the coarse pass keeps the "
+                          "kernels)")
         return hp
     warnings.warn("field config outside the CUDA field-kernel envelope (width 128, no "
                   "late layers, 128 encoded features at most); falling back to the plain "
@@ -168,6 +182,14 @@ def resolve_pallas_support(hp, cfgs):
     if hasattr(hp, "use_fused_loss"):
         kw["use_fused_loss"] = False
     return dataclasses.replace(hp, **kw)
+
+
+def eval_depths(info: dict, n_samples: int, seed: int, device) -> torch.Tensor:
+    """The eval's fixed jittered depth grid as the JAX trainer draws it:
+    ``stratify_depths(PRNGKey(seed), linspace(near, far, n_samples))``."""
+    return stratify_depths(
+        linspace_depths(info["near_thresh"], info["far_thresh"], n_samples, device=device),
+        t_rand=torch.from_numpy(prng.uniform(prng.key(seed), (n_samples,))).to(device))
 
 
 def _variance_ray_split(rays: np.ndarray, var_sample_thre: float):
@@ -204,12 +226,16 @@ def _chunk_size(args) -> int:
 
 def _init_composite_state(args, cfgs, tx, device) -> TrainState:
     """A fresh state, drawn as the JAX trainer draws it from ``--seed``
-    (``ops/prng.py``): the params from the first two of eight keys, the
-    step's key the last, zero Adam moments. ``tx`` is the optimizer the
+    (``ops/prng.py``): the coarse params from the first two of eight keys,
+    the fine pair's (with the fine pass) from the next two, the step's key
+    the last, zero Adam moments. ``tx`` is the optimizer the
     state is for; the port's Adam state does not depend on its settings."""
     keys = prng.split(prng.key(args.seed), 8)
     params = {"static": init_static_field(keys[0], cfgs["static"], device),
               "temp": init_temporal_field(keys[1], cfgs["temp"], device)}
+    if "static_fine" in cfgs:
+        params["static_fine"] = init_static_field(keys[2], cfgs["static_fine"], device)
+        params["temp_fine"] = init_temporal_field(keys[3], cfgs["temp_fine"], device)
     return TrainState(params=params, opt_state=init_opt_state(params), step=0, rng=keys[7])
 
 
@@ -266,7 +292,7 @@ def prepare_composite(args, device: torch.device, mesh=None) -> dict:
     return {"device_data": device_data, "state": state, "cfgs": cfgs, "hp": hp, "tx": tx,
             "train_step": train_step, "depth_values": depth_values, "hull": hull,
             "max_pixel_value": max_pixel_value, "test_views": test_views,
-            "chunk_size": _chunk_size(args)}
+            "chunk_size": _chunk_size(args), "info": info}
 
 
 def _device_data(data, var_ids, non_var_ids, device) -> dict:
@@ -392,11 +418,14 @@ def train_composite(args=None, argv=None, max_steps: Optional[int] = None) -> di
     setup = prepare_composite(args, device)
     hp, cfgs = setup["hp"], setup["cfgs"]
     test_views = setup["test_views"]
-    # the reference jitters the eval depths once before the loop (from
-    # PRNGKey(seed + 1) in the JAX trainer)
-    n_samples = setup["depth_values"].shape[0]
-    test_depths = stratify_depths(setup["depth_values"], t_rand=torch.from_numpy(
-        prng.uniform(prng.key(args.seed + 1), (n_samples,))).to(device))
+    # the reference jitters the eval depths once before the loop, the fine
+    # pair's grid too when the hierarchy is on
+    info = setup["info"]
+    test_depths = eval_depths(info, args.depth_samples_per_ray_coarse, args.seed + 1, device)
+    test_depths_fine = None
+    if args.depth_samples_per_ray_fine > 0:
+        test_depths_fine = eval_depths(info, args.depth_samples_per_ray_fine, args.seed + 2,
+                                       device)
     n_total = (max_steps if max_steps is not None else args.n_iters) + 1
 
     def early_stop_fn(metrics, step, n_now):
@@ -418,7 +447,8 @@ def train_composite(args=None, argv=None, max_steps: Optional[int] = None) -> di
     def eval_view(state, view, step):
         render = evaluation.render_test_view(
             state.params, view["origins"], view["directions"], view["phases"], test_depths,
-            step, cfgs, hp, setup["max_pixel_value"], hull=setup["hull"])
+            step, cfgs, hp, setup["max_pixel_value"], depth_values_fine=test_depths_fine,
+            hull=setup["hull"])
         tm = evaluation.test_metrics(render, view["image"], step, hp, img_shape=view["shape"])
         if "dyn_gt" in view:
             wv, hv = view["shape"]
@@ -528,8 +558,7 @@ def train_static(args=None, argv=None, max_steps: Optional[int] = None) -> dict:
     device_data = _device_data(data, var_ids, non_var_ids, device)
     # key selection on the first test frame only (reference behavior)
     test_view = _view_tensors(data.test_frames[0], info, device) if data.test_frames else None
-    test_depths = stratify_depths(depth_values, t_rand=torch.from_numpy(prng.uniform(
-        prng.key(args.seed + 1), (depth_values.shape[0],))).to(device))
+    test_depths = eval_depths(info, args.depth_samples_per_ray_coarse, args.seed + 1, device)
     n_total = (max_steps if max_steps is not None else args.n_iters) + 1
     last_eval: dict = {}  # feeds best-by-metric checkpoint retention
 

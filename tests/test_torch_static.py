@@ -382,9 +382,15 @@ def test_only_prepare_data_builds_one_phase(tiny_data):
     assert frames and {fr["heart_phase"] for fr in frames} == {0}
 
 
-def test_sweep_raises():
-    with pytest.raises(NotImplementedError, match="sweeps"):
-        run_nerf.main([*TINY, "--platform", "cpu", "--wandb_sweep_yaml", "sweep.yaml"])
+def test_sweep_raises(tmp_path):
+    # sweeps are ported: run_nerf runs one through train_static, and an
+    # override that would truncate an int flag raises before any training,
+    # as JAX's overwrite_args refuses it
+    sweep = tmp_path / "sweep.yaml"
+    sweep.write_text("method: grid\nparameters:\n  img_sample_size:\n    values: ['64.5']\n")
+    with pytest.raises(ValueError, match="fractional"):
+        run_nerf.main([*TINY, "--platform", "cpu", "--wandb_sweep_yaml", str(sweep),
+                       "--log_dir_root", str(tmp_path / "cases")])
 
 
 def test_tiny_train_static_follows_jax(tiny_runs):

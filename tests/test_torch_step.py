@@ -288,12 +288,42 @@ def test_adam_update_and_static_freeze_match_optax(freeze):
 
 
 def test_unported_options_raise():
-    c = cfgs(ts)
-    tx = ts.make_optimizer(1e-3, 0.01, 300)
-    z = torch.linspace(3.6, 5.4, 8)
-    with pytest.raises(NotImplementedError):
-        ts.make_composite_train_step(c, dataclasses.replace(hparams(ts), depth_samples_fine=8),
-                                     tx, z, 2.16)
+    # the fine pass is ported: its step builds, and one step of it follows
+    # JAX's (the loss within 1e-5 relative, the same next key); under a
+    # data-parallel mesh it takes the autograd path, which is still not
+    # ported there and raises
+    c = {**cfgs(ts), **{f"{k}_fine": dataclasses.replace(v, num_filters=16)
+                        for k, v in cfgs(ts).items()}}
+    jc = {**cfgs(js), **{f"{k}_fine": dataclasses.replace(v, num_filters=16)
+                         for k, v in cfgs(js).items()}}
+    tx, jtx = ts.make_optimizer(1e-3, 0.01, 300), js.make_optimizer(1e-3, 0.01, 300)
+    z = np.asarray(np.linspace(3.6, 5.4, 8), np.float32)
+    thp = dataclasses.replace(hparams(ts), depth_samples_fine=8, depth_samples_coarse=8)
+    jhp = dataclasses.replace(hparams(js), depth_samples_fine=8, depth_samples_coarse=8)
+    keys = jax.random.split(jax.random.PRNGKey(0), 8)
+    params = {"static": jf.init_static_field(keys[0], jc["static"]),
+              "temp": jf.init_temporal_field(keys[1], jc["temp"]),
+              "static_fine": jf.init_static_field(keys[2], jc["static_fine"]),
+              "temp_fine": jf.init_temporal_field(keys[3], jc["temp_fine"])}
+    rays = np.zeros((40, 4, 3), np.float32)
+    rays[:, 0] = [0.05, -0.1, -4.5]
+    rays[:, 1] = [0.01, -0.02, 1.0]
+    rays[:, 2], rays[:, 3] = 2.0, 1.0
+    rays[:, 1, 0] += np.linspace(-0.05, 0.05, 40, dtype=np.float32)
+    phases = (np.arange(40) % 10).astype(np.int32)
+    ids = np.arange(40)
+    jstate, jm = js.make_composite_train_step(jc, jhp, jtx, jnp.asarray(z), 2.16)(
+        js.TrainState(params, jtx.init(params), jnp.int32(0), keys[7]), jnp.asarray(rays),
+        jnp.asarray(phases), jnp.asarray(ids, jnp.int32), jnp.asarray(ids, jnp.int32))
+    tparams = torch_params(jax.tree.map(np.asarray, params))
+    tstate = ts.TrainState(tparams, ts.init_opt_state(tparams), 0,
+                           np.asarray(jax.random.key_data(keys[7])))
+    tm = ts.make_composite_train_step(c, thp, tx, torch.tensor(z), 2.16)(
+        tstate, torch.tensor(rays), torch.tensor(phases), torch.tensor(ids), torch.tensor(ids))
+    np.testing.assert_allclose(float(tm["train_loss"]), float(jm["train_loss"]), rtol=1e-5)
+    np.testing.assert_array_equal(tstate.rng, np.asarray(jax.random.key_data(jstate.rng)))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ts.make_composite_train_step(c, thp, tx, torch.tensor(z), 2.16, mesh=object())
 
 
 def test_trainer_fused_loss_with_hull_runs_finite(tmp_path, capsys):
