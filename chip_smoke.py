@@ -77,6 +77,23 @@
       ``configs/synth-4view-best.txt`` and phase c's dataset: the rung
       budgets, K3 on every step of every run, and the promoted configs
       resumed from their checkpoints;
+   l. non-SYNTH data, the volumes built in the background since the first
+      main path (``VolumeBuilds``): MAGIX-SURR, 10 phases of the port's
+      ``write_surrogate_case`` (256 x 256 x 160 HU -> 256^3 attenuation)
+      in 5 processes, its dataset built on the card with the CCTA preset,
+      and ``scripts/tpu_ccta_surrogate.py::build(6000)``'s recipe at the
+      flagship widths: (a) 10 K3 steps without the hull, the step-0 loss
+      and step-10 PSNR held against ``JAX_MAGIX`` under phase d's gates;
+      (b) 1000 K3 + hull steps, ``run_eval`` of checkpoint-1000 over the 40
+      views held to ``GATE_MAGIX_PSNR`` / ``GATE_MAGIX_DYN_CORR`` and
+      printed beside the JAX round-5 record, the warm K3 + hull step and
+      eval view on this data; (c) the native C++ projector against the
+      card's on one view (``NATIVE_ATOL``);
+   l'. ``--use_experiment_name true --experiment_name one-frame-resp`` on
+      those volumes: 6 K3 steps and one eval;
+   m. XCAT-SURR: the XCAT driver contract at 512 x 512 x 401 through the
+      port's stand-in ``dxcat1_bin`` for 2 phases (in the background), the
+      XCAT preset's dataset, 6 K3 steps and one eval;
    g. data parallelism at the flagship widths: world 1 over NCCL in this
       process (the sharded K3 entry equals K3 bitwise), then ``DP_WORLD``
       ranks over gloo on the one card in spawned processes (the sharded K3
@@ -85,8 +102,9 @@
       losses within ``LOSS_REL`` of the single-card steps);
 5. times the warm flagship step and eval render on the flagship dataset,
    in turns: K3, K1+K2, plain, K3+hull (the clean-protocol hull), K3 under
-   bf16 compute, K3 over bf16 residuals, then in the reverse order; the
-   same for the fourier composite (K3, K1+K2, plain);
+   bf16 compute, K3 over bf16 residuals, then in the reverse order, and
+   prints phase l's K3 + hull step, eval view and dataset build beside
+   the flagship's; the same for the fourier composite (K3, K1+K2, plain);
 6. profiles three K3 steps with ``torch.profiler`` (device time by kernel);
 7. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
    and last the result line.
@@ -102,6 +120,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -219,6 +238,39 @@ JAX_FINE = os.path.join(REPO, "artifacts", "port", "composite_fine_jax-10.json")
 # (max_iter SWEEP_MAX_ITER: rungs 1, 3, 9) on configs/synth-4view-best.txt
 SWEEP_YAML = os.path.join(REPO, "configs", "sweep-4view-data.yaml")
 SWEEP_MAX_ITER = 9
+# phase 4l: the MAGIX (CCTA) surrogate at its native scale, MAGIX_PHASES
+# phases of ccta_surrogate.write_surrogate_case (256 x 256 x 160 HU at
+# (1.0, 1.0, 1.6) mm -> 256^3 attenuation) built in MAGIX_WORKERS processes
+# in the background while the earlier phases run, and
+# scripts/tpu_ccta_surrogate.py::build(6000)'s recipe on configs/composite.txt
+# (surrogate_argv): (a) MAGIX_PARITY_STEPS steps without the hull against
+# the JAX record of the same command and seed (JAX_MAGIX, made on the CPU by
+# scripts/surrogate_jax_record.py) under phase 4d's gates; (b) the recipe as
+# written cut to MAGIX_STEPS steps, checkpoint-1000 scored over the 40 views
+# and held to a floor set before the first card run (the JAX round-5 run of
+# the same recipe, JAX_MAGIX_RUN, scores 12.64 dB / dyn_corr 0.594 there);
+# (c) the native C++ projector against the card's on one view, within the
+# 1e-4 of tests/test_native.py
+MAGIX_PHASES, MAGIX_WORKERS = 10, 5
+MAGIX_SHAPE = (256, 256, 160)
+MAGIX_PARITY_STEPS = 10
+MAGIX_STEPS = 1000
+JAX_MAGIX = os.path.join(REPO, "artifacts", "port", "magix_surrogate_jax-10.json")
+JAX_MAGIX_RUN = os.path.join(REPO, "artifacts", "round5", "magix_surrogate_run-6000.json")
+GATE_MAGIX_PSNR = 11.0
+GATE_MAGIX_DYN_CORR = 0.50
+NATIVE_ATOL = 1e-4
+# phase 4l': the experiment view list configs/experiments/EXPERIMENT.json on
+# phase 4l's volumes; phase 4m: XCAT-SURR through the XCAT driver contract
+# (the port's stand-in generator installed as dxcat1_bin) at the real
+# 512 x 512 x 401 for XCAT_PHASES phases (all ten are ~17 GB on disk), in
+# the background with the MAGIX volumes
+EXPERIMENT = "one-frame-resp"
+XCAT_PHASES = 2
+XCAT_DIMS = (512, 512, 401)
+XCAT_PAR = ("0.0\thrt_start_phase_index (cardiac phase at sim start)\n"
+            "0.0\tresp_start_phase_index (respiratory phase at sim start)\n"
+            "1\tout_frames (number of output frames)\n")
 
 
 def log(msg: str) -> None:
@@ -1231,6 +1283,378 @@ def sweep_phase(workdir: str, extra_argv: tuple = ()) -> dict:
     return {"wall_s": wall, "results": results, "runs": runs, "ranked": ranked}
 
 
+class Background:
+    """``fn(*args)`` in a thread, started at once: :meth:`result` joins it
+    and returns its value (raising its error), ``seconds`` its wall time."""
+
+    def __init__(self, fn, *args):
+        import threading
+
+        self.value, self.error, self.seconds = None, None, None
+        self.thread = threading.Thread(target=self._run, args=(fn, args), daemon=True)
+        self.thread.start()
+
+    def _run(self, fn, args):
+        t0 = time.perf_counter()
+        try:
+            self.value = fn(*args)
+        except BaseException as e:  # re-raised in the main thread by result()
+            self.error = e
+        self.seconds = time.perf_counter() - t0
+
+    def result(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.value
+
+
+def magix_volumes(vols: str) -> None:
+    from nerfca_tpu_torch.data.ccta_surrogate import write_surrogate_case
+
+    write_surrogate_case(vols, phases=MAGIX_PHASES, shape=MAGIX_SHAPE, workers=MAGIX_WORKERS,
+                         verbose=False)
+
+
+def xcat_volumes(xcat_path: str) -> list:
+    """The XCAT driver contract at the real dims for XCAT_PHASES phases:
+    the port's stand-in installed as ``dxcat1_bin``, ``prepare_and_run_xcat``
+    per phase, the raw bins deleted after extraction (as
+    scripts/tpu_xcat_surrogate.py does). Per phase: its registry entry, its
+    seconds and the artery voxels of its ``dyn_volume_tigre.npy``."""
+    import numpy as np
+
+    from nerfca_tpu_torch.data import dxcat_surrogate_bin, xcat
+
+    dxcat_surrogate_bin.install(xcat_path)
+    for name in ("volume", "noarteries"):
+        with open(os.path.join(xcat_path, f"{name}.samp.par"), "w") as f:
+            f.write(XCAT_PAR)
+    out = []
+    for p in range(XCAT_PHASES):
+        t0 = time.perf_counter()
+        obj = xcat.prepare_and_run_xcat(p / 10.0, 0.0, xcat_path, dimensions=XCAT_DIMS)
+        run_dir = os.path.join(xcat_path, str(obj["id"]))
+        for name in ("volume", "noarteries"):
+            os.remove(os.path.join(run_dir, f"{name}_atn_1.bin"))
+        dyn = np.load(os.path.join(run_dir, "dyn_volume_tigre.npy"))
+        out.append({**obj, "seconds": time.perf_counter() - t0,
+                    "dyn_voxels": int((dyn > 0).sum()), "shape": list(dyn.shape)})
+    return out
+
+
+class VolumeBuilds:
+    """Phases 4l and 4m's volumes, built in the background while the
+    earlier phases use the card, each family in its own thread (the MAGIX
+    phases in MAGIX_WORKERS spawned processes, the XCAT generator in
+    subprocesses) under ``workdir``. As a context manager it waits for both
+    on leaving, so that no build outlives its directory."""
+
+    def __init__(self, workdir: str):
+        os.environ["NERFCA_REPO"] = REPO  # where the installed stand-in finds the port
+        self.magix_vols = os.path.join(workdir, "magix-vols")
+        self.xcat_path = os.path.join(workdir, "xcat")
+        os.makedirs(self.xcat_path, exist_ok=True)
+        self.magix = Background(magix_volumes, self.magix_vols)
+        self.xcat = Background(xcat_volumes, self.xcat_path)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for b in (self.magix, self.xcat):
+            b.thread.join()
+        return False
+
+
+def surrogate_argv(data_name: str, volume_root: str, workdir: str, n_phases: int = 10,
+                   n: int = 6000) -> list:
+    """scripts/tpu_ccta_surrogate.py::build(n)'s argv less its eval, save,
+    log and chunk cadence and its step count: its data_argv() with
+    ``data_name``, phases 0 to ``n_phases``, the schedules of ``n`` steps,
+    the motion hull, ray jitter, K3, on the card, seed 0. It follows
+    ``--config configs/composite.txt``."""
+    return ["--data_name", data_name, "--x_ray_type", "rotation", "--data_size", "200",
+            "--volume_root", volume_root, "--data_limited_range", "60", "--data_step_size", "120",
+            "--data_numb_angles", "4", "--data_time_range_start", "0",
+            "--data_time_range_end", str(n_phases), "--selection_view", "0,0",
+            "--data_root", os.path.join(workdir, "data"),
+            "--keep_last_n_checkpoints", "50", "--best_metric", "separated_psnr",
+            "--lr_decay_steps", str(int(n * 0.75)),
+            "--static_pos_enc_window_decay_steps", str(int(n * 0.75)),
+            "--temp_pos_enc_window_decay_steps", str(int(n * 0.75)),
+            "--hyperparam_decay_steps", str(int(n * 0.5)),
+            "--favor_s_weight_delay_steps", str(int(n * 0.2)),
+            "--entro_clip_threshold", "1e-6", "--use_motion_hull", "true",
+            "--ray_jitter_perc", "1.0", "--use_pallas", "true", "--use_fused_loss", "true",
+            "--use_wandb", "false", "--platform", "cuda", "--seed", "0"]
+
+
+def k3_each_step(res: dict, n: int, what: str) -> None:
+    tl = res["train_launches"]
+    if (tl["fused_train_loss"] != n or tl["fused_field_fwd"] != n
+            or tl["fused_field_bwd"] != n):
+        raise AssertionError(f"{what}: expected one K3 (K1, the loss kernel, K2) on each of "
+                             f"{n} steps: {tl}")
+    if len(res["train"]) < 1 or not all(math.isfinite(r["train_loss"]) for r in res["train"]):
+        raise AssertionError(f"{what}: non-finite logged loss {res['train']}")
+
+
+def magix_phase(workdir: str, vb: VolumeBuilds, extra_argv: tuple = ()) -> dict:
+    """Phase 4l: MAGIX-SURR on the card. Waits for the background volumes,
+    then (a) MAGIX_PARITY_STEPS K3 steps of the recipe without the hull,
+    the dataset built on the card by the first run, with an eval at the
+    end and one of the initial parameters; (b) the recipe as written for
+    MAGIX_STEPS steps (K3 + hull, checkpoints 500 and 1000), ``run_eval``
+    of checkpoint-1000 over the 40 views of evaluate.json, the warm K3+hull
+    step and eval view on this data; (c) the native projector against the
+    card's on the first train view of phase 0. Raises on a failure other
+    than the gates against the JAX records, which :func:`report_magix`
+    applies. ``extra_argv`` is appended to every command line."""
+    import numpy as np
+    import torch
+
+    from nerfca_tpu_torch.data import native
+    from nerfca_tpu_torch.data.dataset import dataset_paths
+    from nerfca_tpu_torch.ops.projector import project_view
+    from nerfca_tpu_torch.train import evaluation, run_eval, trainer
+    from nerfca_tpu_torch.train.config import parse_args
+    from nerfca_tpu_torch.train.step import make_composite_train_step
+
+    vb.magix.result()
+    vols = vb.magix_vols
+    argv = ["--config", os.path.join(REPO, "configs", "composite.txt"),
+            *surrogate_argv("MAGIX-SURR", vols, workdir),
+            # build(6000)'s cadence
+            "--display_every", "250", "--save_every", "500", "--log_every", "250",
+            "--steps_per_chunk", "250", *extra_argv]
+
+    # (a) parity: no hull (a voxel on the carve threshold can flip under
+    # the projectors' rounding), the JAX record's cadence
+    parity = counted_run([*argv, "--use_motion_hull", "false", "--n_iters",
+                          str(MAGIX_PARITY_STEPS), "--display_every", str(MAGIX_PARITY_STEPS),
+                          "--log_every", "1", "--log_dir_root",
+                          tempfile.mkdtemp(prefix="cases-", dir=workdir)])
+    n_total = MAGIX_PARITY_STEPS + 1
+    k3_each_step(parity, n_total, "MAGIX-SURR parity")
+    if len(parity["train"]) != n_total or [r["step"] for r in parity["evals"]] != [
+            MAGIX_PARITY_STEPS]:
+        raise AssertionError(f"MAGIX-SURR parity: {len(parity['train'])} logged steps, evals "
+                             f"{parity['evals']}")
+    out = parity["run"]
+    setup, pargs = out["setup"], parse_args(argv)
+    view, dev = setup["test_views"][0], setup["depth_values"].device
+    init = trainer._init_composite_state(pargs, setup["cfgs"], None, dev)
+    render = evaluation.render_test_view(
+        init.params, view["origins"], view["directions"], view["phases"],
+        trainer.eval_depths(setup["info"], pargs.depth_samples_per_ray_coarse, pargs.seed + 1,
+                            dev), 0, setup["cfgs"], setup["hp"], setup["max_pixel_value"])
+    psnr = {0: evaluation.test_metrics(render, view["image"], 0, setup["hp"],
+                                       img_shape=view["shape"])["test_image_psnr"],
+            MAGIX_PARITY_STEPS: parity["evals"][0]["test_image_psnr"]}
+
+    # (b) the recipe as written, with the hull, cut to MAGIX_STEPS steps
+    res = counted_run([*argv, "--n_iters", str(MAGIX_STEPS), "--log_dir_root",
+                       os.path.join(workdir, "cases-magix")])
+    out = res["run"]
+    k3_each_step(res, MAGIX_STEPS + 1, "MAGIX-SURR recipe")
+    if out["diverged_at"] is not None or out["final_step"] != MAGIX_STEPS + 1:
+        raise AssertionError(f"MAGIX-SURR recipe: diverged at {out['diverged_at']}, final step "
+                             f"{out['final_step']}")
+    hull = out["setup"]["hull"]
+    occupied = float((hull.grid > 0.5).float().mean()) if hull is not None else 0.0
+    if not occupied > 0:
+        raise AssertionError("MAGIX-SURR recipe: the carved hull has no voxel above 0.5")
+    ckpts = sorted(int(n[11:]) for n in os.listdir(out["log_dir"])
+                   if n.startswith("checkpoint-") and n[11:].isdigit())
+    if not {500, 1000} <= set(ckpts):
+        raise AssertionError(f"MAGIX-SURR recipe: checkpoints on disk {ckpts}")
+    args = parse_args([*argv, "--resume_from", os.path.join(out["log_dir"], "checkpoint-1000")])
+    before, t0 = launch_counts(), time.perf_counter()
+    result = run_eval.evaluate_checkpoint(args, write_images=False)
+    keys = ("mean_psnr", "mean_ssim", "mean_dyn_psnr_masked", "mean_dyn_corr")
+    score = {"wall_s": time.perf_counter() - t0, "views": len(result["per_view"]),
+             "k1_launches": launch_counts()["fused_field_fwd"] - before["fused_field_fwd"],
+             **{k: result[k] for k in keys}}
+    if (score["views"] != 40 or result["step"] != 1000 or score["k1_launches"] < 40
+            or not all(math.isfinite(score[k]) for k in keys)):
+        raise AssertionError(f"MAGIX-SURR: run_eval of checkpoint-1000 {score}")
+
+    setup, state = out["setup"], out["state"]
+    dd, view = setup["device_data"], setup["test_views"][0]
+    step = make_composite_train_step(setup["cfgs"], setup["hp"], setup["tx"],
+                                     setup["depth_values"], setup["max_pixel_value"])
+
+    def train_step():
+        step(state, dd["rays"], dd["phases"], dd["var_ids"], dd["non_var_ids"], hull=hull)
+
+    def eval_view():
+        evaluation.render_test_view(state.params, view["origins"], view["directions"],
+                                    view["phases"], setup["depth_values"], state.step,
+                                    setup["cfgs"], setup["hp"], setup["max_pixel_value"],
+                                    hull=hull)
+
+    wall_ms(train_step, 3)
+    steady = {"step_ms_k3_hull": [wall_ms(train_step, 10) for _ in range(2)]}
+    wall_ms(eval_view, 1)
+    steady["eval_ms_k3_hull"] = [wall_ms(eval_view, 1) for _ in range(2)]
+
+    # (c) the native projector on the host against the card's, one view
+    vol = np.load(os.path.join(vols, "0", "full_volume_tigre.npy"))
+    with open(dataset_paths(pargs, pargs.data_root).general) as f:
+        info = json.load(f)
+    theta, phi = -30.0, 30.0  # the first of the four train views
+    t0 = time.perf_counter()
+    card = project_view(vol, info, theta, phi, device=dev).cpu().numpy()
+    card_s = time.perf_counter() - t0
+    if not native.is_available():
+        raise AssertionError(f"native projector: {native._error}")
+    t0 = time.perf_counter()
+    host = native.native_project_view(vol, info, theta, phi)
+    native_s = time.perf_counter() - t0
+    native_err = float(np.abs(host - card).max())
+    if not native_err <= NATIVE_ATOL:
+        raise AssertionError(f"native projector vs the card's: max abs {native_err:.3e}")
+    return {"parity": parity, "psnr": psnr, "res": res, "hull": hull, "occupied": occupied,
+            "checkpoints": ckpts, "score": score, "steady": steady,
+            "native": {"err": native_err, "max": float(np.abs(card).max()), "card_s": card_s,
+                       "native_s": native_s, "view": (theta, phi),
+                       "threads": native._load().cone_projector_num_threads()}}
+
+
+def report_magix(mg: dict, vb: VolumeBuilds, builds: dict, card: str) -> bool:
+    """Print phase 4l beside the JAX records; True when its gates pass."""
+    with open(JAX_MAGIX) as f:
+        rec = json.load(f)
+    with open(JAX_MAGIX_RUN) as f:
+        jrun = {r["step"]: r for r in json.load(f)["per_checkpoint_40view"]}
+    pr, res, sc = mg["parity"], mg["res"], mg["score"]
+    log(f"MAGIX-SURR ({card}): {MAGIX_PHASES} phases of write_surrogate_case in "
+        f"{MAGIX_WORKERS} processes, in the background: {vb.magix.seconds:.1f} s; dataset "
+        f"build on the card {builds.get('MAGIX-SURR', float('nan')):.1f} s (the flagship SYNTH "
+        f"build, its phantom included: {builds.get('SYNTH', float('nan')):.1f} s)")
+    log(f"  (a) parity, {MAGIX_PARITY_STEPS} K3 steps without the hull: {pr['wall_s']:.1f} s "
+        f"wall with the dataset build; launches: training {pr['train_launches']}, eval "
+        f"{pr['eval_launches']}")
+    loss = {r["step"]: r["train_loss"] for r in pr["train"]}
+    for s in sorted(int(k) for k in rec["train_loss"]):
+        log(f"  step {s}: train_loss {loss[s]:.7g} (JAX {rec['train_loss'][str(s)]:.7g})")
+    for s in sorted(int(k) for k in rec["evals"]):
+        log(f"  eval at step {s}: test_image_psnr {mg['psnr'][s]:.4f} dB (JAX "
+            f"{rec['evals'][str(s)]['test_image_psnr']:.4f})")
+    loss0_rel = abs(loss[0] - rec["train_loss"]["0"]) / abs(rec["train_loss"]["0"])
+    gap = abs(mg["psnr"][MAGIX_PARITY_STEPS]
+              - rec["evals"][str(MAGIX_PARITY_STEPS)]["test_image_psnr"])
+    parity_ok = loss0_rel <= GATE_STATIC_LOSS0_REL and gap <= GATE_STATIC_PSNR_DB
+    log(f"  gates against the JAX record: step-0 train_loss rel {loss0_rel:.3e} <= "
+        f"{GATE_STATIC_LOSS0_REL}, step-{MAGIX_PARITY_STEPS} PSNR gap {gap:.4f} dB <= "
+        f"{GATE_STATIC_PSNR_DB}: {'passed' if parity_ok else 'FAILED'}")
+    log(f"  (b) the recipe with the hull, {MAGIX_STEPS} steps: {res['train_steps']} steps in "
+        f"{res['train_s']:.2f} s of train chunks ({1e3 * res['train_s'] / res['train_steps']:.2f} "
+        f"ms a step); launches: training {res['train_launches']}, in-loop evals "
+        f"{res['eval_launches']}; hull res {mg['hull'].grid.shape[0]}, occupied share "
+        f"{mg['occupied']:.6f}; checkpoints {mg['checkpoints']}")
+    log(f"  selection view: {[(r['step'], round(r['test_image_psnr'], 3), round(r.get('test_dyn_corr', float('nan')), 4)) for r in res['evals']]}")
+    j = jrun.get(1000, {})
+    log(f"  run_eval checkpoint-1000 over {sc['views']} views ({sc['wall_s']:.2f} s, "
+        f"{sc['k1_launches']} K1 launches): PSNR {sc['mean_psnr']:.3f} dB, SSIM "
+        f"{sc['mean_ssim']:.4f}, dyn_psnr_masked {sc['mean_dyn_psnr_masked']:.3f}, dyn_corr "
+        f"{sc['mean_dyn_corr']:.4f} (the JAX round-5 record of the recipe at step 1000: "
+        f"{j.get('mean_psnr', float('nan')):.2f} dB, SSIM {j.get('mean_ssim', float('nan')):.3f}, "
+        f"dyn_corr {j.get('mean_dyn_corr', float('nan')):.3f})")
+    quality_ok = sc["mean_psnr"] >= GATE_MAGIX_PSNR and sc["mean_dyn_corr"] >= GATE_MAGIX_DYN_CORR
+    log(f"  quality floor at checkpoint-1000: PSNR {sc['mean_psnr']:.3f} >= {GATE_MAGIX_PSNR} "
+        f"and dyn_corr {sc['mean_dyn_corr']:.4f} >= {GATE_MAGIX_DYN_CORR}: "
+        f"{'passed' if quality_ok else 'FAILED'}")
+    log(f"  warm K3+hull step and eval view on this data: {json.dumps(mg['steady'])}")
+    nt = mg["native"]
+    log(f"  (c) native C++ projector ({nt['threads']} threads, {nt['native_s']:.2f} s) vs the "
+        f"card's ({nt['card_s']:.3f} s), view {nt['view']} of phase 0: max abs {nt['err']:.3e} "
+        f"(limit {NATIVE_ATOL}; line integrals up to {nt['max']:.4f})")
+    mg.update(loss0_rel=loss0_rel, psnr_gap=gap)
+    return parity_ok and quality_ok
+
+
+def experiment_phase(workdir: str, vb: VolumeBuilds, extra_argv: tuple = ()) -> dict:
+    """Phase 4l': ``--use_experiment_name true --experiment_name
+    EXPERIMENT`` on phase 4l's volumes (its own data root), without the
+    hull: 6 K3 steps and one eval, finite, one K3 a step."""
+    argv = [*surrogate_argv("MAGIX-SURR", vb.magix_vols, workdir), "--use_experiment_name",
+            "true", "--experiment_name", EXPERIMENT, "--use_motion_hull", "false",
+            "--data_root", os.path.join(workdir, "data-experiment"), *extra_argv]
+    res = drive_main_path(workdir, argv, 6)
+    k3_each_step(res, 6, f"experiment {EXPERIMENT}")
+    return res
+
+
+def xcat_phase(workdir: str, vb: VolumeBuilds, extra_argv: tuple = ()) -> dict:
+    """Phase 4m: XCAT-SURR from the background driver run (XCAT_PHASES
+    phases at 512 x 512 x 401, each with a non-empty artery volume), the
+    XCAT preset's dataset on the card, 6 K3 steps and one eval without the
+    hull (fewer than 10 phases write no variance maps); the XCAT workdir is
+    deleted after. Raises on a failure."""
+    phases = vb.xcat.result()
+    if len(phases) != XCAT_PHASES or not all(p["dyn_voxels"] > 0
+                                             and p["shape"] == list(XCAT_DIMS) for p in phases):
+        raise AssertionError(f"XCAT-SURR: the driver's phases {phases}")
+    argv = [*surrogate_argv("XCAT-SURR", vb.xcat_path, workdir, n_phases=XCAT_PHASES),
+            "--use_motion_hull", "false", *extra_argv]
+    res = drive_main_path(workdir, argv, 6)
+    k3_each_step(res, 6, "XCAT-SURR")
+    shutil.rmtree(vb.xcat_path)
+    res["phases"] = phases
+    return res
+
+
+def non_synth_phases(workdir: str, vb: VolumeBuilds, builds: dict, card: str) -> dict:
+    """Phases 4l, 4l' and 4m on ``vb``'s volumes, printed; raises when a
+    gate fails. ``builds`` holds the dataset build times by data family
+    (:func:`time_dataset_builds`)."""
+    mg = magix_phase(workdir, vb)
+    if not report_magix(mg, vb, builds, card):
+        raise AssertionError("MAGIX-SURR: the run is outside its gates")
+    ex = experiment_phase(workdir, vb)
+    log(f"experiment view list (--use_experiment_name true --experiment_name {EXPERIMENT}, "
+        f"MAGIX-SURR volumes, K3; {card}): {ex['wall_s']:.1f} s wall with its one-phase "
+        f"build; train_loss {[round(r['train_loss'], 6) for r in ex['train']]}")
+    log(f"  launches: training {ex['train_launches']}, eval {ex['eval_launches']}; eval "
+        f"render {ex['eval_ms']} ms; test_image_psnr {ex['eval']['test_image_psnr']:.3f}")
+    shutil.rmtree(vb.magix_vols)
+    xc = xcat_phase(workdir, vb)
+    log(f"XCAT-SURR ({card}): the driver contract at {' x '.join(map(str, XCAT_DIMS))} through "
+        f"the port's stand-in dxcat1_bin, {XCAT_PHASES} phases in the background: "
+        f"{vb.xcat.seconds:.1f} s ({[round(p['seconds'], 1) for p in xc['phases']]} s a "
+        f"phase), artery voxels {[p['dyn_voxels'] for p in xc['phases']]}, LCA box centers "
+        f"{[[round(v, 1) for v in p['bounding_box_center']] for p in xc['phases']]}; dataset "
+        f"build on the card {builds.get('XCAT-SURR', float('nan')):.1f} s; "
+        f"{xc['wall_s']:.1f} s wall; train_loss "
+        f"{[round(r['train_loss'], 6) for r in xc['train']]}")
+    log(f"  launches: training {xc['train_launches']}, eval {xc['eval_launches']}; eval "
+        f"render {xc['eval_ms']} ms; test_image_psnr {xc['eval']['test_image_psnr']:.3f}")
+    return {"magix": mg, "experiment": ex, "xcat": xc}
+
+
+def time_dataset_builds() -> dict:
+    """Wraps the trainer's dataset build to record the first build's
+    seconds of each data family (the card synchronized) in the dict it
+    returns."""
+    import torch
+
+    from nerfca_tpu_torch.train import trainer
+
+    builds, build_dataset = {}, trainer.build_dataset
+
+    def timed_build(args, *a, **k):
+        t0 = time.perf_counter()
+        out = build_dataset(args, *a, **k)
+        torch.cuda.synchronize()
+        builds.setdefault(str(args.data_name), time.perf_counter() - t0)
+        return out
+
+    trainer.build_dataset = timed_build
+    return builds
+
+
 def load_state_file(ckpt: str) -> dict:
     import torch
 
@@ -2208,7 +2632,11 @@ def bounds(shapes: dict, fourier: bool = False, bf16: bool = False) -> dict:
 
 
 def main() -> int:
+    import faulthandler
+
     import torch
+
+    faulthandler.enable()  # a crash in a native library prints where Python was
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2329,7 +2757,8 @@ def main() -> int:
         f"scale (limit {K2_REL}); K1 {fkc['k1_ms']:.3f} ms vs plain {fkc['k1_plain_ms']:.3f} ms, "
         f"K2 {fkc['k2_ms']:.3f} ms vs plain backward {fkc['k2_plain_ms']:.3f} ms ({card})")
 
-    with tempfile.TemporaryDirectory() as workdir:
+    builds = time_dataset_builds()
+    with tempfile.TemporaryDirectory() as workdir, VolumeBuilds(workdir) as vb:
         mp = drive_main_path(workdir, [], 6)
         tl = mp["train_launches"]
         if tl["fused_field_fwd"] < 1 or tl["fused_field_bwd"] < 1:
@@ -2434,6 +2863,10 @@ def main() -> int:
                  bool(r["resume_from"])) for r in sw["runs"]]
         log(f"  runs (first and last step, K3 launches, resumed): {runs}")
 
+        # phases 4l, 4l' and 4m: non-SYNTH data, the volumes built in the
+        # background since the first main path
+        mg = non_synth_phases(workdir, vb, builds, card)["magix"]
+
         sp = static_phase(workdir)
         if not report_static(sp, card):
             raise AssertionError("static: the run is outside the gates against the JAX record")
@@ -2466,6 +2899,11 @@ def main() -> int:
     steady = steady_state_times(fp["run"], hull)
     log(f"steady state in turns, K3 / K1+K2 / plain / K3+hull / K3 bf16 / K3 over bf16 "
         f"residuals then reversed ({card}): {json.dumps(steady)}")
+    log(f"MAGIX-SURR against the flagship ({card}): warm K3+hull step "
+        f"{mg['steady']['step_ms_k3_hull']} ms (flagship batches, the clean hull: "
+        f"{steady['step_ms_k3_hull']}), eval view {mg['steady']['eval_ms_k3_hull']} ms "
+        f"({steady['eval_ms_k3_hull']}); dataset build {builds.get('MAGIX-SURR', float('nan')):.1f} "
+        f"s ({builds.get('SYNTH', float('nan')):.1f})")
     fsteady = steady_state_times(fc["run"], None, names=("k3", "k1k2", "plain"))
     log(f"steady state of the fourier composite in turns, K3 / K1+K2 / plain then reversed "
         f"({card}): {json.dumps(fsteady)}")

@@ -1,1 +1,2 @@
-"""SYNTH phantom, view selection, dataset builder and loader."""
+"""Phantoms and surrogates, the XCAT and CCTA pipelines, view selection,
+the dataset builder and loader, volume I/O and the native projector."""

@@ -210,3 +210,11 @@ def synthetic_vessel_volume(
 
         vol = gaussian_filter(vol, sigma=smooth_sigma).astype(np.float32)
     return vol
+
+
+def synthetic_phantom_series(size: int = 64, num_phases: int = NUM_PHASES,
+                             **kwargs) -> list[np.ndarray]:
+    """All cardiac phases, ``phase = i / num_phases`` (the reference's
+    0..9 -> 0.0..0.9 convention, ``preprocess/datatoray.py:51-56``)."""
+    return [synthetic_phantom_volume(size=size, phase=i / num_phases, **kwargs)
+            for i in range(num_phases)]

@@ -14,6 +14,7 @@ Reference parity: ``preprocess/general_helpers.py:69-172``
 
 from __future__ import annotations
 
+import json
 from typing import Optional
 
 import numpy as np
@@ -119,3 +120,23 @@ def select_views(
         }
         for p in phases
     ]
+
+
+def load_experiment_views(path: str) -> list[dict]:
+    """Load a curated experiment json: the hand-written per-phase
+    view/phase list the reference reads for ``use_experiment_name``
+    (``preprocess/general_helpers.py:70-78`` — the file IS the
+    ``phase_volume_lst``). Viewpoint lists become float arrays; missing
+    ``resp_phase`` defaults to 0 and missing ``test_viewpoints`` to empty."""
+    with open(path) as f:
+        phase_list = json.load(f)
+    out = []
+    for obj in phase_list:
+        row = dict(obj)
+        row["hrt_phase"] = float(obj["hrt_phase"])
+        row.setdefault("resp_phase", 0)
+        row["train_viewpoints"] = np.asarray(obj["train_viewpoints"], dtype=float).reshape(-1, 2)
+        row["test_viewpoints"] = np.asarray(obj.get("test_viewpoints", []),
+                                            dtype=float).reshape(-1, 2)
+        out.append(row)
+    return out

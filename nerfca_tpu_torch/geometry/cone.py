@@ -1,4 +1,4 @@
-"""Cone-beam acquisition geometry and the SYNTH preset.
+"""Cone-beam acquisition geometry and the SYNTH, XCAT and CCTA presets.
 
 Port of ``nerfca_tpu/geometry/cone.py`` (numpy, unchanged math). The
 geometry is an immutable host-side dataclass; device code receives plain
@@ -9,7 +9,8 @@ Reference parity:
     units via ``scale_factor=1e-2``; ``nVoxel`` stored reversed (the TIGRE
     (z, y, x) convention).
   - near/far bound: ``preprocess/tigre_helpers.py:44-56``.
-  - the SYNTH preset follows the XCAT one, ``preprocess/tigre_helpers.py:140-173``.
+  - the XCAT preset: ``preprocess/tigre_helpers.py:140-173``; the SYNTH
+    preset follows it; the MAGIX/CCTA preset: ``:175-206``.
   - ``MAX_PIXEL_VALUE`` / ``SCALE_FACTOR``: ``preprocess/datatoray.py:19-20``.
 """
 
@@ -111,6 +112,43 @@ def get_near_far(geo: ConeGeometry, adjust: float = 0.0) -> tuple[float, float]:
     return float(near), float(far)
 
 
+def _detector(family: str, data_size: int) -> tuple[list, list]:
+    """The presets' detector: 200 x 200 at 1 mm or 50 x 50 at 4 mm."""
+    if data_size == 200:
+        return [200, 200], [1, 1]
+    if data_size == 50:
+        return [50, 50], [4, 4]
+    raise ValueError(f"unknown {family} data_size {data_size}; expected 200 or 50")
+
+
+def _preset(data_size: int, vol_dimensions: Sequence[int], family: str, dsd: float,
+            dso: float, d_voxel: float, off_origin: list) -> dict:
+    n_det, d_det = _detector(family, data_size)
+    return {
+        "DSD": dsd,
+        "DSO": dso,
+        "nDetector": n_det,
+        "dDetector": d_det,
+        "nVoxel": list(vol_dimensions),
+        "dVoxel": [d_voxel, d_voxel, d_voxel],
+        "offOrigin": off_origin,
+        "offDetector": [0, 0],
+        "accuracy": 0.5,
+        "mode": "cone",
+        "filter": None,
+    }
+
+
+def xcat_geometry(data_size: int, vol_dimensions: Sequence[int]) -> dict:
+    """XCAT phantom acquisition preset (``preprocess/tigre_helpers.py:140-173``)."""
+    return _preset(data_size, vol_dimensions, "XCAT", 2500, 450, 0.25, [10, -25, 25])
+
+
+def ccta_geometry(data_size: int, vol_dimensions: Sequence[int]) -> dict:
+    """MAGIX/CCTA acquisition preset (``preprocess/tigre_helpers.py:175-206``)."""
+    return _preset(data_size, vol_dimensions, "CCTA", 2000, 600, 0.9, [0, 0, 0])
+
+
 def synth_geometry(data_size: int, vol_dimensions: Sequence[int]) -> dict:
     """Geometry for the built-in synthetic phantom (no reference analog).
 
@@ -119,23 +157,5 @@ def synth_geometry(data_size: int, vol_dimensions: Sequence[int]) -> dict:
     extent, 512 x 0.25 mm) regardless of resolution, and sits centered at
     the isocenter.
     """
-    if data_size == 200:
-        n_det, d_det = [200, 200], [1, 1]
-    elif data_size == 50:
-        n_det, d_det = [50, 50], [4, 4]
-    else:
-        raise ValueError(f"unknown SYNTH data_size {data_size}; expected 200 or 50")
-    pitch = 128.0 / max(vol_dimensions)
-    return {
-        "DSD": 2500,
-        "DSO": 450,
-        "nDetector": n_det,
-        "dDetector": d_det,
-        "nVoxel": list(vol_dimensions),
-        "dVoxel": [pitch, pitch, pitch],
-        "offOrigin": [0, 0, 0],
-        "offDetector": [0, 0],
-        "accuracy": 0.5,
-        "mode": "cone",
-        "filter": None,
-    }
+    return _preset(data_size, vol_dimensions, "SYNTH", 2500, 450,
+                   128.0 / max(vol_dimensions), [0, 0, 0])

@@ -13,6 +13,8 @@ Reference parity:
     (``preprocess/proj_helpers.py:33-46``) uses Rz(+theta) and is always
     called with ``-theta`` (``preprocess/datatoray.py:105``), so the two
     stacks agree; this module implements the single shared convention.
+  - "roadmap" convention R = inv(Rz(larm) Rx(theta) Ry(phi)):
+    ``train/proj_helpers.py:34-47``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,15 @@ def rot_x(angle_rad: float) -> np.ndarray:
     m = np.eye(4)
     m[1, 1], m[1, 2] = c, -s
     m[2, 1], m[2, 2] = s, c
+    return m
+
+
+def rot_y(angle_rad: float) -> np.ndarray:
+    """4x4 homogeneous rotation about the y axis."""
+    c, s = np.cos(angle_rad), np.sin(angle_rad)
+    m = np.eye(4)
+    m[0, 0], m[0, 2] = c, s
+    m[2, 0], m[2, 2] = -s, c
     return m
 
 
@@ -71,3 +82,17 @@ def carm_source_matrix(
     source position in its translation column.
     """
     return carm_rotation(theta_deg, phi_deg, larm_deg) @ translation([0.0, 0.0, -dso])
+
+
+def roadmap_rotation(theta_deg: float, phi_deg: float, larm_deg: float = 0.0) -> np.ndarray:
+    """Alternative 'roadmap run' pose convention (``train/proj_helpers.py:34-38``)."""
+    m = rot_z(np.deg2rad(larm_deg)) @ rot_x(np.deg2rad(theta_deg)) @ rot_y(np.deg2rad(phi_deg))
+    return np.linalg.inv(m)
+
+
+def roadmap_source_matrix(source_pt, theta_deg: float, phi_deg: float, larm_deg: float = 0.0,
+                          table_translation=(0.0, 0.0, 0.0)) -> np.ndarray:
+    """Roadmap pose with source and table translations
+    (``train/proj_helpers.py:40-47``)."""
+    m = roadmap_rotation(theta_deg, phi_deg, larm_deg) @ translation(source_pt)
+    return translation(list(table_translation)) @ m
