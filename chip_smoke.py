@@ -100,6 +100,20 @@
       within K3's gate of the whole batch's, its parts timed, ``DP_STEPS``
       data-parallel steps with the ranks' parameters bitwise equal and the
       losses within ``LOSS_REL`` of the single-card steps);
+   n. data parallelism on the autograd paths at full width, after g: world
+      1 over NCCL in this process (``DP_STEPS`` mesh steps of the
+      two-kernel step and of ``configs/3d.txt``'s static step equal the
+      unsharded steps bitwise), then ``DP_WORLD`` ranks over gloo on the
+      one card, ``DP_STEPS`` steps each of the flagship two-kernel step,
+      phase j's fine pass (the batch's arg-max of the fine weights on rank
+      1, global ray 0 on rank 0), the static step on its one-field kernels,
+      and one step on 1023 rays, which do not split evenly: the ranks'
+      parameters bitwise equal, the losses within ``LOSS_REL`` and the
+      first step's gradients and the parameters after the steps within
+      K2's gate of the single-card steps (the fine pass's also within the
+      single card's own floor, one ulp on every parameter), K1/K2 launched
+      per rank as the single-card step launches them; the two-kernel
+      step's parts timed against the single-card step;
 5. times the warm flagship step and eval render on the flagship dataset,
    in turns: K3, K1+K2, plain, K3+hull (the clean-protocol hull), K3 under
    bf16 compute, K3 over bf16 residuals, then in the reverse order, and
@@ -2300,6 +2314,426 @@ def data_parallel_phase(workdir: str, device: str = "cuda", n_rays: int = 1024,
     return res
 
 
+def dpa_problems(device, n_rays: int = 1024, n_samples: int = 500,
+                 n_fine: int = FINE_SAMPLES) -> dict:
+    """Phase 4n's problems at full width, the same on every rank: the
+    flagship two-kernel step (``configs/composite.txt --use_pallas true``,
+    its 50% high-variance share), phase 4j's fine pass (``n_fine`` fine
+    samples, the 128-wide fine pair), ``configs/3d.txt``'s static step on
+    its one-field kernels, and the two-kernel step on ``n_rays - 1`` rays,
+    which do not split evenly over two ranks. Each: a step builder
+    ``make(mesh)``, a fresh ``state()`` drawn from the seed as the trainers
+    draw it, the step's arguments, the steps and K1/K2's launches a step.
+    The ray table is :func:`dp_problem`'s two flagship views; its
+    high-variance ids are the rays whose largest adjacent coarse-density
+    difference (the fine weights ``w``) is in the lower three quarters at
+    the initial state, so that a batch's first ``nb_var_rays`` rays (rank
+    0's slice, global ray 0 among them) never hold the batch's arg-max of
+    ``w`` (:func:`dpa_fine_split`)."""
+    import dataclasses
+
+    import torch
+
+    from nerfca_tpu_torch.models.fields import init_static_field
+    from nerfca_tpu_torch.ops import prng
+    from nerfca_tpu_torch.ops.sampling import linspace_depths
+    from nerfca_tpu_torch.train import trainer as tr
+    from nerfca_tpu_torch.train.config import parse_args
+    from nerfca_tpu_torch.train.step import (
+        TrainState, init_opt_state, make_composite_train_step, make_static_train_step,
+    )
+
+    pb = dp_problem(device, n_rays, n_samples)
+    common = ["--use_pallas", "true", "--img_sample_size", str(n_rays),
+              "--depth_samples_per_ray_coarse", str(n_samples)]
+    composite = os.path.join(REPO, "configs", "composite.txt")
+    args = parse_args(["--config", composite, *common])
+    fine_args = parse_args(["--config", composite, *common, *FINE_ARGV,
+                            "--depth_samples_per_ray_fine", str(n_fine)])
+    static_args = parse_args(["--config", STATIC_CONFIG, *common])
+    tx = tr.make_optimizer(args.lr, args.lr_end_factor, args.lr_decay_steps)
+    var_ids, non_var_ids = dpa_fine_split(pb, fine_args, device)
+    ids = (var_ids, non_var_ids)
+    out = {}
+    for name, a, extra in (("two_kernel", args, {}), ("fine", fine_args, {}),
+                           ("uneven", args, {"img_sample_size": n_rays - 1})):
+        cfgs = tr.field_configs_from_args(a)
+        hp = dataclasses.replace(tr.composite_hparams_from_args(a), **extra)
+        hp = dataclasses.replace(hp, nb_var_rays=int(0.5 * hp.img_sample_size))
+        out[name] = {"make": (lambda cfgs, hp: lambda mesh: make_composite_train_step(
+                         cfgs, hp, tx, pb["z"], pb["i0"], mesh=mesh))(cfgs, hp),
+                     "state": (lambda a, cfgs: lambda: tr._init_composite_state(
+                         a, cfgs, tx, device))(a, cfgs),
+                     "args": (pb["rays"], pb["phases"], *ids), "hp": hp, "cfgs": cfgs,
+                     "z": pb["z"], "i0": pb["i0"], "k1": "fused_field_fwd",
+                     "k2": "fused_field_bwd",
+                     "per_step": 2 if name == "fine" else 1,
+                     "n_steps": 1 if name == "uneven" else DP_STEPS}
+    cfg = tr.static_config_from_args(static_args)
+    shp = tr.static_hparams_from_args(static_args)
+    stx = tr.make_optimizer(static_args.lr, static_args.lr_end_factor, static_args.lr_decay_steps)
+    z_static = linspace_depths(*flagship_geometry()[1], n_samples, device=device)
+
+    def static_state():
+        key = prng.key(static_args.seed)
+        params = {"static": init_static_field(key, cfg, device)}
+        return TrainState(params=params, opt_state=init_opt_state(params), step=0, rng=key)
+
+    zero = torch.zeros(1, dtype=torch.long, device=device)
+    out["static"] = {"make": lambda mesh: make_static_train_step(cfg, shp, stx, z_static,
+                                                                 pb["i0"], mesh=mesh),
+                     "state": static_state, "args": (pb["rays"], pb["phases"], zero, zero),
+                     "hp": shp, "k1": "fused_static_field_fwd",
+                     "k2": "fused_static_field_bwd", "per_step": 1, "n_steps": DP_STEPS}
+    return out
+
+
+def dpa_fine_split(pb: dict, fine_args, device) -> tuple:
+    """The ray table's ids split by the largest fine weight ``w`` of each
+    ray (adjacent coarse-density differences at the shared depths, the
+    initial coarse pair through K1): the lower three quarters, then the
+    upper quarter."""
+    import torch
+
+    from nerfca_tpu_torch.ops.render import render_transmission_composite
+    from nerfca_tpu_torch.train import trainer as tr
+    from nerfca_tpu_torch.train.step import evaluate_fields, field_window
+
+    cfgs = tr.field_configs_from_args(fine_args)
+    hp = tr.composite_hparams_from_args(fine_args)
+    params = tr._init_composite_state(fine_args, cfgs, None, device).params
+    rays, phases = pb["rays"], pb["phases"]
+    windows = {k: field_window(cfgs[k], 0, device) for k in ("static", "temp")}
+    top = []
+    with torch.no_grad():
+        for i in range(0, rays.shape[0], 8192):
+            o, d = rays[i:i + 8192, 0].contiguous(), rays[i:i + 8192, 1].contiguous()
+            s_raw, t_raw = evaluate_fields(params, o, d, pb["z"], phases[i:i + 8192], windows,
+                                           cfgs, hp)
+            i0 = torch.full((o.shape[0],), pb["i0"], device=device)
+            _, s_sig, t_sig, _ = render_transmission_composite(s_raw, t_raw, i0, pb["z"])
+            total = s_sig + t_sig
+            top.append(torch.abs(total[:, 1:] - total[:, :-1]).amax(dim=1))
+    # a stable sort: every process must draw the same split, ties included
+    order = torch.argsort(torch.cat(top), stable=True)
+    cut = 3 * order.numel() // 4
+    return order[:cut].contiguous(), order[cut:].contiguous()
+
+
+def dpa_argmax_rank(case: dict, device) -> dict:
+    """Where the fine weights' arg-max of the fine case's first batch lies:
+    its rank (rays ``[0, R/2)`` rank 0's, global ray 0 among them) and rank
+    0's largest ``w`` over rank 1's, from the step's own draws and the
+    coarse pair through K1."""
+    import torch
+
+    from nerfca_tpu_torch.ops.render import render_transmission_composite
+    from nerfca_tpu_torch.ops.sampling import stratify_depths
+    from nerfca_tpu_torch.train.step import (
+        evaluate_fields, field_window, sample_ray_batch, step_draws, to_device,
+    )
+
+    hp, cfgs, state = case["hp"], case["cfgs"], case["state"]()
+    rays, phases, var_ids, non_var_ids = case["args"]
+    z_base = case["z"]
+    _, positions, _, t = step_draws(state.rng, hp, var_ids.shape[0], non_var_ids.shape[0],
+                                    rays.shape[0], z_base.shape[0])
+    positions, t = to_device(device, positions, t)
+    batch = sample_ray_batch(rays, phases, var_ids, non_var_ids, positions, hp)
+    z = stratify_depths(z_base, t_rand=t)
+    windows = {k: field_window(cfgs[k], 0, device) for k in ("static", "temp")}
+    with torch.no_grad():
+        s_raw, t_raw = evaluate_fields(state.params, batch["origins"], batch["directions"], z,
+                                       batch["phases"], windows, cfgs, hp)
+        i0 = torch.full((hp.img_sample_size,), case["i0"], device=device)
+        _, s_sig, t_sig, _ = render_transmission_composite(s_raw, t_raw, i0, z)
+        total = s_sig + t_sig
+        top = torch.abs(total[:, 1:] - total[:, :-1]).amax(dim=1)
+    half = hp.img_sample_size // 2
+    return {"argmax_rank": int(torch.argmax(top)) // half,
+            "rank0_max_over_rank1": float(top[:half].max() / top[half:].max())}
+
+
+def dpa_train(case: dict, mesh=None, nudge: int = 0) -> dict:
+    """The case's steps from its fresh state, data-parallel over ``mesh``
+    when given, the launch counts set to 0 just before and read just
+    after: the losses, the launches, the first step's gradients and the
+    final parameters flattened in ``param_items`` order, the final state.
+    ``nudge`` 1 or -1: every parameter moved one ulp up or down first (the
+    noise floor of a comparison between two runs)."""
+    import torch
+
+    from nerfca_tpu_torch.train import step as st
+
+    step, state = case["make"](mesh), case["state"]()
+    if nudge:
+        with torch.no_grad():
+            for _, t in st.param_items(state.params):
+                t.copy_(torch.nextafter(t, torch.full_like(t, nudge * math.inf)))
+    first, adam = [], st.adam_update
+
+    def spy(params, opt_state, grads, *a, **k):
+        if not first:
+            first.append(torch.cat([g.reshape(-1) for g in grads]).cpu())
+        return adam(params, opt_state, grads, *a, **k)
+
+    st.adam_update = spy
+    try:
+        reset_launch_counts()
+        losses = [float(step(state, *case["args"])["train_loss"])
+                  for _ in range(case["n_steps"])]
+        counts = launch_counts()
+    finally:
+        st.adam_update = adam
+    flat = torch.cat([t.detach().reshape(-1) for _, t in st.param_items(state.params)]).cpu()
+    return {"losses": losses, "launches": counts, "params": flat, "grads0": first[0],
+            "state": state,
+            "moments": [t.cpu() for t in state.opt_state["mu"] + state.opt_state["nu"]]}
+
+
+def dpa_leaf_rel(state, got, want) -> dict:
+    """Each leaf's max abs difference between two flat vectors in
+    ``param_items`` order, over the leaf's scale (``tests/test_torch_fine.py``'s
+    measure) and over K2's scale (max(leaf scale, 1e-2 x the global max),
+    :func:`leaf_errors`): the worst coarse leaf under each, with its name,
+    and the worst of the fine pair's."""
+    from nerfca_tpu_torch.train.step import param_items
+
+    items = param_items(state.params)
+    sizes = [t.numel() for _, t in items]
+    global_max = float(want.abs().max())
+    out = {"coarse": 0.0, "coarse_leaf": "", "fine": 0.0, "k2": 0.0, "k2_leaf": ""}
+    for (n, _), a, b in zip(items, got.split(sizes), want.split(sizes)):
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        rel, k2 = err / max(scale, 1e-30), err / max(scale, 1e-2 * global_max, 1e-30)
+        if k2 >= out["k2"]:
+            out["k2"], out["k2_leaf"] = k2, n
+        if "_fine" in n:
+            out["fine"] = max(out["fine"], rel)
+        elif rel >= out["coarse"]:
+            out["coarse"], out["coarse_leaf"] = rel, n
+    return out
+
+
+def dpa_check_launches(name: str, case: dict, launches: dict) -> None:
+    """K1 and K2 launched ``per_step`` times a step, and no K3."""
+    want = case["per_step"] * case["n_steps"]
+    if (launches[case["k1"]] != want or launches[case["k2"]] != want
+            or launches["fused_train_loss"]):
+        raise AssertionError(f"{name}: expected {case['k1']}/{case['k2']} {want} times each and "
+                             f"no K3, got {launches}")
+
+
+def dpa_rank(rank: int, world: int, port: int, out_dir: str, device: str = "cuda",
+             n_rays: int = 1024, n_samples: int = 500, n_fine: int = FINE_SAMPLES) -> None:
+    """One rank of phase 4n (``DP_WORLD`` processes over gloo, one card):
+    every case of :func:`dpa_problems` under the mesh, then, on the card,
+    the two-kernel step's parts timed with both ranks running: K1+K2 on
+    this rank's slice, the all-reduce of the gradient buffer, the whole
+    step. Writes ``dpa_rank<rank>.pt`` under ``out_dir``."""
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.distributed as dist
+
+    from nerfca_tpu_torch.parallel import batch_sharding, make_mesh, multihost
+    from nerfca_tpu_torch.train.step import composite_grads, param_items
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.initialize(f"localhost:{port}", world, rank, backend="gloo")
+    mesh = make_mesh(device=device)
+    dev = torch.device(device)
+    cases = dpa_problems(dev, n_rays, n_samples, n_fine)
+    res: dict = {"rank": rank}
+    for name, case in cases.items():
+        run = dpa_train(case, mesh)
+        res[name] = {k: run[k] for k in ("losses", "launches", "params", "grads0")}
+    if device == "cuda":
+        case = cases["two_kernel"]
+        step, state = case["make"](mesh), case["state"]()
+        rays, phases, var_ids, non_var_ids = case["args"]
+        part = batch_sharding(mesh).uneven_slice(n_rays)
+        hp = case["hp"]
+        # the slice's K1 + K2 under the loss battery: composite_grads on the
+        # slice alone
+        batch = {"origins": rays[part, 0].contiguous(), "directions": rays[part, 1].contiguous(),
+                 "pixels": rays[part, 2, 0].contiguous(), "weights": rays[part, 3, 0].contiguous(),
+                 "phases": phases[part],
+                 "initial_intensities": torch.full((part.stop - part.start,), 2.16, device=dev)}
+        res["local_grads_ms"] = cuda_time_ms(lambda: composite_grads(
+            state.params, batch, case["z"], 0, case["cfgs"], hp))
+        n_buf = sum(t.numel() for _, t in param_items(state.params))
+        buf = torch.zeros(n_buf, device=dev)
+        res["grad_floats"] = n_buf
+        res["allreduce_ms"] = wall_ms(lambda: dist.all_reduce(buf), 10)
+        res["step_ms"] = wall_ms(lambda: step(state, rays, phases, var_ids, non_var_ids), 10)
+    torch.save(res, os.path.join(out_dir, f"dpa_rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def data_parallel_autograd_phase(workdir: str, device: str = "cuda", n_rays: int = 1024,
+                                 n_samples: int = 500, n_fine: int = FINE_SAMPLES) -> dict:
+    """Phase 4n, the autograd train paths under data parallelism at full
+    width (K1/K2, no K3): (1) world 1 over NCCL in this process, DP_STEPS
+    mesh steps of the two-kernel and the static step against the same
+    steps without a mesh, bit for bit (losses, parameters, Adam moments,
+    key); (2) ``DP_WORLD`` ranks over gloo on the one card, spawned, every
+    case of :func:`dpa_problems`: the ranks' parameters bitwise equal, the
+    losses within ``LOSS_REL`` of the single-card steps from the same
+    state, the first step's gradients and the parameters after the steps
+    within K2's gate of theirs, and each rank launching K1/K2 as the
+    single-card step does. The fine case's first batch holds its arg-max
+    of ``w`` on rank 1, global ray 0 on rank 0; its gradients and
+    parameters (the coarse pair and the fine pair, each leaf over its
+    scale) must also lie within the floor measured in the same call: the
+    single card against itself with every parameter one ulp up (the fine
+    depths amplify the last bits of the coarse densities, ROADMAP §3). The
+    kernels are built before the ranks start. Raises on any failure."""
+    import multiprocessing as mp
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from nerfca_tpu_torch.parallel import make_mesh, multihost
+    from nerfca_tpu_torch.train.step import param_items
+
+    dev = torch.device(device)
+    cases = dpa_problems(dev, n_rays, n_samples, n_fine)
+    res: dict = {"fine_split": dpa_argmax_rank(cases["fine"], dev),
+                 "world1_backend": "nccl" if device == "cuda" else "gloo"}
+    if res["fine_split"]["argmax_rank"] != 1:
+        raise AssertionError(f"phase 4n: the fine batch's arg-max of w is not on rank 1: "
+                             f"{res['fine_split']}")
+    single = {}
+    for name, case in cases.items():
+        run = dpa_train(case)
+        if device == "cuda":
+            dpa_check_launches(name, case, run["launches"])
+        single[name] = run
+    res["single_losses"] = {k: v["losses"] for k, v in single.items()}
+    # the fine pass's floors: the single card against itself, run again and
+    # with every parameter one ulp up (sample_pdf's weights are differences
+    # of nearly equal coarse densities, ROADMAP §3)
+    res["fine_floor"] = {}
+    for tag, nudge in (("again", 0), ("ulp_up", 1), ("ulp_down", -1)):
+        run = dpa_train(cases["fine"], nudge=nudge)
+        res["fine_floor"][tag] = {
+            "grads0": dpa_leaf_rel(run["state"], run["grads0"], single["fine"]["grads0"]),
+            "params": dpa_leaf_rel(run["state"], run["params"], single["fine"]["params"])}
+    res["fine_floor"]["one_ulp"] = {
+        what: {part: max(res["fine_floor"][t][what][part] for t in ("ulp_up", "ulp_down"))
+               for part in ("coarse", "fine")} for what in ("grads0", "params")}
+    if device == "cuda":
+        case = cases["two_kernel"]
+        step, state = case["make"](None), case["state"]()
+        res["single_step_ms"] = wall_ms(lambda: step(state, *case["args"]), 10)
+    multihost.initialize(f"localhost:{free_port()}", 1, 0, backend=res["world1_backend"])
+    try:
+        mesh = make_mesh(device=device)
+        res["world1_bitwise"] = {}
+        for name in ("two_kernel", "static"):
+            one, ref = dpa_train(cases[name], mesh), single[name]
+            res["world1_bitwise"][name] = (
+                one["losses"] == ref["losses"] and torch.equal(one["params"], ref["params"])
+                and all(torch.equal(a, b) for a, b in zip(one["moments"], ref["moments"]))
+                and np.array_equal(one["state"].rng, ref["state"].rng))
+            if not res["world1_bitwise"][name]:
+                raise AssertionError(f"phase 4n world 1: the {name} mesh step differs from the "
+                                     f"unsharded step ({one['losses']} vs {ref['losses']})")
+    finally:
+        dist.destroy_process_group()
+
+    out_dir = os.path.join(workdir, "dpa")
+    os.makedirs(out_dir, exist_ok=True)
+    port = free_port()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=dpa_rank, args=(r, DP_WORLD, port, out_dir, device, n_rays,
+                                                n_samples, n_fine)) for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=900)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    res["ranks_wall_s"] = time.perf_counter() - t0
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"phase 4n ranks exited {[p.exitcode for p in procs]}")
+    ranks = [torch.load(os.path.join(out_dir, f"dpa_rank{r}.pt"), weights_only=False)
+             for r in range(DP_WORLD)]
+    res["timing"] = [{k: r[k] for k in ("local_grads_ms", "grad_floats", "allreduce_ms",
+                                        "step_ms") if k in r} for r in ranks]
+    res["cases"], failures = {}, []
+    for name, case in cases.items():
+        ref = single[name]
+        got = ranks[0][name]
+        if not all(torch.equal(got["params"], r[name]["params"]) for r in ranks[1:]):
+            failures.append(f"{name}: the ranks' parameters differ")
+        rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"])]
+        entry = {"loss_rel": rel, "grads0": dpa_leaf_rel(ref["state"], got["grads0"],
+                                                         ref["grads0"]),
+                 "params": dpa_leaf_rel(ref["state"], got["params"], ref["params"]),
+                 "launches": [r[name]["launches"] for r in ranks]}
+        res["cases"][name] = entry
+        if not all(math.isfinite(x) and x <= LOSS_REL for x in rel):
+            failures.append(f"{name}: losses {got['losses']} vs single-card {ref['losses']}")
+        # the first step's gradients (same state, same batch) and the
+        # parameters after the steps under K2's gate; the fine pass's also
+        # within what one ulp on every parameter moves the single card's run
+        # (its fine depths amplify the last bits of the coarse densities)
+        g0, pr = entry["grads0"], entry["params"]
+        if max(g0["k2"], pr["k2"]) > K2_REL:
+            failures.append(f"{name}: gradients or parameters off the single-card ones")
+        if name == "fine":
+            floor = res["fine_floor"]["one_ulp"]
+            over = [f"{what} {part}" for what in ("grads0", "params") for part in ("coarse", "fine")
+                    if entry[what][part] > floor[what][part]]
+            if over:
+                failures.append(f"{name}: beyond the one-ulp floor: {over}")
+        if device == "cuda":
+            for r in ranks:
+                dpa_check_launches(f"{name} rank {r['rank']}", case, r[name]["launches"])
+    if failures:
+        raise AssertionError(f"phase 4n: {failures}; {json.dumps(res, default=str)}")
+    return res
+
+
+def report_dpa(dpa: dict, card: str) -> None:
+    """Print phase 4n."""
+    split = dpa["fine_split"]
+    log(f"data parallel, autograd paths ({card}): world 1 over {dpa['world1_backend']}, "
+        f"bitwise the unsharded steps {dpa['world1_bitwise']}; world {DP_WORLD} over gloo on "
+        f"the one card ({dpa['ranks_wall_s']:.1f} s for the ranks); the fine batch's arg-max "
+        f"of w on rank {split['argmax_rank']} (rank 0's max {split['rank0_max_over_rank1']:.3e} "
+        f"of it)")
+
+    def rel(r):
+        return (f"{r['coarse']:.3e} of leaf scale ({r['coarse_leaf']}), fine pair "
+                f"{r['fine']:.3e}, {r['k2']:.3e} of K2's scale ({r['k2_leaf']})")
+
+    for name, c in dpa["cases"].items():
+        log(f"  {name}: loss rel vs single card {[f'{x:.2e}' for x in c['loss_rel']]} (limit "
+            f"{LOSS_REL}); first-step gradients {rel(c['grads0'])}; parameters after the steps "
+            f"{rel(c['params'])}; ranks' parameters bitwise equal; launches per rank "
+            f"{[{k: v for k, v in l.items() if v} for l in c['launches']]}")
+    for tag, what in (("again", "run again"), ("ulp_up", "every parameter one ulp up"),
+                      ("ulp_down", "every parameter one ulp down")):
+        fl = dpa["fine_floor"][tag]
+        log(f"  fine floor, the single card against itself, {what}: first-step gradients "
+            f"{rel(fl['grads0'])}; parameters after {DP_STEPS} steps {rel(fl['params'])}")
+    t = dpa["timing"]
+    if t and t[0]:
+        log(f"  two-kernel step, both ranks running ({card}): per rank K1+K2 under the loss "
+            f"battery on its {1024 // DP_WORLD} rays {[round(r['local_grads_ms'], 3) for r in t]} "
+            f"ms, all-reduce of {t[0]['grad_floats']} gradient floats "
+            f"{[round(r['allreduce_ms'], 3) for r in t]} ms, the whole step "
+            f"{[round(r['step_ms'], 3) for r in t]} ms; single-card two-kernel step "
+            f"{dpa['single_step_ms']:.3f} ms")
+
+
 def static_cfg(fourier: bool = False):
     """The static field of ``configs/3d.txt`` (``--static_pos_enc fourier``
     with ``fourier``: its sigma 2, basis 12)."""
@@ -2896,6 +3330,13 @@ def main() -> int:
             f"{[round(r['loss_rel_vs_plain'], 9) for r in dp['ranks']]} loss rel, grads worst "
             f"{[round(r['norm_vs_plain'], 6) for r in dp['ranks']]} of their scale")
 
+        # phase 4n: the autograd paths (K1/K2, the fine pass, the static
+        # step) under data parallelism
+        t0 = time.perf_counter()
+        dpa = data_parallel_autograd_phase(workdir)
+        report_dpa(dpa, card)
+        log(f"  phase 4n: {time.perf_counter() - t0:.1f} s")
+
     steady = steady_state_times(fp["run"], hull)
     log(f"steady state in turns, K3 / K1+K2 / plain / K3+hull / K3 bf16 / K3 over bf16 "
         f"residuals then reversed ({card}): {json.dumps(steady)}")
@@ -2936,6 +3377,11 @@ def main() -> int:
                 "bound_ms_bf16_tensor_cores": b["bound_ms_bf16_tensor_cores"]}
 
     launches, clean, static = fp["launches"], cp["res"]["launches"], sp["res"]["launches"]
+    # phase 4n's launches on rank 0 (each rank launches as many) by case
+    dpa_l = {name: c["launches"][0] for name, c in dpa["cases"].items()}
+
+    def dpa_launches(key, names):
+        return {name: dpa_l[name][key] for name in names}
 
     def mean(name):
         return sum(se["ms"][name]) / len(se["ms"][name])
@@ -2948,7 +3394,10 @@ def main() -> int:
          "source": "nerfca_tpu_torch/csrc/fused_field.cu",
          "replaces": "nerfca_tpu/ops/pallas/fused_field.py:527",
          "launches": launches["fused_field_fwd"],
-         "launches_clean_protocol": clean["fused_field_fwd"], "max_abs_err": kc["k1_err"],
+         "launches_clean_protocol": clean["fused_field_fwd"],
+         "launches_data_parallel_per_rank": dpa_launches("fused_field_fwd",
+                                                         ("two_kernel", "uneven")),
+         "max_abs_err": kc["k1_err"],
          "limit": f"abs {K1_ATOL}", "ms": kc["k1_ms"], "plain_ms": kc["k1_plain_ms"],
          **bound_keys(bd["k1"]),
          "library_ms": None},
@@ -2956,7 +3405,10 @@ def main() -> int:
          "source": "nerfca_tpu_torch/csrc/fused_field.cu",
          "replaces": "nerfca_tpu/ops/pallas/fused_field.py:604",
          "launches": launches["fused_field_bwd"],
-         "launches_clean_protocol": clean["fused_field_bwd"], "max_abs_err": kc["k2_err"],
+         "launches_clean_protocol": clean["fused_field_bwd"],
+         "launches_data_parallel_per_rank": dpa_launches("fused_field_bwd",
+                                                         ("two_kernel", "uneven")),
+         "max_abs_err": kc["k2_err"],
          "max_err_of_leaf_scale": kc["k2_norm"], "limit": f"{K2_REL} of leaf scale",
          "ms": kc["k2_ms"], "plain_ms": kc["k2_plain_ms"],
          **bound_keys(bd["k2"]),
@@ -2977,7 +3429,9 @@ def main() -> int:
         {"name": "fused_static_field forward (K1 one field, fwd_kernel<2, 32, 1, false>)",
          "route": "cuda", "source": "nerfca_tpu_torch/csrc/fused_field.cu",
          "replaces": "nerfca_tpu/ops/pallas/fused_field.py:803",
-         "launches": static["fused_static_field_fwd"], "max_abs_err": se["k1_err"],
+         "launches": static["fused_static_field_fwd"],
+         "launches_data_parallel_per_rank": dpa_launches("fused_static_field_fwd", ("static",)),
+         "max_abs_err": se["k1_err"],
          "max_abs_err_trained": sp["trained"]["k1_err"], "limit": f"abs {K1_ATOL}",
          "ms": mean("static_k1"), "plain_ms": mean("static_plain_fwd"),
          **bound_keys(bd["static_k1"]), "library_ms": None},
@@ -2985,7 +3439,9 @@ def main() -> int:
          "route": "cuda",
          "source": "nerfca_tpu_torch/csrc/fused_field.cu",
          "replaces": "nerfca_tpu/ops/pallas/fused_field.py:803",
-         "launches": static["fused_static_field_bwd"], "max_abs_err": se["k2_err"],
+         "launches": static["fused_static_field_bwd"],
+         "launches_data_parallel_per_rank": dpa_launches("fused_static_field_bwd", ("static",)),
+         "max_abs_err": se["k2_err"],
          "max_err_of_leaf_scale": se["k2_norm"],
          "max_err_of_leaf_scale_trained": sp["trained"]["k2_norm"],
          "limit": f"{K2_REL} of leaf scale", "ms": mean("static_k2"),
@@ -3148,6 +3604,7 @@ def main() -> int:
          "launches_training": fine["res"]["train_launches"]["fused_field_fwd"],
          "launches_eval": fine["res"]["eval_launches"]["fused_field_fwd"],
          "launches_shipped_fine_pair": sfp["launches"]["fused_field_fwd"],
+         "launches_data_parallel_per_rank": dpa_launches("fused_field_fwd", ("fine",)),
          "max_abs_err": fkc["k1_err"], "limit": f"abs {K1_ATOL}", "ms": fkc["k1_ms"],
          "plain_ms": fkc["k1_plain_ms"], **bound_keys(fbd_fine["k1"]), "library_ms": None},
         {"name": f"fused_field_bwd (K2), the fine pass's shapes (per-ray depths, 1024 x "
@@ -3157,6 +3614,7 @@ def main() -> int:
                      "with z [R, S+F] under autograd)",
          "launches": fine["res"]["launches"]["fused_field_bwd"],
          "launches_shipped_fine_pair": sfp["launches"]["fused_field_bwd"],
+         "launches_data_parallel_per_rank": dpa_launches("fused_field_bwd", ("fine",)),
          "max_abs_err": fkc["k2_err"], "max_err_of_leaf_scale": fkc["k2_norm"],
          "limit": f"{K2_REL} of leaf scale", "ms": fkc["k2_ms"], "plain_ms": fkc["k2_plain_ms"],
          **bound_keys(fbd_fine["k2"]), "library_ms": None},

@@ -10,6 +10,11 @@
 Every clip is :func:`clip`, whose derivative at a bound is 0.5 as JAX's
 ``jnp.clip`` gives it (``torch.clamp`` gives 1): ``1 - 1e-19`` is 1.0 in
 f32, so a blend ratio of exactly 1.0 sits on the bound.
+
+Every mean over rays is :func:`ray_mean`. With ``total_rays`` (a
+data-parallel rank's slice of a larger batch) it gives this slice's partial
+of the mean over all ``total_rays`` rays, so that the ranks' partials sum
+to the batch's mean; by default it is ``torch.mean``.
 """
 
 from __future__ import annotations
@@ -31,23 +36,35 @@ def clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
     return x
 
 
+def ray_mean(x: torch.Tensor, total_rays=None) -> torch.Tensor:
+    """``torch.mean(x)`` over ``x``'s leading ray axis (and any others).
+    With ``total_rays``: the local mean scaled by ``x.shape[0] /
+    total_rays``, this slice's share of the mean over ``total_rays`` rays;
+    exactly the local mean when the slice holds them all."""
+    m = torch.mean(x)
+    if total_rays is None or total_rays == x.shape[0]:
+        return m
+    return m * (x.shape[0] / total_rays)
+
+
 def blend_ratio(sigma_s, sigma_d):
     """``sigma_d / (sigma_s + sigma_d + 1e-10)`` plus detached maxima."""
     blendw = sigma_d / (sigma_s + sigma_d + 1e-10)
     return blendw, sigma_s.detach().max(), sigma_d.detach().max()
 
 
-def blendw_entropy_loss(blendw, skewness: float = 1.0, clip_threshold: float = 1e-19):
+def blendw_entropy_loss(blendw, skewness: float = 1.0, clip_threshold: float = 1e-19,
+                        total_rays=None):
     """Mean binary entropy of ``blendw ** skewness``."""
     b = clip(blendw ** skewness, clip_threshold, 1 - clip_threshold)
     rev = clip(1 - b, lo=clip_threshold)
     entropy = torch.mean(-(b * torch.log(b) + rev * torch.log(rev)), dim=-1)
-    return torch.mean(entropy)
+    return ray_mean(entropy, total_rays)
 
 
 def ray_entropy_loss(sigma, dists, mask_threshold: float = 0.1,
                      clip_threshold: float = 1e-19, use_weighting: bool = False,
-                     weighted_pixs=None, weighted_thresh: float = 0.25):
+                     weighted_pixs=None, weighted_thresh: float = 0.25, total_rays=None):
     """Per-ray density-distribution entropy, masked to rays whose
     attenuation sum reaches ``mask_threshold`` (OR the variance mask when
     ``use_weighting``). Returns ``(mean entropy, mean attenuation sum)``.
@@ -65,7 +82,7 @@ def ray_entropy_loss(sigma, dists, mask_threshold: float = 0.1,
     denom = torch.where(risky, clipped.detach(), clipped)
     ray_p = sigma_dist / denom
     entropy = mask * -torch.sum(ray_p * torch.log(ray_p + 1e-10), dim=-1)
-    return torch.mean(entropy), torch.mean(sigma_sum)
+    return ray_mean(entropy, total_rays), ray_mean(sigma_sum, total_rays)
 
 
 def occlusion_mask(dists, reg_perc: float = 0.1, use_back: bool = False,
@@ -82,11 +99,11 @@ def occlusion_mask(dists, reg_perc: float = 0.1, use_back: bool = False,
 
 
 def occlusion_loss(sigma, dists, reg_perc: float = 0.1, use_back: bool = False,
-                   front_only: bool = False):
+                   front_only: bool = False, total_rays=None):
     """L1 of ``sigma * dists`` over the masked ray portion; ``dists`` is the
     shared ``[S]``."""
     mask = occlusion_mask(dists, reg_perc, use_back, front_only)
-    return torch.mean(torch.sum(sigma * dists * mask, dim=-1))
+    return ray_mean(torch.sum(sigma * dists * mask, dim=-1), total_rays)
 
 
 def weighted_mse(preds, gts, weights):
@@ -112,24 +129,28 @@ def composite_losses(static_sigma, temp_sigma, dists, weighted_pixs, *,
                      skewness_val: float = 1.0, entro_mask_thre: float = 0.1,
                      entro_use_weighting: bool = False, entro_weighted_thresh: float = 0.0,
                      occl_reg_perc: float = 0.1, entro_clip_threshold: float = 1e-19,
-                     occl_front_only: bool = False) -> CompositeLosses:
-    """The composite regularizer battery."""
+                     occl_front_only: bool = False, total_rays=None) -> CompositeLosses:
+    """The composite regularizer battery. ``total_rays``: the rays are one
+    slice of a batch of ``total_rays`` (each mean is this slice's partial,
+    the L1/L2 sums its part, the maxima its own; see :func:`ray_mean`)."""
     blendw, sigma_s_max, sigma_d_max = blend_ratio(static_sigma, temp_sigma)
-    favor_s = blendw_entropy_loss(blendw, skewness=skewness_val)
+    favor_s = blendw_entropy_loss(blendw, skewness=skewness_val, total_rays=total_rays)
     s_entropy, s_entropy_sum = ray_entropy_loss(
         static_sigma, dists, mask_threshold=entro_mask_thre,
-        clip_threshold=entro_clip_threshold,
+        clip_threshold=entro_clip_threshold, total_rays=total_rays,
     )
     d_entropy, d_entropy_sum = ray_entropy_loss(
         temp_sigma, dists, mask_threshold=entro_mask_thre,
         clip_threshold=entro_clip_threshold, use_weighting=entro_use_weighting,
         weighted_pixs=weighted_pixs, weighted_thresh=entro_weighted_thresh,
+        total_rays=total_rays,
     )
-    d_occl = occlusion_loss(temp_sigma, dists, occl_reg_perc, front_only=occl_front_only)
+    d_occl = occlusion_loss(temp_sigma, dists, occl_reg_perc, front_only=occl_front_only,
+                            total_rays=total_rays)
     static_l1 = torch.sum(torch.sum(static_sigma * dists, dim=-1))
     static_l2 = torch.sum(torch.sum((static_sigma * dists) ** 2, dim=-1))
     return CompositeLosses(
-        blendw_mean=torch.mean(blendw), sigma_s_max=sigma_s_max, sigma_d_max=sigma_d_max,
+        blendw_mean=ray_mean(blendw, total_rays), sigma_s_max=sigma_s_max, sigma_d_max=sigma_d_max,
         favor_s_loss=favor_s, static_entropy_loss=s_entropy,
         static_entropy_sum=s_entropy_sum, dynamic_entropy_loss=d_entropy,
         dynamic_entropy_sum=d_entropy_sum, dynamic_occl_loss=d_occl,

@@ -49,7 +49,7 @@ def make_mesh(n_devices: Optional[int] = None, axis_names: Sequence[str] = ("dat
 @dataclasses.dataclass(frozen=True)
 class RaySharding:
     """This rank's slice of the leading axis along mesh axis ``axis``: shard
-    ``index`` of ``count`` equal ones."""
+    ``index`` of ``count``."""
 
     mesh: DeviceMesh
     axis: str
@@ -57,11 +57,25 @@ class RaySharding:
     count: int
 
     def slice(self, n: int) -> slice:
+        """Shard ``index`` of ``count`` equal ones (the sharded K3 entry's
+        rule); raises ``ValueError`` when ``n`` does not split evenly."""
         if n % self.count:
             raise ValueError(f"{n} rays do not split evenly over {self.count} shards of "
                              f"'{self.axis}'")
         per = n // self.count
         return slice(self.index * per, (self.index + 1) * per)
+
+    def uneven_slice(self, n: int) -> slice:
+        """Shard ``index`` of ``n`` rays in order, the first ``n % count``
+        shards one ray longer (the autograd path, which takes any ``n`` as
+        JAX's does under GSPMD); raises ``ValueError`` when a shard would
+        hold no ray."""
+        per, extra = divmod(n, self.count)
+        if per == 0:
+            raise ValueError(f"{n} rays leave a shard of '{self.axis}' empty ({self.count} "
+                             f"shards)")
+        start = self.index * per + min(self.index, extra)
+        return slice(start, start + per + (self.index < extra))
 
 
 def axis_size(mesh: DeviceMesh, axis: str) -> int:

@@ -22,12 +22,16 @@ fine configs lie in the envelope and plain otherwise; its render takes ray
 0's depths for every ray, as the reference does.
 
 An optional motion hull (``ops/hull.py``) gates the dynamic density on
-every path. Under a data-parallel mesh (``parallel/mesh.py``) the K3 path
-runs its sharded entry on each rank's slice of the same global batch; the
-other two paths are not ported under a mesh. The step draws its random numbers on the host as the JAX step
-draws them (``ops/prng.py``, :func:`step_draws`), so a seed gives the JAX
-run's batches, jitter and depths; the step is also split so tests can
-inject the batch and the depths (:func:`composite_grads`,
+every path. Under a data-parallel mesh (``parallel/mesh.py``) every rank
+draws the same global batch and takes its slice of the rays: the K3 path
+runs its sharded entry, and the autograd paths (two-kernel, plain, the fine
+pass, the static step) compute the slice's partial of the global loss and
+join the ranks through ``parallel/collectives.py``, as JAX's
+``batch_sharding`` step computes the global function under GSPMD. The step
+draws its random numbers on the host as the JAX step draws them
+(``ops/prng.py``, :func:`step_draws`), so a seed gives the JAX run's
+batches, jitter and depths; the step is also split so tests can inject the
+batch and the depths (:func:`composite_grads`,
 :func:`_fused_loss_metrics_grads`). Metrics stay on the device as 0-d
 tensors; the trainer reads them back once per chunk.
 
@@ -73,13 +77,21 @@ from nerfca_tpu_torch.ops.encoding import (
 )
 from nerfca_tpu_torch.ops import prng
 from nerfca_tpu_torch.ops.hull import hull_gate_rays
-from nerfca_tpu_torch.ops.losses import composite_losses, occlusion_loss, weighted_mse
+from nerfca_tpu_torch.ops.losses import (
+    composite_losses, occlusion_loss, ray_mean, weighted_mse,
+)
 from nerfca_tpu_torch.ops.render import render_transmission, render_transmission_composite
 from nerfca_tpu_torch.ops.sampling import sample_pdf, stratify_depths
 from nerfca_tpu_torch.ops.schedules import linear_param_decay
+from nerfca_tpu_torch.parallel.collectives import (
+    all_reduce_grads, axis_group, from_first_shard, global_amax, reduce_metrics, sum_partials,
+)
+from nerfca_tpu_torch.parallel.mesh import axis_size, batch_sharding
 
 
 DATA_AXIS = "data"
+# the metrics that are maxima over the batch (MAX over the ranks of a mesh)
+MAX_METRICS = ("train_sigma_s_max", "train_sigma_d_max")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,19 +321,22 @@ def regularized_loss(pix_loss, losses, weights):
     )
 
 
-def regularizer_losses(static_sigma, temp_sigma, dists, pixel_weights, hp: CompositeHParams):
+def regularizer_losses(static_sigma, temp_sigma, dists, pixel_weights, hp: CompositeHParams,
+                       total_rays=None):
     """The regularizer battery (``composite_losses``) on one pass's sigmas
-    and dists under ``hp``'s shape parameters."""
+    and dists under ``hp``'s shape parameters; ``total_rays``: the rays are
+    a slice of that many (``ops/losses.py::ray_mean``)."""
     return composite_losses(
         static_sigma, temp_sigma, dists, pixel_weights, skewness_val=hp.skewness_val,
         entro_mask_thre=hp.entro_mask_thre, entro_use_weighting=hp.entro_use_weighting,
         entro_weighted_thresh=hp.entro_weighted_thresh, occl_reg_perc=hp.occl_reg_perc,
-        entro_clip_threshold=hp.entro_clip_threshold, occl_front_only=hp.occl_front_only)
+        entro_clip_threshold=hp.entro_clip_threshold, occl_front_only=hp.occl_front_only,
+        total_rays=total_rays)
 
 
-def along_ray_tv(sigma):
+def along_ray_tv(sigma, total_rays=None):
     """Mean over rays of sum_i |sigma_{i+1} - sigma_i|."""
-    return torch.mean(torch.sum(torch.abs(sigma[..., 1:] - sigma[..., :-1]), dim=-1))
+    return ray_mean(torch.sum(torch.abs(sigma[..., 1:] - sigma[..., :-1]), dim=-1), total_rays)
 
 
 def evaluate_fields(params, origins, directions, depth_values, phases, windows, cfgs,
@@ -356,17 +371,20 @@ def evaluate_composite(params, points, point_phases, cfgs: dict, windows,
               cfg_t, windows["static"], windows["temp"], dtype)
 
 
-def fine_depths(static_sigma, temp_sigma, depth_values, n_fine: int, u_fine) -> torch.Tensor:
+def fine_depths(static_sigma, temp_sigma, depth_values, n_fine: int, u_fine,
+                mesh=None) -> torch.Tensor:
     """The fine pass's sorted per-ray depths ``[R, S + F]``
     (``nerfca_tpu/train/step.py:354-363``): ``sample_pdf`` over the coarse
     midpoints with weights ``|differences|`` of the total coarse density (a
     1e-10 first column), normalised by the batch's global max, its ``F``
     draws from the uniforms ``u_fine [R, F]`` joined to the shared coarse
-    depths ``[S]``. Differentiable w.r.t. the sigmas, as JAX's is."""
+    depths ``[S]``. Differentiable w.r.t. the sigmas, as JAX's is. Under
+    ``mesh`` the rays are this rank's slice, and the max is taken over every
+    rank's (:func:`~nerfca_tpu_torch.parallel.collectives.global_amax`)."""
     total = static_sigma + temp_sigma
     w = torch.cat([torch.full_like(total[:, :1], 1e-10),
                    torch.abs(total[:, 1:] - total[:, :-1])], dim=-1)
-    w = w / torch.amax(w)
+    w = w / (torch.amax(w) if mesh is None else global_amax(w, mesh, DATA_AXIS))
     z = depth_values.expand(total.shape[0], depth_values.shape[0])
     z_mid = 0.5 * (z[:, 1:] + z[:, :-1])
     z_pdf = sample_pdf(None, z_mid, w[:, 1:-1], n_fine, u=u_fine)
@@ -374,12 +392,14 @@ def fine_depths(static_sigma, temp_sigma, depth_values, n_fine: int, u_fine) -> 
 
 
 def composite_forward(params, batch, depth_values, windows, cfgs, hp: CompositeHParams,
-                      hull=None, u_fine=None) -> dict:
+                      hull=None, u_fine=None, mesh=None) -> dict:
     """Coarse (and fine) forward pass -> renders and sigmas. ``depth_values``:
     the already-jittered shared ``[S]`` vector. ``hull``: optional
     ``MotionHull`` gating the dynamic density. ``u_fine``: the fine pass's
     uniforms ``[R, F]`` (:func:`fine_uniforms`) with ``depth_samples_fine``
-    > 0."""
+    > 0. ``mesh``: ``batch`` and ``u_fine`` are this rank's slice of the
+    global batch's rays, the first rank's slice starting at ray 0; the fine
+    pass then takes the max over every rank and global ray 0's depths."""
     origins, dirs = batch["origins"], batch["directions"]
     i0 = batch["initial_intensities"]
     static_raw, temp_raw = evaluate_fields(params, origins, dirs, depth_values, batch["phases"],
@@ -395,46 +415,67 @@ def composite_forward(params, batch, depth_values, windows, cfgs, hp: CompositeH
     if temp_gate is not None:
         out["temp_gate_coarse"] = temp_gate  # reused by the hull-gated L1
     if hp.depth_samples_fine > 0:
-        z_fine = fine_depths(s_sig, t_sig, depth_values, hp.depth_samples_fine, u_fine)
+        z_fine = fine_depths(s_sig, t_sig, depth_values, hp.depth_samples_fine, u_fine, mesh)
         static_raw_f, temp_raw_f = evaluate_fields(params, origins, dirs, z_fine,
                                                    batch["phases"], windows, cfgs, hp, "_fine")
         temp_gate_f = None if hull is None else hull_gate_rays(hull, origins, dirs, z_fine)
         # the reference renders the fine pass with ray 0's sorted depths
         # (model_helpers.py:147, depth_vals_fine[0, :])
+        z0 = z_fine[0] if mesh is None else from_first_shard(z_fine[0], mesh, DATA_AXIS)
         pix_f, s_sig_f, t_sig_f, dists_f = render_transmission_composite(
-            static_raw_f, temp_raw_f, i0, z_fine[0], hp.output_activation,
-            temp_gate=temp_gate_f)
+            static_raw_f, temp_raw_f, i0, z0, hp.output_activation, temp_gate=temp_gate_f)
         out.update(pix_fine=pix_f, static_sigma_fine=s_sig_f, temp_sigma_fine=t_sig_f,
                    dists_fine=dists_f)
     return out
 
 
+def shard_rays(mesh, batch: dict, *per_ray) -> tuple:
+    """This rank's slice of the rays (``RaySharding.uneven_slice`` over the
+    mesh's ``'data'`` axis): the batch dict's tensors and each of
+    ``per_ray`` (None stays None), with the global ray count first."""
+    n = batch["origins"].shape[0]
+    part = batch_sharding(mesh, DATA_AXIS).uneven_slice(n)
+    return (n, {k: v[part] for k, v in batch.items()},
+            *(None if t is None else t[part] for t in per_ray))
+
+
 def composite_loss_fn(params, batch, depth_values, step: int, cfgs, hp: CompositeHParams,
-                      hull=None, u_fine=None):
+                      hull=None, u_fine=None, mesh=None):
     """Total regularized loss + metric dict (same names as the JAX step).
     ``hull``: optional motion-hull gate; it adds the hull-gated static L1
     (the mean over rays of the static line integral inside the hull).
     ``u_fine``: the fine pass's uniforms, with ``depth_samples_fine`` > 0;
     the fine pass adds its pixel loss, with unit pixel weights, and its
-    regularizers."""
+    regularizers.
+
+    ``mesh``: a ``DeviceMesh`` with a ``'data'`` axis. ``batch`` and
+    ``u_fine`` are the global batch's; each rank computes its slice's
+    partial of the loss (ray means over the global ray count) and the
+    returned loss and metrics are the global batch's on every rank (the
+    sigma maxima by MAX), while the loss backpropagates this rank's share
+    of the global gradient (``parallel/collectives.py``)."""
+    n = None
+    if mesh is not None:
+        n, batch, u_fine = shard_rays(mesh, batch, u_fine)
     dev = batch["origins"].device
     windows = {k: field_window(cfgs[k], step, dev) for k in ("static", "temp")}
     fwd = composite_forward(params, batch, depth_values, windows, cfgs, hp, hull=hull,
-                            u_fine=u_fine)
+                            u_fine=u_fine, mesh=mesh)
     weights = loss_weights(step, hp)
-    pixel_loss_c = torch.mean(weighted_mse(fwd["pix_coarse"], batch["pixels"], batch["weights"]))
+    pixel_loss_c = ray_mean(weighted_mse(fwd["pix_coarse"], batch["pixels"], batch["weights"]),
+                            n)
     losses = regularizer_losses(fwd["static_sigma_coarse"], fwd["temp_sigma_coarse"],
-                                fwd["dists_coarse"], batch["weights"], hp)
+                                fwd["dists_coarse"], batch["weights"], hp, n)
     loss = regularized_loss(pixel_loss_c, losses, weights)
     zero = torch.zeros((), device=dev)
     static_tv = zero
     if hp.static_tv_weight_start > 0 or hp.static_tv_weight_end > 0:
-        static_tv = along_ray_tv(fwd["static_sigma_coarse"])
+        static_tv = along_ray_tv(fwd["static_sigma_coarse"], n)
         loss = loss + weights["static_tv"] * static_tv
     hull_s_l1 = zero
     if hull is not None:
-        hull_s_l1 = torch.mean(torch.sum(
-            fwd["static_sigma_coarse"] * fwd["dists_coarse"] * fwd["temp_gate_coarse"], dim=-1))
+        hull_s_l1 = ray_mean(torch.sum(
+            fwd["static_sigma_coarse"] * fwd["dists_coarse"] * fwd["temp_gate_coarse"], dim=-1), n)
         loss = loss + weights["hull_static_l1"] * hull_s_l1
     metrics = {
         "train_hull_s_l1": hull_s_l1.detach(),
@@ -464,14 +505,17 @@ def composite_loss_fn(params, batch, depth_values, step: int, cfgs, hp: Composit
         # unit pixel weights (run_composite.py:296-301); the logged
         # regularizers are overwritten with the fine pass's, as the
         # reference logs them
-        pixel_loss_f = torch.mean(weighted_mse(fwd["pix_fine"], batch["pixels"],
-                                               torch.ones_like(batch["weights"])))
+        pixel_loss_f = ray_mean(weighted_mse(fwd["pix_fine"], batch["pixels"],
+                                             torch.ones_like(batch["weights"])), n)
         losses_f = regularizer_losses(fwd["static_sigma_fine"], fwd["temp_sigma_fine"],
-                                      fwd["dists_fine"], batch["weights"], hp)
+                                      fwd["dists_fine"], batch["weights"], hp, n)
         loss = loss + regularized_loss(pixel_loss_f, losses_f, weights)
         metrics.update(train_pixel_loss_fine=pixel_loss_f.detach(),
                        train_favor_s_loss=losses_f.favor_s_loss.detach(),
                        train_d_entropy_loss=losses_f.dynamic_entropy_loss.detach())
+    if mesh is not None:
+        loss = sum_partials(loss, mesh, DATA_AXIS)
+        metrics = reduce_metrics(metrics, mesh, DATA_AXIS, MAX_METRICS)
     metrics["train_loss"] = loss.detach()
     metrics["train_psnr"] = -10.0 * torch.log10(loss.detach())
     return loss, metrics
@@ -543,14 +587,23 @@ def _require_grads(params) -> None:
             t.requires_grad_(True)
 
 
+def _global_grads(loss, params, mesh) -> list:
+    """:func:`_grads_of`, SUMmed over the mesh's ``'data'`` axis in one
+    all-reduce under ``mesh``: each rank's loss backpropagates its share."""
+    grads = _grads_of(loss, params)
+    return grads if mesh is None else all_reduce_grads(grads, mesh, DATA_AXIS)
+
+
 def composite_grads(params, batch, depth_values, step: int, cfgs, hp: CompositeHParams,
-                    hull=None, u_fine=None):
+                    hull=None, u_fine=None, mesh=None):
     """Loss, metrics and the gradient of every leaf (``param_items`` order)
-    for an injected batch, depths and (with the fine pass) fine uniforms."""
+    for an injected batch, depths and (with the fine pass) fine uniforms;
+    under ``mesh`` the global batch's, equal on every rank
+    (:func:`composite_loss_fn`)."""
     _require_grads(params)
     loss, metrics = composite_loss_fn(params, batch, depth_values, step, cfgs, hp, hull=hull,
-                                      u_fine=u_fine)
-    return loss.detach(), metrics, _grads_of(loss, params)
+                                      u_fine=u_fine, mesh=mesh)
+    return loss.detach(), metrics, _global_grads(loss, params, mesh)
 
 
 def _fused_loss_metrics_grads(params, batch, depth_values, step: int, cfgs,
@@ -716,15 +769,16 @@ def make_composite_train_step(cfgs: dict, hp: CompositeHParams, tx: AdamConfig,
 
     ``mesh``: a ``DeviceMesh`` with a ``'data'`` axis (``parallel/mesh.py``)
     for data parallelism, as JAX's ``batch_sharding`` (``step.py:620-718``):
-    every rank draws the same global batch, jitter and depths from the same
-    key, K3 runs on its slice and all-reduces
-    (:func:`fused_train_loss_and_grads_sharded`), and every rank applies the
-    same Adam update and freeze gate, so the parameters stay equal bit for
-    bit. The batch must split evenly over the shards (the sharded entry
-    raises otherwise); JAX also asks for whole Pallas tiles of rays, which
-    the port's K3 does not have. The autograd paths under a mesh are not
-    ported (ROADMAP §1, "the autograd branches under a mesh") and raise; the fine
-    pass takes them.
+    every rank draws the same global batch, jitter, depths and fine
+    uniforms from the same key and takes its slice of the rays. With K3 and
+    a batch that splits evenly over the shards, K3 runs on the slice and
+    all-reduces (:func:`fused_train_loss_and_grads_sharded`; JAX also asks
+    for whole Pallas tiles of rays, which the port's K3 does not have);
+    otherwise, as JAX's branch rule (``:638-656``), the autograd path (K1/K2
+    or plain, the fine pass included) takes the slice, the first
+    ``R % world`` ranks one ray more (:func:`composite_grads`), and one
+    all-reduce joins the gradients. Every rank applies the same Adam update
+    and freeze gate, so the parameters stay equal bit for bit.
 
     With ``depth_samples_fine`` > 0 each step also draws the fine pass's
     uniforms (:func:`fine_uniforms`) and takes the K1/K2 or plain path, as
@@ -735,13 +789,17 @@ def make_composite_train_step(cfgs: dict, hp: CompositeHParams, tx: AdamConfig,
                       "static TV, field-kernel fields, softplus/sigmoid/clamp, <= 1024 "
                       "samples); taking the two-kernel path")
         fused = False
-    if mesh is not None and not fused:
-        raise NotImplementedError(
-            "data parallelism runs through the fused-loss kernel K3 (use_pallas and "
-            "use_fused_loss, no fine pass); the autograd paths under a mesh are not ported yet "
-            "(ROADMAP §1, \"the autograd branches under a mesh\")")
-    fused_fn = None if mesh is None else functools.partial(fused_train_loss_and_grads_sharded,
-                                                           mesh, DATA_AXIS)
+    fused_fn = None
+    if mesh is not None:
+        check_mesh(mesh, hp.img_sample_size)
+        n_shards = axis_size(mesh, DATA_AXIS)
+        if fused and hp.img_sample_size % n_shards:
+            warnings.warn(f"{hp.img_sample_size} rays do not split evenly over {n_shards} "
+                          f"shards for the sharded fused-loss kernel; taking the two-kernel "
+                          f"path")
+            fused = False
+        if fused:
+            fused_fn = functools.partial(fused_train_loss_and_grads_sharded, mesh, DATA_AXIS)
 
     def train_step(state: TrainState, rays, phases, var_ids, non_var_ids, hull=None):
         u_fine = fine_uniforms(state.rng, hp) if hp.depth_samples_fine > 0 else None
@@ -760,12 +818,19 @@ def make_composite_train_step(cfgs: dict, hp: CompositeHParams, tx: AdamConfig,
                                                           hp, hull=hull, fused_fn=fused_fn)
         else:
             _, metrics, grads = composite_grads(state.params, batch, z, state.step, cfgs, hp,
-                                                hull=hull, u_fine=u_fine)
+                                                hull=hull, u_fine=u_fine, mesh=mesh)
         adam_update(state.params, state.opt_state, grads, tx, state.step, hp)
         state.step += 1
         return metrics
 
     return train_step
+
+
+def check_mesh(mesh, n_rays: int) -> None:
+    """Raise ``ValueError`` unless ``mesh`` has a ``'data'`` axis over which
+    a batch of ``n_rays`` leaves no shard empty."""
+    axis_group(mesh, DATA_AXIS)
+    batch_sharding(mesh, DATA_AXIS).uneven_slice(n_rays)
 
 
 # ---------------------------------------------------------------------------
@@ -793,14 +858,18 @@ class StaticHParams:
 
 
 def static_loss_fn(params, batch, depth_values, step: int, cfg: FieldConfig,
-                   hp: StaticHParams):
+                   hp: StaticHParams, mesh=None):
     """Pixel + occlusion loss of the static method and its metrics
     (``nerfca_tpu/train/step.py:830-863``). The field runs on the batch's
     points through the one-field kernels with ``use_pallas`` (their twin on
     CPU tensors), in f32 as JAX's kernel branch runs whatever
     ``compute_dtype`` says; otherwise (or outside the envelope) the plain
     field under ``compute_dtype``. The occlusion term takes the UNSCALED
-    sigma of the single-field renderer, as the reference does."""
+    sigma of the single-field renderer, as the reference does. ``mesh``:
+    the global batch, sliced and joined as :func:`composite_loss_fn` does."""
+    n = None
+    if mesh is not None:
+        n, batch = shard_rays(mesh, batch)
     window = field_window(cfg, step, batch["origins"].device)
     pts = (batch["origins"][:, None, :]
            + batch["directions"][:, None, :] * depth_values[:, None])
@@ -810,36 +879,47 @@ def static_loss_fn(params, batch, depth_values, step: int, cfg: FieldConfig,
         raw = plain_static_field(params["static"], pts, cfg, window, hp.dtype)
     pix, sigma, dists = render_transmission(raw, batch["initial_intensities"], depth_values,
                                             hp.output_activation)
-    pixel_loss = torch.mean(weighted_mse(pix, batch["pixels"], batch["weights"]))
-    occl = occlusion_loss(sigma, dists, hp.occl_reg_perc, front_only=hp.occl_front_only)
+    pixel_loss = ray_mean(weighted_mse(pix, batch["pixels"], batch["weights"]), n)
+    occl = occlusion_loss(sigma, dists, hp.occl_reg_perc, front_only=hp.occl_front_only,
+                          total_rays=n)
     loss = pixel_loss + hp.occl_weight_start * occl
+    terms = {"train_pixel_loss": pixel_loss.detach(), "train_occl_loss": occl.detach()}
+    if mesh is not None:
+        loss = sum_partials(loss, mesh, DATA_AXIS)
+        terms = reduce_metrics(terms, mesh, DATA_AXIS)
     metrics = {
         "train_loss": loss.detach(),
         "train_psnr": -10.0 * torch.log10(loss.detach()),
-        "train_pixel_loss": pixel_loss.detach(),
-        "train_occl_loss": occl.detach(),
+        **terms,
         "train_static_windowed": window_alpha(cfg, step),
     }
     return loss, metrics
 
 
-def static_grads(params, batch, depth_values, step: int, cfg: FieldConfig, hp: StaticHParams):
+def static_grads(params, batch, depth_values, step: int, cfg: FieldConfig, hp: StaticHParams,
+                 mesh=None):
     """Loss, metrics and the gradient of every leaf (``param_items`` order)
-    for an injected batch and depths."""
+    for an injected batch and depths; under ``mesh`` the global batch's."""
     _require_grads(params)
-    loss, metrics = static_loss_fn(params, batch, depth_values, step, cfg, hp)
-    return loss.detach(), metrics, _grads_of(loss, params)
+    loss, metrics = static_loss_fn(params, batch, depth_values, step, cfg, hp, mesh=mesh)
+    return loss.detach(), metrics, _global_grads(loss, params, mesh)
 
 
 def make_static_train_step(cfg: FieldConfig, hp: StaticHParams, tx: AdamConfig,
-                           depth_values_base: torch.Tensor, initial_intensity: float):
+                           depth_values_base: torch.Tensor, initial_intensity: float,
+                           mesh=None):
     """Build ``train_step(state, rays, phases, var_ids, non_var_ids, hull=None)
     -> metrics`` for the static method (``nerfca_tpu/train/step.py:866-902``);
     it updates ``state`` in place. The batch is drawn under a composite
     hyperparameter set that carries only the batch size and the
     high-variance share; the method has no hull, no schedule of loss
-    weights and no freeze gate (``hull`` is accepted and ignored)."""
+    weights and no freeze gate (``hull`` is accepted and ignored).
+    ``mesh``: data parallelism as JAX's ``batch_sharding``: every rank
+    draws the same batch and depths, computes its slice's share
+    (:func:`static_grads`) and applies the same update."""
     comp_hp = CompositeHParams(img_sample_size=hp.img_sample_size, nb_var_rays=hp.nb_var_rays)
+    if mesh is not None:
+        check_mesh(mesh, hp.img_sample_size)
 
     def train_step(state: TrainState, rays, phases, var_ids, non_var_ids, hull=None):
         del hull
@@ -851,7 +931,7 @@ def make_static_train_step(cfg: FieldConfig, hp: StaticHParams, tx: AdamConfig,
         batch["initial_intensities"] = torch.full(
             (hp.img_sample_size,), initial_intensity, device=rays.device)
         z = stratify_depths(depth_values_base, t_rand=t)
-        _, metrics, grads = static_grads(state.params, batch, z, state.step, cfg, hp)
+        _, metrics, grads = static_grads(state.params, batch, z, state.step, cfg, hp, mesh=mesh)
         adam_update(state.params, state.opt_state, grads, tx, state.step, comp_hp)
         state.step += 1
         return metrics

@@ -17,6 +17,7 @@ single-phase dataset through the same loop, scoring the first test view.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -39,6 +40,7 @@ from nerfca_tpu_torch.train import evaluation
 from nerfca_tpu_torch.train.checkpoint import CheckpointManager, load_checkpoint
 from nerfca_tpu_torch.train.config import parse_args
 from nerfca_tpu_torch.train.logging import MetricsLogger, make_log_dir
+from nerfca_tpu_torch.utils.profiling import trace
 from nerfca_tpu_torch.train.step import (
     CompositeHParams, StaticHParams, TrainState, init_opt_state, make_composite_train_step,
     make_optimizer, make_static_train_step,
@@ -245,7 +247,9 @@ def prepare_composite(args, device: torch.device, mesh=None) -> dict:
     for data-parallel training (``parallel/mesh.py``), as JAX's
     ``prepare_composite(args, mesh)``: every rank runs this with the same
     arguments (the dataset is built once, by the first rank), draws the same
-    state from ``--seed`` and trains with the mesh-aware step."""
+    state from ``--seed`` and trains with the mesh-aware step, on every
+    branch (K3's sharded entry, or K1/K2 or the plain fields with the fine
+    pass, ``make_composite_train_step``)."""
     paths = dataset_paths(args, args.data_root)
     first = mesh is None or torch.distributed.get_rank() == int(mesh.mesh.flatten()[0])
     if first and (not os.path.isfile(paths.general) or not os.path.isfile(paths.train)
@@ -344,21 +348,17 @@ def _chunked_train_loop(args, logger, log_dir, state, dd, train_step, chunk: int
     ``display_every`` boundaries (an ``eval_fn`` returning True stops the
     run), checkpoints at ``save_every`` boundaries, at a stop and at the
     end, and the ``--profile_steps`` window of ``torch.profiler`` from the
-    first chunk, its trace under ``<log_dir>/profile``. ``train_time``
+    first chunk (``utils/profiling.py::trace``), its trace under
+    ``<log_dir>/profile``. ``train_time``
     excludes the eval and the save (the JAX loop's includes them)."""
     start_step = state.step
     stop = False
     loop_info = {"diverged_at": None, "diverged_terms": None}
     profile_left = args.profile_steps
+    window = contextlib.ExitStack()
     prof = None
     if profile_left > 0:
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if dd["rays"].is_cuda:
-            activities.append(ProfilerActivity.CUDA)
-        prof = profile(activities=activities)
-        prof.start()
+        prof = window.enter_context(trace(os.path.join(log_dir, "profile")))
     t_start = time.time()
     step = start_step
     while step < n_total and not stop:
@@ -383,7 +383,7 @@ def _chunked_train_loop(args, logger, log_dir, state, dd, train_step, chunk: int
             stop = True
         step += n_now
         if prof is not None and step - start_step >= profile_left:
-            _save_trace(prof, log_dir, start_step, step)
+            _close_trace(window, prof, start_step, step)
             prof = None
         if eval_fn is not None and (step % args.display_every == 0 or stop):
             # an eval_fn may request a stop (metric-patience early stop); the
@@ -395,17 +395,16 @@ def _chunked_train_loop(args, logger, log_dir, state, dd, train_step, chunk: int
             save_fn(state, step)
         t_start = time.time()
     if prof is not None:  # the run ended inside the window
-        _save_trace(prof, log_dir, start_step, step)
+        _close_trace(window, prof, start_step, step)
     loop_info["final_step"] = step
     return state, loop_info
 
 
-def _save_trace(prof, log_dir: str, start: int, end: int) -> None:
-    """Stop ``prof`` and write its trace to ``<log_dir>/profile``."""
-    prof.stop()
-    trace_dir = os.path.join(log_dir, "profile")
-    os.makedirs(trace_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(trace_dir, f"steps-{start}-{end}.json"))
+def _close_trace(window: contextlib.ExitStack, prof, start: int, end: int) -> None:
+    """Close the ``--profile_steps`` window: its trace is written as
+    ``steps-<start>-<end>.json``."""
+    prof.name = f"steps-{start}-{end}.json"
+    window.close()
 
 
 def train_composite(args=None, argv=None, max_steps: Optional[int] = None) -> dict:

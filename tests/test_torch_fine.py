@@ -7,6 +7,7 @@ scores, checkpoints with fine leaves, a short ``train_composite`` and the
 envelope rule that lets the coarse pair decide."""
 
 import dataclasses
+import functools
 import json
 import os
 import warnings
@@ -16,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import nerfca_tpu.ops.pallas.fused_field as jff
 from nerfca_tpu.models import fields as jf
@@ -31,6 +33,7 @@ from nerfca_tpu_torch.models import fields as tf
 from nerfca_tpu_torch.ops import prng
 from nerfca_tpu_torch.ops import sampling as tsm
 from nerfca_tpu_torch.ops.cuda import fused_field as tff
+from nerfca_tpu_torch.parallel import make_mesh, multihost
 from nerfca_tpu_torch.train import checkpoint as tck
 from nerfca_tpu_torch.train import config as tcfg
 from nerfca_tpu_torch.train import evaluation as tev
@@ -38,6 +41,7 @@ from nerfca_tpu_torch.train import run_composite
 from nerfca_tpu_torch.train import run_eval as tre
 from nerfca_tpu_torch.train import step as ts
 from nerfca_tpu_torch.train import trainer as ttr
+from tests.test_torch_parallel import free_port
 from tests.test_torch_step import WEIGHTS, grads_as_jax, hparams, hulls, problem, torch_params
 from tests.test_torch_trainer import FAST_DATA, SMALL
 
@@ -385,13 +389,22 @@ def test_fine_train_steps_follow_jax():
 
 
 def test_fine_under_a_mesh_raises():
-    # the fine pass takes the autograd path, which is not ported under a
-    # data-parallel mesh (ROADMAP §1); the step raises before it
-    # reads the mesh
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.make_composite_train_step(fine_cfgs(tf, 16), hparams(ts, depth_samples_fine=F),
-                                     ts.make_optimizer(1e-3, 0.01, 300),
-                                     torch.linspace(3.6, 5.4, 48), 2.16, mesh=object())
+    # the fine pass runs under a data-parallel mesh (its max over the batch
+    # and ray 0's depths through the mesh's 'data' axis; at world 1 bit for
+    # bit the unsharded step, tests/test_torch_parallel.py, and against
+    # JAX's on two ranks, tests/test_torch_parallel_autograd.py): a mesh
+    # without that axis raises when the step is built, before any step
+    multihost.initialize(f"localhost:{free_port()}", 1, 0, backend="gloo")
+    try:
+        step = functools.partial(ts.make_composite_train_step, fine_cfgs(tf, 16),
+                                 hparams(ts, depth_samples_fine=F),
+                                 ts.make_optimizer(1e-3, 0.01, 300),
+                                 torch.linspace(3.6, 5.4, 48), 2.16)
+        with pytest.raises(ValueError, match="'data'"):
+            step(mesh=make_mesh(axis_names=("depth",), device="cpu"))
+        step(mesh=make_mesh(device="cpu"))
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

@@ -879,3 +879,28 @@ def test_bf16_residuals_k2_change_matches_twin(dev, enc):
               f"{float((dk - dt).norm() / dt.norm()):.3e}")
         assert abs(beta - 1) <= BF16_GATE, name
     assert moved == 2 * (cfg_s.num_early_layers + 1)
+
+
+@pytest.mark.gpu
+def test_device_memory_stats_and_trace_on_the_card(dev, tmp_path):
+    # utils/profiling.py on the card: one entry per CUDA device, the live
+    # bytes counting a fresh 64 MiB buffer, the limit the card's memory;
+    # a trace of a launch on the card is written with CUDA activity in it
+    import json
+    import os
+
+    from nerfca_tpu_torch.utils.profiling import device_memory_stats, trace
+
+    before = device_memory_stats()[0]
+    buf = torch.empty(16 * 2**20, device=dev)
+    stats = device_memory_stats()
+    assert len(stats) == torch.cuda.device_count() and stats[0]["device"] == "cuda:0"
+    assert stats[0]["bytes_in_use"] >= before["bytes_in_use"] + buf.numel() * 4
+    assert stats[0]["peak_bytes_in_use"] >= stats[0]["bytes_in_use"]
+    assert stats[0]["bytes_limit"] == torch.cuda.get_device_properties(0).total_memory
+    with trace(str(tmp_path)) as t:
+        buf.mul_(2.0)
+        torch.cuda.synchronize()
+    with open(os.path.join(tmp_path, t.name)) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)

@@ -7,7 +7,9 @@ against JAX's ``fused_train_loss_and_grads_sharded`` on a 2-device mesh
 (Pallas in interpret mode) and against the port's unsharded call, the
 depth-sharded render against JAX's, two data-parallel train steps against
 JAX's data-parallel step, and the mesh helpers. ``multihost.initialize``'s
-strictness and the step's mesh-aware branch choice run in this process."""
+strictness, and each train step under a one-rank mesh against the same
+step without one, run in this process (the autograd paths under two ranks
+are in ``tests/test_torch_parallel_autograd.py``)."""
 
 import multiprocessing as mp
 import os
@@ -34,6 +36,7 @@ from nerfca_tpu.parallel.mesh import replicate as jax_replicate
 from nerfca_tpu.train import step as js
 from nerfca_tpu_torch.models import fields as tf
 from nerfca_tpu_torch.ops.cuda import fused_train as tk3
+from nerfca_tpu_torch.ops.hull import MotionHull as THull
 from nerfca_tpu_torch.parallel import make_mesh, multihost
 from nerfca_tpu_torch.train import step as ts
 from tests import torch_dist_worker
@@ -347,13 +350,12 @@ def test_mesh_step_branch_and_world_one(world_one, problem):
     mesh = make_mesh(device="cpu")
     st = problem["steps"]
     cfgs = {k: tf.FieldConfig(**kw) for k, kw in st["cfgs"].items()}
-    z = torch.tensor(st["z"])
-    tx = ts.make_optimizer(*st["tx"])
-    # the autograd paths under a mesh are not ported: they raise
+    # the autograd paths under a mesh (the plain fields, K1/K2's twin): at
+    # world 1 each step is the unsharded step, bit for bit
     for kw in (dict(use_pallas=False), dict(use_pallas=True, use_fused_loss=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ts.make_composite_train_step(cfgs, ts.CompositeHParams(**st["hp"], **kw), tx, z,
-                                         2.16, mesh=mesh)
+        assert_world_one_bitwise(mesh, st, lambda m: ts.make_composite_train_step(
+            cfgs, ts.CompositeHParams(**st["hp"], **kw), ts.make_optimizer(*st["tx"]),
+            torch.tensor(st["z"]), 2.16, mesh=m), st["params"])
     # world 1: the sharded entry is the unsharded call, bit for bit
     k3 = problem["k3"]
     cs, ct = (tf.FieldConfig(**kw) for kw in k3["cfgs"])
@@ -375,6 +377,71 @@ def test_mesh_step_branch_and_world_one(world_one, problem):
     for (n, a), (_, b) in zip(ts.param_items({"static": one[2], "temp": one[3]}),
                               ts.param_items({"static": sharded[2], "temp": sharded[3]})):
         assert torch.equal(a, b), n
+
+
+def assert_world_one_bitwise(mesh, st, make_step, params) -> None:
+    """``N_STEPS`` steps of ``make_step(mesh)`` and of ``make_step(None)``
+    from the same state: the losses and metrics, parameters, Adam moments
+    and keys bit for bit."""
+    runs = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for m in (None, mesh):
+            tp = {k: tf.params_from_jax(v) for k, v in params.items()}
+            state = ts.TrainState(tp, ts.init_opt_state(tp), 0, np.asarray(st["rng"], np.uint32))
+            step = make_step(m)
+            rays, phases = torch.tensor(st["rays"]), torch.tensor(st["phases"]).long()
+            ids = torch.arange(64), torch.arange(64, rays.shape[0])
+            metrics = [step(state, rays, phases, *ids) for _ in range(N_STEPS)]
+            runs.append((metrics, state))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (m1, s1), (m2, s2) = runs
+    for a, b in zip(m1, m2):
+        assert list(a) == list(b)
+        for k in a:
+            assert torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k])), k
+    for (n, a), (_, b) in zip(ts.param_items(s1.params), ts.param_items(s2.params)):
+        assert torch.equal(a, b), n
+    for a, b in zip(s1.opt_state["mu"] + s1.opt_state["nu"],
+                    s2.opt_state["mu"] + s2.opt_state["nu"]):
+        assert torch.equal(a, b)
+    assert s1.opt_state["count"] == s2.opt_state["count"] == N_STEPS
+    np.testing.assert_array_equal(s1.rng, s2.rng)
+
+
+@pytest.mark.parametrize("kind", ["fine", "static"])
+def test_world_one_fine_and_static_steps_are_bitwise(world_one, problem, kind):
+    # the fine pass (the K1/K2 twin at per-ray depths on both pairs, the
+    # motion hull; the global max and ray 0's depths through the mesh's
+    # collectives) and the static step (the one-field twin) at world 1: the
+    # unsharded steps bit for bit
+    mesh = make_mesh(device="cpu")
+    st = problem["steps"]
+    tx = ts.make_optimizer(*st["tx"])
+    z = torch.tensor(st["z"])
+    if kind == "static":
+        cfg = tf.FieldConfig(**st["cfgs"]["static"])
+        hp = ts.StaticHParams(img_sample_size=16, nb_var_rays=4, depth_samples_coarse=32,
+                              occl_weight_start=1e-2, use_pallas=True)
+        assert_world_one_bitwise(mesh, st, lambda m: ts.make_static_train_step(
+            cfg, hp, tx, z, 2.16, mesh=m), {"static": st["params"]["static"]})
+        return
+    cfgs = {k: tf.FieldConfig(**kw) for k, kw in st["cfgs"].items()}
+    cfgs.update(static_fine=cfgs["static"], temp_fine=cfgs["temp"])
+    params = dict(st["params"], static_fine=st["params"]["static"],
+                  temp_fine=st["params"]["temp"])
+    hp = ts.CompositeHParams(**dict(st["hp"], nb_var_rays=4), depth_samples_fine=8,
+                             use_pallas=True, hull_static_l1_weight_start=1e-3,
+                             hull_static_l1_weight_end=1e-3)
+    grid = (0.2 + 0.8 * np.random.default_rng(9).random((6, 6, 6))).astype(np.float32)
+    hull = THull(torch.tensor(grid), torch.full((3,), 0.5), torch.zeros(3))
+
+    def make_step(m):
+        step = ts.make_composite_train_step(cfgs, hp, tx, z, 2.16, mesh=m)
+        return lambda *a: step(*a, hull=hull)
+
+    assert_world_one_bitwise(mesh, st, make_step, params)
 
 
 def test_prepare_composite_wires_the_mesh(world_one, tmp_path, monkeypatch):

@@ -1,0 +1,343 @@
+"""The torch port's autograd train paths under a data-parallel mesh against
+the JAX package's ``batch_sharding`` steps on the CPU.
+
+JAX's step under GSPMD computes the global function of the batch; the
+port's ranks each hold a slice of the rays and join their partials through
+``nerfca_tpu_torch/parallel/collectives.py``. Two gloo ranks are spawned
+once for the module (``tests/torch_dist_worker.py::run_autograd``, which
+imports no JAX) and run every case while this process runs JAX's steps on
+a 2-device CPU mesh: the two-kernel path (the K1/K2 twin) and the plain
+path, each with and without the motion hull; the fine pass; the static
+step; a batch of 15 rays, which K3's sharded entry refuses, through the
+two-kernel path; and the gradient of a per-ray vector spread over the
+ranks (the ``all_gather`` trap). JAX's side runs its plain fields (the
+twin's arithmetic on the coarse pass, ``tests/test_torch_step.py``), and
+for the fine pass its Pallas entries in interpret mode: the twin, as the
+kernels, gives the fine depths no cotangent, as JAX's Pallas ray entry,
+where JAX's plain fields backpropagate through the fine points."""
+
+import multiprocessing as mp
+import pickle
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import nerfca_tpu.ops.pallas.fused_field as jff
+from nerfca_tpu.models import fields as jf
+from nerfca_tpu.ops.hull import MotionHull as JHull
+from nerfca_tpu.ops.sampling import linspace_depths as j_linspace
+from nerfca_tpu.parallel.mesh import batch_sharding as jax_batch_sharding
+from nerfca_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from nerfca_tpu.parallel.mesh import replicate as jax_replicate
+from nerfca_tpu.train import step as js
+from tests import torch_dist_worker
+from tests.test_torch_parallel import LOSS_RTOL, PARAMS_ATOL, free_port
+from tests.test_train_step import synthetic_rays
+
+WORLD = 2
+N_STEPS = 2
+# the fine pass (tests/test_torch_fine.py): the fine pair's parameters within
+# 1e-4 of each leaf's scale, the coarse pair's within 1e-3 (sample_pdf's
+# weights are differences of nearly equal coarse sigmas, so f32 rounding of
+# those sigmas moves the coarse gradients past 1e-4; ROADMAP §3)
+FINE_REL, COARSE_REL = 1e-4, 1e-3
+WEIGHTS = dict(favor_s_weight_start=1e-3, favor_s_weight_end=1e-3,
+               dynamic_entro_weight_start=1e-4, dynamic_entro_weight_end=1e-4,
+               occl_weight_start=1e-4, occl_weight_end=1e-4, l1_weight_start=1e-6,
+               l1_weight_end=1e-6, static_tv_weight_start=1e-4, static_tv_weight_end=1e-4,
+               entro_mask_thre=1e-4, entro_use_weighting=True, entro_weighted_thresh=0.03,
+               occl_reg_perc=0.2, hyperparam_decay_steps=200)
+# configs/composite.txt's schedule on a short decay (the fine case)
+SHIPPED = dict(favor_s_weight_start=1e-12, favor_s_weight_end=1e-10,
+               favor_s_weight_delay_steps=10, dynamic_entro_weight_start=1e-10,
+               dynamic_entro_weight_end=1e-8, occl_weight_start=1e-8, occl_weight_end=1e-4,
+               l1_weight_start=1e-8, l1_weight_end=1e-15, hyperparam_decay_steps=100)
+HULL_L1 = dict(hull_static_l1_weight_start=1e-3, hull_static_l1_weight_end=1e-3)
+FIELD = dict(num_early_layers=1, num_filters=128, pos_enc="free_windowed", pos_enc_basis=4,
+             pos_enc_window_start=1, pos_enc_window_decay_steps=200)
+CFGS = {"static": FIELD, "temp": dict(FIELD, use_time_latents=True, num_time_dim=4)}
+
+
+def init_params(cfgs: dict, seed: int = 0) -> dict:
+    keys = jax.random.split(jax.random.PRNGKey(seed), 4)
+    out = {}
+    for i, (k, kw) in enumerate(cfgs.items()):
+        init = jf.init_temporal_field if kw.get("use_time_latents") else jf.init_static_field
+        out[k] = jax.tree.map(np.array, init(keys[i], jf.FieldConfig(**kw)))
+    return out
+
+
+def hull_grid(seed=9):
+    """A random gate grid (res 6, 0.5 voxels around the origin) over the
+    synthetic rays' samples."""
+    grid = (0.2 + 0.8 * np.random.default_rng(seed).random((6, 6, 6))).astype(np.float32)
+    return grid, np.full(3, 0.5, np.float32), np.zeros(3, np.float32)
+
+
+def composite_case(hp: dict, n_rays: int = 16, hull: bool = False, **extra) -> dict:
+    rays, phases = synthetic_rays(256)
+    ids = np.arange(256, dtype=np.int32)
+    case = {"kind": "composite", "cfgs": CFGS, "params": init_params(CFGS),
+            "rng": np.asarray(jax.random.PRNGKey(3)), "tx": (1e-3, 1.0, 100),
+            "rays": np.asarray(rays), "phases": np.asarray(phases), "var_ids": ids[:64],
+            "non_var_ids": ids[64:], "z": np.asarray(j_linspace(3.6, 5.4, 24)),
+            "hull": hull_grid() if hull else None, "n_steps": N_STEPS,
+            "hp": dict(img_sample_size=n_rays, nb_var_rays=4, depth_samples_coarse=24, **hp)}
+    case.update(extra)
+    return case
+
+
+def fine_case() -> dict:
+    """The fine pass where the batch's arg-max of the fine weights ``w`` and
+    global ray 0 sit on different ranks, by a wide margin. The first 8 rays
+    of a batch (rank 0's slice) come from the high-variance ids, the last 8
+    (rank 1's) from the others; all run along -x as the synthetic rays do.
+    The hull gates the temporal density (raised by an output bias of 20) to
+    0 on rank 0's rays (y ~ 0), and rank 1's rays (y ~ 0.75) cross a ramp
+    of the gate (0 -> 1 over one voxel): rank 1's largest ``w`` is ~900
+    times rank 0's, so rank 0's normalised weights sit near
+    ``sample_pdf``'s 1e-5 offset with the global max and near 1 with a
+    local one."""
+    cfgs = {**CFGS, "static_fine": FIELD, "temp_fine": CFGS["temp"]}
+    params = init_params(cfgs)
+    params["temp"]["out"]["b"][:] = 20.0
+    rng = np.random.default_rng(0)
+    n = 64
+    rays = np.zeros((n, 4, 3), np.float32)
+    rays[:, 0] = [4.5, 0.0, 0.0]
+    rays[32:, 0, 1] = 0.75
+    rays[:, 1] = np.array([-1.0, 0, 0]) + rng.normal(0, 0.02, (n, 3))
+    rays[:, 2] = (2.1 + 0.05 * rng.random((n, 1)))
+    rays[:, 3] = 1.0
+    grid = np.zeros((8, 8, 8), np.float32)
+    grid[:5, 5] = 1.0  # y = 0.75: gate 0 at x >= 0.75, 1 at x <= 0.25
+    ids = np.arange(n, dtype=np.int32)
+    return {"kind": "composite", "cfgs": cfgs, "params": params,
+            "rng": np.asarray(jax.random.PRNGKey(5)), "tx": (1e-3, 1.0, 100), "rays": rays,
+            "phases": rng.integers(0, 10, n).astype(np.int32), "var_ids": ids[:32],
+            "non_var_ids": ids[32:], "z": np.asarray(j_linspace(3.6, 5.4, 24)),
+            "hull": (grid, np.full(3, 0.5, np.float32), np.zeros(3, np.float32)),
+            "n_steps": N_STEPS,
+            "hp": dict(img_sample_size=16, nb_var_rays=8, depth_samples_coarse=24,
+                       depth_samples_fine=8, use_pallas=True, **SHIPPED, **HULL_L1)}
+
+
+def static_case() -> dict:
+    rays, phases = synthetic_rays(256)
+    ids = np.arange(256, dtype=np.int32)
+    return {"kind": "static", "cfg": FIELD, "params": {"static": init_params(CFGS)["static"]},
+            "rng": np.asarray(jax.random.PRNGKey(4)), "tx": (1e-3, 1.0, 100),
+            "rays": np.asarray(rays), "phases": np.asarray(phases), "var_ids": ids[:64],
+            "non_var_ids": ids[64:], "z": np.asarray(j_linspace(3.6, 5.4, 24)), "hull": None,
+            "n_steps": N_STEPS,
+            "hp": dict(img_sample_size=16, nb_var_rays=4, depth_samples_coarse=24,
+                       occl_weight_start=1e-2, use_pallas=True)}
+
+
+def cases() -> dict:
+    return {
+        "twin": composite_case(dict(use_pallas=True, **WEIGHTS)),
+        "twin_hull": composite_case(dict(use_pallas=True, **WEIGHTS, **HULL_L1), hull=True),
+        "plain": composite_case(dict(**WEIGHTS)),
+        "plain_hull": composite_case(dict(**WEIGHTS, **HULL_L1), hull=True),
+        "fine": fine_case(),
+        "static": static_case(),
+        # K3 is asked for, but 15 rays do not split over 2 ranks: JAX's
+        # branch rule sends the step to the two-kernel path
+        "uneven": composite_case(dict(use_pallas=True, use_fused_loss=True,
+                                      static_tv_weight_start=0.0, static_tv_weight_end=0.0,
+                                      **{k: v for k, v in WEIGHTS.items()
+                                         if not k.startswith("static_tv")}), n_rays=15),
+    }
+
+
+# JAX's sharded steps: the plain fields (use_pallas off), the same state
+
+
+def jax_hp(case: dict):
+    """JAX's hyperparameters of a case: the plain fields, but the Pallas
+    entries (a 128-point tile) for a fine pass on the kernels."""
+    hp = {k: v for k, v in case["hp"].items() if k not in ("use_pallas", "use_fused_loss")}
+    if case["kind"] == "static":
+        return js.StaticHParams(**hp)
+    if hp.get("depth_samples_fine") and case["hp"].get("use_pallas"):
+        hp.update(use_pallas=True, pallas_tile=128)
+    return js.CompositeHParams(**hp)
+
+
+def run_jax(case: dict) -> dict:
+    mesh = jax_make_mesh(WORLD)
+    tx = js.make_optimizer(*case["tx"])
+    params = jax.tree.map(jnp.asarray, case["params"])
+    state = js.TrainState(jax_replicate(mesh, params), jax_replicate(mesh, tx.init(params)),
+                          jnp.zeros((), jnp.int32), jnp.asarray(case["rng"]))
+    z, sharding = jnp.asarray(case["z"]), jax_batch_sharding(mesh)
+    if case["kind"] == "static":
+        step = js.make_static_train_step(jf.FieldConfig(**case["cfg"]), jax_hp(case), tx, z,
+                                         2.16, batch_sharding=sharding)
+    else:
+        step = js.make_composite_train_step(
+            {k: jf.FieldConfig(**kw) for k, kw in case["cfgs"].items()}, jax_hp(case), tx, z,
+            2.16, batch_sharding=sharding)
+    step = jax.jit(step)
+    hull = None if case["hull"] is None else JHull(*(jnp.asarray(a) for a in case["hull"]))
+    args = (jnp.asarray(case["rays"]), jnp.asarray(case["phases"]),
+            jnp.asarray(case["var_ids"]), jnp.asarray(case["non_var_ids"]))
+    losses = []
+    for _ in range(case["n_steps"]):
+        state, metrics = step(state, *args, hull=hull)
+        losses.append(float(metrics["train_loss"]))
+    return {"losses": losses, "metrics": {k: float(v) for k, v in metrics.items()},
+            "params": jax.tree.map(np.asarray, state.params), "rng": np.asarray(state.rng)}
+
+
+@pytest.fixture(scope="module")
+def problem():
+    rng = np.random.default_rng(7)
+    return {"cases": cases(),
+            "trap": {"x": rng.normal(size=16).astype(np.float32),
+                     "c": rng.random(16).astype(np.float32)}}
+
+
+@pytest.fixture(scope="module")
+def results(problem, tmp_path_factory):
+    """Both ranks' results (spawned, gloo, a free port) and JAX's, computed
+    here while the ranks run."""
+    tmp = tmp_path_factory.mktemp("autograd_ranks")
+    port = free_port()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=torch_dist_worker.run_autograd,
+                         args=(r, WORLD, port, str(tmp / f"rank{r}.pkl"), problem))
+             for r in range(WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        # the twin and the plain path share JAX's (plain) run
+        want, runs = {}, {}
+        with pytest.MonkeyPatch.context() as patch:
+            patch.setattr(jff, "_INTERPRET", True)
+            for name, case in problem["cases"].items():
+                key = (repr(jax_hp(case)), case["hull"] is not None)
+                if key not in runs:
+                    runs[key] = run_jax(case)
+                want[name] = runs[key]
+    finally:
+        for p in procs:
+            p.join(timeout=300)
+            if p.is_alive():
+                p.kill()
+    assert [p.exitcode for p in procs] == [0] * WORLD
+    ranks = []
+    for r in range(WORLD):
+        with open(tmp / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    return ranks, want
+
+
+def leaf_rel(got, want) -> dict:
+    """Each leaf's max abs difference over its scale, by path."""
+    return {jax.tree_util.keystr(path): float(np.abs(a - np.asarray(b)).max()
+                                              / max(np.abs(np.asarray(b)).max(), 1e-30))
+            for (path, b), a in zip(jax.tree_util.tree_flatten_with_path(want)[0],
+                                    jax.tree_util.tree_leaves(got))}
+
+
+def assert_ranks_agree(ranks, name):
+    a, b = (r[name] for r in ranks)
+    assert a["losses"] == b["losses"] and a["metrics"] == b["metrics"]
+    for x, y in zip(jax.tree_util.tree_leaves(a["params"]), jax.tree_util.tree_leaves(b["params"])):
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(a["rng"], b["rng"])
+
+
+@pytest.mark.parametrize("name", ["twin", "twin_hull", "plain", "plain_hull", "static", "uneven"])
+def test_mesh_steps_match_jax(results, name):
+    # the ranks hold the same parameters, key and metrics bit for bit; the
+    # losses within LOSS_RTOL a step of JAX's, every metric likewise (the
+    # sigma maxima are MAXed, the rest summed over the ranks), the
+    # parameters within PARAMS_ATOL, the same key
+    ranks, want = results
+    assert_ranks_agree(ranks, name)
+    got, ref = ranks[0][name], want[name]
+    np.testing.assert_allclose(got["losses"], ref["losses"], rtol=LOSS_RTOL * N_STEPS)
+    assert set(got["metrics"]) == set(ref["metrics"])
+    for k, v in ref["metrics"].items():
+        np.testing.assert_allclose(got["metrics"][k], v, rtol=1e-4, atol=1e-12, err_msg=k)
+    np.testing.assert_array_equal(got["rng"], ref["rng"])
+    for (path, b), a in zip(jax.tree_util.tree_flatten_with_path(ref["params"])[0],
+                            jax.tree_util.tree_leaves(got["params"])):
+        np.testing.assert_allclose(a, b, atol=PARAMS_ATOL, rtol=0, err_msg=str(path))
+
+
+def test_uneven_batch_takes_the_two_kernel_path(results):
+    # K3's sharded entry needs an even split: the step warns and takes the
+    # autograd path, which slices 8 + 7 rays
+    for r in results[0]:
+        assert any("do not split evenly" in w for w in r["uneven"]["warnings"])
+        assert not any("do not split evenly" in w for w in r["twin"]["warnings"])
+
+
+def test_fine_pass_matches_jax_across_ranks(results, problem):
+    # the global max of w lies on rank 1 and global ray 0 on rank 0; the
+    # losses within LOSS_RTOL a step, the fine pair's parameters within
+    # FINE_REL of each leaf's scale and the coarse pair's within COARSE_REL
+    ranks, want = results
+    assert_ranks_agree(ranks, "fine")
+    got, ref = ranks[0]["fine"], want["fine"]
+    np.testing.assert_allclose(got["losses"], ref["losses"], rtol=LOSS_RTOL * N_STEPS)
+    np.testing.assert_allclose(got["metrics"]["train_pixel_loss_fine"],
+                               ref["metrics"]["train_pixel_loss_fine"], rtol=LOSS_RTOL)
+    np.testing.assert_array_equal(got["rng"], ref["rng"])
+    errs = leaf_rel(got["params"], ref["params"])
+    fine = {k: v for k, v in errs.items() if "_fine" in k}
+    coarse = {k: v for k, v in errs.items() if k not in fine}
+    assert fine and max(fine.values()) <= FINE_REL, fine
+    assert max(coarse.values()) <= COARSE_REL, coarse
+
+
+def test_fine_case_splits_the_max_from_ray_0(problem):
+    # the construction the fine test stands on, in JAX on the step-0 batch:
+    # ray 0 on rank 0, the arg-max of w among rank 1's rays, rank 0's max
+    # under 2e-3 of it (1.1e-3 measured)
+    case = problem["cases"]["fine"]
+    cfgs = {k: jf.FieldConfig(**kw) for k, kw in case["cfgs"].items()}
+    hp = jax_hp(case)
+    _, k_sample, k_depth, _ = jax.random.split(jnp.asarray(case["rng"]), 4)
+    batch = js.sample_ray_batch(k_sample, jnp.asarray(case["rays"]), jnp.asarray(case["phases"]),
+                                jnp.asarray(case["var_ids"]), jnp.asarray(case["non_var_ids"]),
+                                hp)
+    batch["initial_intensities"] = jnp.full((16,), 2.16)
+    z = js.stratify_depths(k_depth, jnp.asarray(case["z"]))
+    windows = {k: js.field_window(cfgs[k], 0) for k in ("static", "temp")}
+    fwd = js.composite_forward(jax.tree.map(jnp.asarray, case["params"]), batch, z, windows,
+                               cfgs, js.CompositeHParams(**{**case["hp"], "depth_samples_fine": 0,
+                                                            "use_pallas": False}),
+                               hull=JHull(*(jnp.asarray(a) for a in case["hull"])))
+    total = np.asarray(fwd["static_sigma_coarse"] + fwd["temp_sigma_coarse"])
+    top = np.abs(np.diff(total, axis=-1)).max(axis=-1)
+    assert top[:8].max() < 2e-3 * top[8:].max()
+    # rank 0's rays (the first 8) are the ungated ones, rank 1's the ramp's
+    y0 = np.asarray(batch["origins"])[:, 1]
+    assert (y0[:8] == 0).all() and (y0[8:] == 0.75).all()
+
+
+def test_gradient_of_a_spread_vector_is_not_scaled_by_world(results, problem):
+    # loss = sum(c x^2) / n over a per-ray vector split over the ranks: the
+    # port's partial sum gives each rank the single-card gradient of its
+    # slice; all_gather, whose backward sums over the ranks, gives WORLD
+    # times it when every rank computes the whole loss; ray 0 broadcast
+    # from the first rank gets the cotangent of every rank's use of it
+    x, c = problem["trap"]["x"], problem["trap"]["c"]
+    n = x.shape[0]
+    single = 2 * c * x / np.float32(n)
+    for r, out in enumerate(results[0]):
+        part = slice(8 * r, 8 * r + 8)
+        np.testing.assert_allclose(out["trap"]["loss"], np.sum(c * x * x) / n, rtol=1e-6)
+        np.testing.assert_allclose(out["trap"]["ours"], single[part], rtol=1e-6)
+        np.testing.assert_allclose(out["trap"]["trap"], WORLD * single[part], rtol=1e-6)
+        want = np.zeros(8, np.float32)
+        if r == 0:
+            want[0] = c.sum()
+        np.testing.assert_allclose(out["trap"]["bcast"], want, rtol=1e-6)

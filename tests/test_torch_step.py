@@ -10,6 +10,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch.distributed as dist
 
 import nerfca_tpu.ops.pallas.fused_field as jff
 from nerfca_tpu.models import fields as jf
@@ -18,7 +19,9 @@ from nerfca_tpu.ops.pallas.fused_train import fused_train_loss_and_grads as jax_
 from nerfca_tpu.train import step as js
 from nerfca_tpu_torch.models import fields as tf
 from nerfca_tpu_torch.ops.hull import MotionHull as THull
+from nerfca_tpu_torch.parallel import make_mesh, multihost
 from nerfca_tpu_torch.train import step as ts
+from tests.test_torch_parallel import free_port
 
 WEIGHTS = {
     # configs/composite.txt's schedule on a short decay
@@ -290,8 +293,8 @@ def test_adam_update_and_static_freeze_match_optax(freeze):
 def test_unported_options_raise():
     # the fine pass is ported: its step builds, and one step of it follows
     # JAX's (the loss within 1e-5 relative, the same next key); under a
-    # data-parallel mesh it takes the autograd path, which is still not
-    # ported there and raises
+    # data-parallel mesh it takes the autograd path, ported too: the step
+    # raises only for a mesh without a 'data' axis
     c = {**cfgs(ts), **{f"{k}_fine": dataclasses.replace(v, num_filters=16)
                         for k, v in cfgs(ts).items()}}
     jc = {**cfgs(js), **{f"{k}_fine": dataclasses.replace(v, num_filters=16)
@@ -322,8 +325,13 @@ def test_unported_options_raise():
         tstate, torch.tensor(rays), torch.tensor(phases), torch.tensor(ids), torch.tensor(ids))
     np.testing.assert_allclose(float(tm["train_loss"]), float(jm["train_loss"]), rtol=1e-5)
     np.testing.assert_array_equal(tstate.rng, np.asarray(jax.random.key_data(jstate.rng)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.make_composite_train_step(c, thp, tx, torch.tensor(z), 2.16, mesh=object())
+    multihost.initialize(f"localhost:{free_port()}", 1, 0, backend="gloo")
+    try:
+        mesh = make_mesh(axis_names=("depth",), device="cpu")
+        with pytest.raises(ValueError, match="'data'"):
+            ts.make_composite_train_step(c, thp, tx, torch.tensor(z), 2.16, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_trainer_fused_loss_with_hull_runs_finite(tmp_path, capsys):

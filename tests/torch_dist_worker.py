@@ -1,9 +1,10 @@
 """One rank of the data- and depth-parallel CPU tests
-(``tests/test_torch_parallel.py``), run in a spawned process over gloo.
+(``tests/test_torch_parallel.py``, and ``tests/test_torch_parallel_autograd.py``
+through :func:`run_autograd`), run in a spawned process over gloo.
 Imports torch and the port only: the ranks never import JAX.
 
-:func:`run` takes numpy inputs, computes on this rank and pickles numpy
-results to ``out_path``."""
+:func:`run` and :func:`run_autograd` take numpy inputs, compute on this
+rank and pickle numpy results to ``out_path``."""
 
 from __future__ import annotations
 
@@ -107,6 +108,100 @@ def run(rank: int, world: int, port: int, out_path: str, problem: dict) -> None:
                      for _ in range(st["n_steps"])]
     out["params"] = {k: tf.params_to_jax(v) for k, v in state.params.items()}
     out["rng"] = np.asarray(state.rng)
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _train_case(case: dict, mesh) -> dict:
+    """``case["n_steps"]`` data-parallel steps of one autograd-path case
+    (``kind`` ``"composite"`` or ``"static"``) from its numpy state: the
+    losses, the last step's metrics, the parameters, the key, the K1/K2
+    twin's warnings."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from nerfca_tpu_torch.models import fields as tf
+    from nerfca_tpu_torch.ops.hull import MotionHull
+    from nerfca_tpu_torch.train import step as ts
+
+    params = {k: tf.params_from_jax(v) for k, v in case["params"].items()}
+    state = ts.TrainState(params, ts.init_opt_state(params), 0,
+                          np.asarray(case["rng"], np.uint32))
+    z = torch.tensor(case["z"])
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if case["kind"] == "static":
+            step = ts.make_static_train_step(tf.FieldConfig(**case["cfg"]),
+                                             ts.StaticHParams(**case["hp"]),
+                                             ts.make_optimizer(*case["tx"]), z, 2.16, mesh=mesh)
+        else:
+            step = ts.make_composite_train_step(
+                {k: tf.FieldConfig(**kw) for k, kw in case["cfgs"].items()},
+                ts.CompositeHParams(**case["hp"]), ts.make_optimizer(*case["tx"]), z, 2.16,
+                mesh=mesh)
+    hull = None
+    if case.get("hull") is not None:
+        hull = MotionHull(*(torch.tensor(a) for a in case["hull"]))
+    args = (torch.tensor(case["rays"]), torch.tensor(case["phases"]).long(),
+            torch.tensor(case["var_ids"]).long(), torch.tensor(case["non_var_ids"]).long())
+    losses, metrics = [], None
+    for _ in range(case["n_steps"]):
+        metrics = step(state, *args, hull=hull)
+        losses.append(float(metrics["train_loss"]))
+    return {"losses": losses, "metrics": {k: float(v) for k, v in metrics.items()},
+            "params": {k: tf.params_to_jax(v) for k, v in state.params.items()},
+            "rng": np.asarray(state.rng), "warnings": [str(w.message) for w in caught]}
+
+
+def _gather_trap(mesh, problem: dict) -> dict:
+    """The gradient of a loss over a per-ray vector spread over the ranks:
+    through :func:`~nerfca_tpu_torch.parallel.collectives.sum_partials`
+    (each rank's partial of the mean) and through
+    ``torch.distributed.nn.functional.all_gather`` (every rank computes the
+    whole mean from the gathered vector); and the cotangent that
+    :func:`~nerfca_tpu_torch.parallel.collectives.from_first_shard` returns
+    to the first rank's ray 0."""
+    import torch
+    import torch.distributed.nn.functional as dnn
+
+    from nerfca_tpu_torch.parallel import batch_sharding
+    from nerfca_tpu_torch.parallel.collectives import from_first_shard, sum_partials
+
+    x, c = torch.tensor(problem["x"]), torch.tensor(problem["c"])
+    n = x.shape[0]
+    part = batch_sharding(mesh).uneven_slice(n)
+    local = x[part].clone().requires_grad_(True)
+    loss = sum_partials(torch.sum(c[part] * local ** 2) / n, mesh)
+    ours = torch.autograd.grad(loss, local)[0]
+    gathered = local.detach().clone().requires_grad_(True)
+    whole = torch.cat(dnn.all_gather(gathered))
+    trap = torch.autograd.grad(torch.sum(c * whole ** 2) / n, gathered)[0]
+    # each rank uses ray 0 of the first rank's slice against its own rays
+    first = local.detach().clone().requires_grad_(True)
+    ray0 = from_first_shard(first[:1], mesh)
+    bcast = torch.autograd.grad(sum_partials(torch.sum(c[part]) * ray0[0], mesh), first)[0]
+    return {"loss": float(loss), "ours": ours.numpy(), "trap": trap.numpy(),
+            "bcast": bcast.numpy()}
+
+
+def run_autograd(rank: int, world: int, port: int, out_path: str, problem: dict) -> None:
+    """Every case of ``problem["cases"]`` through the autograd paths under a
+    ``world``-rank ``'data'`` mesh, and the gather trap."""
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.distributed as dist
+
+    from nerfca_tpu_torch.parallel import make_mesh, multihost
+
+    torch.use_deterministic_algorithms(True)
+    multihost.initialize(f"localhost:{port}", world, rank, backend="gloo")
+    mesh = make_mesh(device="cpu")
+    out = {name: _train_case(case, mesh) for name, case in problem["cases"].items()}
+    out["trap"] = _gather_trap(mesh, problem["trap"])
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
     dist.barrier()
