@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from nerfca_tpu_torch.geometry.rotations import carm_source_matrix
+from nerfca_tpu_torch.utils.profiling import span
 
 
 class MotionHull(NamedTuple):
@@ -187,11 +188,12 @@ def hull_gate(hull: MotionHull, x, y, z) -> torch.Tensor:
 def hull_gate_rays(hull: MotionHull, origins, directions, z) -> torch.Tensor:
     """Gate values along rays: ``origins``/``directions`` [R, 3], ``z``
     either the shared [S] depth vector or per-ray [R, S]. Returns [R, S]."""
-    zz = z if z.dim() == 2 else z[None, :]
-    x = origins[:, 0:1] + directions[:, 0:1] * zz
-    y = origins[:, 1:2] + directions[:, 1:2] * zz
-    w = origins[:, 2:3] + directions[:, 2:3] * zz
-    return hull_gate(hull, x, y, w)
+    with span("nerfca.hull_gate"):
+        zz = z if z.dim() == 2 else z[None, :]
+        x = origins[:, 0:1] + directions[:, 0:1] * zz
+        y = origins[:, 1:2] + directions[:, 1:2] * zz
+        w = origins[:, 2:3] + directions[:, 2:3] * zz
+        return hull_gate(hull, x, y, w)
 
 
 # The config knobs that determine the carved hull (and so the model's

@@ -25,21 +25,31 @@ from nerfca_tpu_torch.train.step import (
     CompositeHParams, StaticHParams, evaluate_fields, field_window, loss_weights,
     regularized_loss, regularizer_losses,
 )
+from nerfca_tpu_torch.utils.profiling import span
 
 
 def _render_tiles(params, origins, directions, phases, depth_values, windows, cfgs,
                   hp: CompositeHParams, tile: int, hull, suffix: str = "") -> tuple:
     """The pair ``suffix`` names on every ray, ``tile`` rays at a time:
-    raw densities ``[N, S]`` of each field and the hull gate (or None)."""
+    the raw densities ``[tile, S]`` of each field and the hull gate, a list
+    of tiles each (the gate's empty without a hull)."""
     s_parts, t_parts, g_parts = [], [], []
     for start in range(0, origins.shape[0], tile):
-        o, d = origins[start:start + tile], directions[start:start + tile]
-        s_raw, t_raw = evaluate_fields(params, o, d, depth_values, phases[start:start + tile],
-                                       windows, cfgs, hp, suffix)
-        s_parts.append(s_raw[..., 0])
-        t_parts.append(t_raw[..., 0])
-        if hull is not None:
-            g_parts.append(hull_gate_rays(hull, o, d, depth_values))
+        with span("nerfca.eval.tile"):
+            o, d = origins[start:start + tile], directions[start:start + tile]
+            s_raw, t_raw = evaluate_fields(params, o, d, depth_values,
+                                           phases[start:start + tile], windows, cfgs, hp,
+                                           suffix)
+            s_parts.append(s_raw[..., 0])
+            t_parts.append(t_raw[..., 0])
+            if hull is not None:
+                g_parts.append(hull_gate_rays(hull, o, d, depth_values))
+    return s_parts, t_parts, g_parts
+
+
+def _joined(s_parts, t_parts, g_parts) -> tuple:
+    """The tiles of :func:`_render_tiles` as ``[N, S]`` densities of each
+    field and the gate (None without a hull)."""
     return torch.cat(s_parts), torch.cat(t_parts), torch.cat(g_parts) if g_parts else None
 
 
@@ -57,30 +67,36 @@ def render_test_view(params, test_origins, test_directions, test_phases, depth_v
     directly on that fixed grid, as the reference's eval does (not a
     resampled hierarchical pass): ``pix_fine`` and the fine sigmas and
     dists."""
-    dev = test_origins.device
-    windows = {k: field_window(cfgs[k], step, dev) for k in ("static", "temp")}
-    s_raw, t_raw, gate = _render_tiles(params, test_origins, test_directions, test_phases,
-                                       depth_values, windows, cfgs, hp, tile, hull)
-    i0 = torch.full((s_raw.shape[0],), initial_intensity, device=dev)
-    pix, s_sig, t_sig, dists = render_transmission_composite(
-        s_raw[..., None], t_raw[..., None], i0, depth_values, hp.output_activation,
-        temp_gate=gate)
-    pix_temp, _, _ = render_transmission(t_raw[..., None], i0, depth_values,
-                                         hp.output_activation, gate=gate)
-    pix_static, _, _ = render_transmission(s_raw[..., None], i0, depth_values,
-                                           hp.output_activation)
-    out = {"pix": pix, "pix_static": pix_static, "pix_temp": pix_temp,
-           "static_sigma": s_sig, "temp_sigma": t_sig, "dists": dists}
-    if depth_values_fine is not None and "static_fine" in params:
-        s_raw, t_raw, gate = _render_tiles(params, test_origins, test_directions, test_phases,
-                                           depth_values_fine, windows, cfgs, hp, tile, hull,
-                                           "_fine")
-        pix, s_sig, t_sig, dists = render_transmission_composite(
-            s_raw[..., None], t_raw[..., None], i0, depth_values_fine, hp.output_activation,
-            temp_gate=gate)
-        out.update(pix_fine=pix, static_sigma_fine=s_sig, temp_sigma_fine=t_sig,
-                   dists_fine=dists)
-    return out
+    with span("nerfca.eval.view"):
+        dev = test_origins.device
+        windows = {k: field_window(cfgs[k], step, dev) for k in ("static", "temp")}
+        parts = _render_tiles(params, test_origins, test_directions, test_phases,
+                              depth_values, windows, cfgs, hp, tile, hull)
+        with span("nerfca.eval.composite"):
+            s_raw, t_raw, gate = _joined(*parts)
+            del parts  # the tiles, released before the renders as the joins replace them
+            i0 = torch.full((s_raw.shape[0],), initial_intensity, device=dev)
+            pix, s_sig, t_sig, dists = render_transmission_composite(
+                s_raw[..., None], t_raw[..., None], i0, depth_values, hp.output_activation,
+                temp_gate=gate)
+            pix_temp, _, _ = render_transmission(t_raw[..., None], i0, depth_values,
+                                                 hp.output_activation, gate=gate)
+            pix_static, _, _ = render_transmission(s_raw[..., None], i0, depth_values,
+                                                   hp.output_activation)
+        out = {"pix": pix, "pix_static": pix_static, "pix_temp": pix_temp,
+               "static_sigma": s_sig, "temp_sigma": t_sig, "dists": dists}
+        if depth_values_fine is not None and "static_fine" in params:
+            parts = _render_tiles(params, test_origins, test_directions, test_phases,
+                                  depth_values_fine, windows, cfgs, hp, tile, hull, "_fine")
+            with span("nerfca.eval.composite"):
+                s_raw, t_raw, gate = _joined(*parts)
+                del parts
+                pix, s_sig, t_sig, dists = render_transmission_composite(
+                    s_raw[..., None], t_raw[..., None], i0, depth_values_fine,
+                    hp.output_activation, temp_gate=gate)
+            out.update(pix_fine=pix, static_sigma_fine=s_sig, temp_sigma_fine=t_sig,
+                       dists_fine=dists)
+        return out
 
 
 @torch.no_grad()

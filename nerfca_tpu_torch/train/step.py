@@ -87,6 +87,7 @@ from nerfca_tpu_torch.parallel.collectives import (
     all_reduce_grads, axis_group, from_first_shard, global_amax, reduce_metrics, sum_partials,
 )
 from nerfca_tpu_torch.parallel.mesh import axis_size, batch_sharding
+from nerfca_tpu_torch.utils.profiling import span
 
 
 DATA_AXIS = "data"
@@ -802,24 +803,29 @@ def make_composite_train_step(cfgs: dict, hp: CompositeHParams, tx: AdamConfig,
             fused_fn = functools.partial(fused_train_loss_and_grads_sharded, mesh, DATA_AXIS)
 
     def train_step(state: TrainState, rays, phases, var_ids, non_var_ids, hull=None):
-        u_fine = fine_uniforms(state.rng, hp) if hp.depth_samples_fine > 0 else None
-        state.rng, positions, u, t = step_draws(
-            state.rng, hp, var_ids.shape[0], non_var_ids.shape[0], rays.shape[0],
-            depth_values_base.shape[0])
-        positions, t, u, u_fine = to_device(rays.device, positions, t, u, u_fine)
-        batch = sample_ray_batch(rays, phases, var_ids, non_var_ids, positions, hp)
-        if u is not None:
-            batch["directions"] = jitter_directions(batch["directions"], hp.ray_jitter, u)
-        batch["initial_intensities"] = torch.full(
-            (hp.img_sample_size,), initial_intensity, device=rays.device)
-        z = stratify_depths(depth_values_base, t_rand=t)
-        if fused:
-            _, metrics, grads = _fused_loss_metrics_grads(state.params, batch, z, state.step, cfgs,
-                                                          hp, hull=hull, fused_fn=fused_fn)
-        else:
-            _, metrics, grads = composite_grads(state.params, batch, z, state.step, cfgs, hp,
-                                                hull=hull, u_fine=u_fine, mesh=mesh)
-        adam_update(state.params, state.opt_state, grads, tx, state.step, hp)
+        with span("nerfca.step.draws"):
+            u_fine = fine_uniforms(state.rng, hp) if hp.depth_samples_fine > 0 else None
+            state.rng, positions, u, t = step_draws(
+                state.rng, hp, var_ids.shape[0], non_var_ids.shape[0], rays.shape[0],
+                depth_values_base.shape[0])
+        with span("nerfca.step.upload"):
+            positions, t, u, u_fine = to_device(rays.device, positions, t, u, u_fine)
+        with span("nerfca.step.batch"):
+            batch = sample_ray_batch(rays, phases, var_ids, non_var_ids, positions, hp)
+            if u is not None:
+                batch["directions"] = jitter_directions(batch["directions"], hp.ray_jitter, u)
+            batch["initial_intensities"] = torch.full(
+                (hp.img_sample_size,), initial_intensity, device=rays.device)
+            z = stratify_depths(depth_values_base, t_rand=t)
+        with span("nerfca.step.loss_grads"):
+            if fused:
+                _, metrics, grads = _fused_loss_metrics_grads(
+                    state.params, batch, z, state.step, cfgs, hp, hull=hull, fused_fn=fused_fn)
+            else:
+                _, metrics, grads = composite_grads(state.params, batch, z, state.step, cfgs,
+                                                    hp, hull=hull, u_fine=u_fine, mesh=mesh)
+        with span("nerfca.step.adam"):
+            adam_update(state.params, state.opt_state, grads, tx, state.step, hp)
         state.step += 1
         return metrics
 
@@ -923,16 +929,22 @@ def make_static_train_step(cfg: FieldConfig, hp: StaticHParams, tx: AdamConfig,
 
     def train_step(state: TrainState, rays, phases, var_ids, non_var_ids, hull=None):
         del hull
-        state.rng, positions, t = static_step_draws(
-            state.rng, comp_hp, var_ids.shape[0], non_var_ids.shape[0], rays.shape[0],
-            depth_values_base.shape[0])
-        positions, t = to_device(rays.device, positions, t)
-        batch = sample_ray_batch(rays, phases, var_ids, non_var_ids, positions, comp_hp)
-        batch["initial_intensities"] = torch.full(
-            (hp.img_sample_size,), initial_intensity, device=rays.device)
-        z = stratify_depths(depth_values_base, t_rand=t)
-        _, metrics, grads = static_grads(state.params, batch, z, state.step, cfg, hp, mesh=mesh)
-        adam_update(state.params, state.opt_state, grads, tx, state.step, comp_hp)
+        with span("nerfca.step.draws"):
+            state.rng, positions, t = static_step_draws(
+                state.rng, comp_hp, var_ids.shape[0], non_var_ids.shape[0], rays.shape[0],
+                depth_values_base.shape[0])
+        with span("nerfca.step.upload"):
+            positions, t = to_device(rays.device, positions, t)
+        with span("nerfca.step.batch"):
+            batch = sample_ray_batch(rays, phases, var_ids, non_var_ids, positions, comp_hp)
+            batch["initial_intensities"] = torch.full(
+                (hp.img_sample_size,), initial_intensity, device=rays.device)
+            z = stratify_depths(depth_values_base, t_rand=t)
+        with span("nerfca.step.loss_grads"):
+            _, metrics, grads = static_grads(state.params, batch, z, state.step, cfg, hp,
+                                             mesh=mesh)
+        with span("nerfca.step.adam"):
+            adam_update(state.params, state.opt_state, grads, tx, state.step, comp_hp)
         state.step += 1
         return metrics
 

@@ -40,7 +40,7 @@ from nerfca_tpu_torch.train import evaluation
 from nerfca_tpu_torch.train.checkpoint import CheckpointManager, load_checkpoint
 from nerfca_tpu_torch.train.config import parse_args
 from nerfca_tpu_torch.train.logging import MetricsLogger, make_log_dir
-from nerfca_tpu_torch.utils.profiling import trace
+from nerfca_tpu_torch.utils.profiling import span, trace
 from nerfca_tpu_torch.train.step import (
     CompositeHParams, StaticHParams, TrainState, init_opt_state, make_composite_train_step,
     make_optimizer, make_static_train_step,
@@ -320,8 +320,9 @@ def _run_chunk(train_step, state, dd, n_now: int, hull=None) -> dict:
     out = {k: np.asarray([m[k] for m in per_step], dtype=np.float64)
            for k in keys if k not in tensor_keys}
     if tensor_keys:
-        stacked = torch.stack([torch.stack([m[k].float() for m in per_step])
-                               for k in tensor_keys]).cpu().numpy()
+        with span("nerfca.train.readback"):
+            stacked = torch.stack([torch.stack([m[k].float() for m in per_step])
+                                   for k in tensor_keys]).cpu().numpy()
         out.update({k: stacked[i] for i, k in enumerate(tensor_keys)})
     return out
 

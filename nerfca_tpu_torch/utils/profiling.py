@@ -8,7 +8,10 @@ logged as ``train_time`` (``run_composite.py:231,336``). Here:
     card, CUDA activity, writing a trace that TensorBoard's profiler
     plugin and ``chrome://tracing`` read (the trainer's ``--profile_steps``
     window uses it);
-  - ``device_memory_stats()``: live device memory per CUDA device.
+  - ``device_memory_stats()``: live device memory per CUDA device;
+  - ``span()``: a named host span of the port's own, seen by any running
+    ``torch.profiler`` (the trainer's ``trace()`` window, a benchmark's
+    trace) on the clock it gives the card's kernels, and free otherwise.
 
 JAX's ``enable_compilation_cache`` has no counterpart: it configures XLA's
 compilation cache, and the port compiles its kernels once into
@@ -92,6 +95,23 @@ def trace(log_dir: str, name: Optional[str] = None):
         handle.profiler.stop()
         os.makedirs(log_dir, exist_ok=True)
         handle.profiler.export_chrome_trace(os.path.join(log_dir, handle.name))
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span('nerfca.<part>'): ...`` marks the block as a host span
+    in a running ``torch.profiler`` trace; with no profiler running it is
+    one check of the profiler's state and nothing else. The span is an
+    operator-scope record (as a ``torch.autograd.Function``'s is), so it
+    nests the aten ops and kernel launches under it and, unlike a
+    ``record_function`` scope, adds no copy of itself to the device's
+    timeline: the device's busy time and kernel list stay the kernels'.
+    Every name starts with ``nerfca.``."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _OFF
 
 
 def device_memory_stats(device: Optional[str] = None) -> list[dict]:

@@ -882,6 +882,30 @@ def test_bf16_residuals_k2_change_matches_twin(dev, enc):
 
 
 @pytest.mark.gpu
+def test_span_on_the_card_adds_no_device_event(dev):
+    # a span is a host record only: the kernel launched under it is the
+    # only device event, and the kernel's launch call lies inside the span
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nerfca_tpu_torch.utils.profiling import span
+
+    buf = torch.ones(2**20, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with span("nerfca.card"):
+            buf.mul_(2.0)
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    device = [e for e in events if e.device_type() == DeviceType.CUDA]
+    assert len(device) == 1 and not device[0].name().startswith("nerfca.")
+    host = next(e for e in events if e.name() == "nerfca.card")
+    call = next(e for e in events if e.device_type() != DeviceType.CUDA
+                and e.name().startswith("cu") and e.correlation_id() == device[0].correlation_id())
+    assert host.start_ns() <= call.start_ns() <= host.end_ns()
+
+
+@pytest.mark.gpu
 def test_device_memory_stats_and_trace_on_the_card(dev, tmp_path):
     # utils/profiling.py on the card: one entry per CUDA device, the live
     # bytes counting a fresh 64 MiB buffer, the limit the card's memory;
