@@ -441,10 +441,14 @@ def check_kernels(n_rays: int = 1024, n_samples: int = 500, seed: int = 0,
     args = (params["static"], params["temp"], origins, dirs, z, phases, cfg_s, cfg_t,
             window, window)
 
+    before = dict(ff.LAUNCHES)
     with torch.no_grad():
         k_s, k_t = ff.fused_composite_fields_rays(*args)
         p_s, p_t = ff.plain_composite_fields_rays(*args)
     torch.cuda.synchronize()
+    if (ff.LAUNCHES["fused_field_fwd.wgmma"] != before["fused_field_fwd.wgmma"] + 1
+            or ff.LAUNCHES["fused_field_fwd.mma_sync"] != before["fused_field_fwd.mma_sync"]):
+        raise AssertionError(f"K1 in f32 did not take the wgmma route: {ff.LAUNCHES}")
     k1_err = max(float((k_s - p_s).abs().max()), float((k_t - p_t).abs().max()))
     if not (math.isfinite(k1_err) and k1_err <= K1_ATOL):
         raise AssertionError(f"K1 disagrees with the plain version: {k1_err:.3e} > {K1_ATOL}")
@@ -746,9 +750,11 @@ def check_kernels_bf16(n_rays: int = 1024, n_samples: int = 500, seed: int = 0,
 
     before = dict(ff.LAUNCHES)
     k_out, k_g = run(ff.fused_composite_fields_rays, bf)
-    for name in ("fused_field_fwd", "fused_field_bwd"):
-        if (ff.LAUNCHES[name + "_bf16"] != before[name + "_bf16"] + 1
-                or ff.LAUNCHES[name] != before[name]):
+    for name in ("fused_field_fwd", "fused_field_bwd", "fused_field_fwd.mma_sync"):
+        bf_name = name + "_bf16" if "." not in name else name
+        f32_name = name if "." not in name else "fused_field_fwd.wgmma"
+        if (ff.LAUNCHES[bf_name] != before[bf_name] + 1
+                or ff.LAUNCHES[f32_name] != before[f32_name]):
             raise AssertionError(f"the bf16 entry did not launch the bf16 {name}: {ff.LAUNCHES}")
     t_out, t_g = run(ff.twin_composite_fields_rays, bf)
     f_out, f_g = run(ff.plain_composite_fields_rays)

@@ -3,8 +3,10 @@
 // K1 (fused_field_fwd) replaces nerfca_tpu/ops/pallas/fused_field.py::_fwd_kernel
 // (pallas_call in _fused_core_fwd_impl). K2 (fused_field_bwd + fused_field_reduce)
 // replaces ::_bwd_kernel (pallas_call in _fused_core_bwd), the custom VJP of K1.
-// Both run their matrix products through the same device code below (the
-// weight ring, mma_layer_fwd, store_relu_frag); the encoding lives in
+// K1 in f32 is fwd_kernel_wgmma (k1_wgmma.cuh: wgmma, warp-specialised,
+// persistent, with its own note); K2 and K1 in bf16 (fwd_kernel) run their
+// matrix products through the same mma.sync device code below (the weight
+// ring, mma_layer_fwd, store_relu_frag); the encoding lives in
 // field_common.cuh. The fused-loss step (fused_train.cu) takes its forward
 // from K1.
 //
@@ -32,18 +34,18 @@
 // a 512,000-point train step is ~155 GFLOP forward and ~3x that backward,
 // against a few bytes of HBM traffic per point.
 //
-// Both run their products on the tensor cores with mma.sync in 3xTF32
-// (field_mma.cuh): three TF32 products per f32 product keep near-f32
-// accuracy. K1's bound is then 3 x 155.2 GFLOP at 495 TFLOP/s, ~0.94 ms at
-// the flagship step (2.3 ms for f32 FMAs on the CUDA cores); K2 runs three
-// products (the forward recompute, dX of the hidden layers, dW of every
-// layer), ~2.8 ms against ~7 ms for f32 FMAs.
+// Both run their products on the tensor cores in 3xTF32 (field_mma.cuh):
+// three TF32 products per f32 product keep near-f32 accuracy. K1's bound is
+// then 3 x 155.2 GFLOP at 495 TFLOP/s, ~0.94 ms at the flagship step (2.3
+// ms for f32 FMAs on the CUDA cores); K2 runs three products (the forward
+// recompute, dX of the hidden layers, dW of every layer), ~2.8 ms against
+// ~7 ms for f32 FMAs.
 //
-// K1 gives each CTA one field on one tile of K1_TP = 128 points; its weights
-// stream through the same two-chunk cp.async ring as K2's in chunks of
-// K1_WCH = 32 rows, so two CTAs fit on an SM and one CTA's encoding and
-// weight waits run under the other's products. The output layer runs on the
-// CUDA cores in f32.
+// K1 in bf16 (fwd_kernel) gives each CTA one field on one tile of K1_TP =
+// 128 points; its weights stream through the same two-chunk cp.async ring
+// as K2's in chunks of K1_WCH = 32 rows, so two CTAs fit on an SM and one
+// CTA's encoding and weight waits run under the other's products. The
+// output layer runs on the CUDA cores.
 //
 // In K2 the encoding, the output layer, the bias sums and the latent
 // cotangent stay on the CUDA cores in exact f32. A tile is 128 points,
@@ -57,14 +59,15 @@
 // mma.sync rate: on the H100 a TF32 m16n8k8 issues about every 8 cycles
 // per SM sub-partition, half of what wgmma reaches, so the products alone
 // take ~6 ms; the encoding and the CUDA-core phases run at low occupancy
-// (8 warps per SM). wgmma, TMA and warp specialisation are later work.
+// (8 warps per SM). K2 on wgmma is later work.
 // The short loop for work on these kernels is chip_smoke.check_kernels()
 // on the card (build, errors and times at the flagship shapes);
 // scripts/k2_variants.py splits K2's time by phase, scripts/k1_variants.py
 // times K1 at two tile sizes and without parts of its work.
 //
 // bf16 (compute_dtype "bfloat16", the JAX kernel's _dot/_dotg casts): both
-// kernels take a BF16 template parameter. Every matrix product then rounds
+// mma.sync kernels take a BF16 template parameter (fwd_kernel is launched
+// with BF16 alone; its f32 path remains for the SASS it had). Every matrix product then rounds
 // its operands to bf16 (to nearest, ties to even) as it loads them from the
 // f32 shared-memory tiles and runs one mma.sync.m16n8k16 product per MAC
 // into f32 (field_mma.cuh); k steps are 16 deep, so the input layer pads to
@@ -95,6 +98,7 @@
 
 #include "field_common.cuh"
 #include "field_mma.cuh"
+#include "k1_wgmma.cuh"
 
 // Offsets (floats) of one field's gradient block inside a CTA partial.
 struct GradLayout {
@@ -711,7 +715,7 @@ __global__ void reduce_kernel(const float* partials, long part_stride, int n_par
 }
 
 // ---------------------------------------------------------------------------
-// K1 on the tensor cores: K2's forward without the residual stores. With
+// K1 in bf16 on mma.sync: K2's forward without the residual stores. With
 // two fields (NF == 2) CTA 2t runs the static field and CTA 2t + 1 the
 // temporal field on the tile of K1_TP points at t * K1_TP; with one
 // (NF == 1) CTA t runs fs on tile t and writes out_s alone. Each CTA:
@@ -778,14 +782,14 @@ fwd_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, float* out_s, float* out_t) {
   }
 }
 
-// K1: 105,984 bytes, two CTAs per SM; K2: H, D, the weight ring, g_sm,
+// K1 in bf16: 105,984 bytes, two CTAs per SM (K1 in f32: K1W_SMEM); K2: H, D, the weight ring, g_sm,
 // dlat_sm, phase_sm (211,968 of the 232,448 bytes a block may use)
 static const int FWD_SMEM = k1_smem(K1_TP, K1_WCH);
 static const int BWD_SMEM =
     (BTP * LDH + BTP * LDD + 2 * WCH * LDW + BTP + BTP * MAX_LAT) * 4 + BTP * 4;
 
 // The launches of one instantiation (NF fields, FOURIER, BF16 and, for K2,
-// RES_BF16; the C entries pick them).
+// RES_BF16; the C entries pick them). K1 in f32 is launch_fwd_wgmma.
 template <int NF, bool FOURIER, bool BF16>
 static int launch_fwd(const FieldArgs& fs, const FieldArgs& ft, const RayArgs& r, float* out_s,
                       float* out_t, cudaStream_t st) {
@@ -834,9 +838,96 @@ static int launch_fwd_nf(const FieldArgs* fs, const FieldArgs* ft, const RayArgs
             : launch_fwd<1, FOURIER, BF16>(*fs, *fs, r, out_s, out_t, st);
 }
 
+// The weight planes of K1 in f32 (fwd_kernel_wsplit), both fields' when ft
+// is given.
+static int launch_wsplit(const FieldArgs* fs, const FieldArgs* ft, float* planes,
+                         cudaStream_t st) {
+  const long n = ((long)k1w_ksteps(*fs) + (ft ? k1w_ksteps(*ft) : 0)) * 1024;
+  fwd_kernel_wsplit<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(*fs, ft ? *ft : *fs,
+                                                                 ft ? 2 : 1, planes);
+  return (int)cudaGetLastError();
+}
+
+// Clusters of two that the card holds at once with K1's shared memory (the
+// persistent grid), or a negative CUDA error. setmaxnreg moves registers
+// within a CTA's allocation, so a build whose allocation cannot hold what
+// the warpgroups ask for is refused here: its consumers would wait forever.
+template <int NF, bool FOURIER>
+static int k1w_clusters() {
+  static int clusters = 0;
+  if (clusters > 0) return clusters;
+  auto* kern = fwd_kernel_wgmma<NF, FOURIER>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, K1W_SMEM);
+  if (e != cudaSuccess) return -(int)e;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, kern);
+  if (e != cudaSuccess) return -(int)e;
+  if (K1W_PRODUCER_REGS * (K1W_THREADS - 256) + K1W_CONSUMER_REGS * 256 >
+      ((fa.numRegs + 7) & ~7) * K1W_THREADS)
+    return -(int)cudaErrorInvalidConfiguration;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = 2;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(2);
+  cfg.blockDim = dim3(K1W_THREADS);
+  cfg.dynamicSmemBytes = K1W_SMEM;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+  if (e != cudaSuccess) return -(int)e;
+  clusters = n > 0 ? n : 1;
+  return clusters;
+}
+
+// K1 in f32: the weight planes (into planes, fused_field_fwd_planes_floats
+// of them), then the persistent kernel over units of (field, tile pair).
+template <int NF, bool FOURIER>
+static int launch_fwd_wgmma(const FieldArgs& fs, const FieldArgs& ft, const RayArgs& r,
+                            float* out_s, float* out_t, float* planes, cudaStream_t st) {
+  const int clusters = k1w_clusters<NF, FOURIER>();
+  if (clusters < 0) return -clusters;
+  auto* kern = fwd_kernel_wgmma<NF, FOURIER>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, K1W_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const long n_pts = (long)r.n_rays * r.n_samples;
+  const long units = NF * ((n_pts + 2 * K1W_TP - 1) / (2 * K1W_TP));
+  if (units == 0) return 0;
+  const int err = launch_wsplit(&fs, NF == 2 ? &ft : nullptr, planes, st);
+  if (err != 0) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = 2;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3((unsigned)(2 * (units < clusters ? units : clusters)));
+  cfg.blockDim = dim3(K1W_THREADS);
+  cfg.dynamicSmemBytes = K1W_SMEM;
+  cfg.stream = st;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, fs, ft, r, (const float*)planes, out_s, out_t);
+}
+
+template <bool FOURIER>
+static int launch_fwd_wgmma_nf(const FieldArgs* fs, const FieldArgs* ft, const RayArgs& r,
+                               float* out_s, float* out_t, float* planes, cudaStream_t st) {
+  return ft ? launch_fwd_wgmma<2, FOURIER>(*fs, *ft, r, out_s, out_t, planes, st)
+            : launch_fwd_wgmma<1, FOURIER>(*fs, *fs, r, out_s, out_t, planes, st);
+}
+
 extern "C" {
 
-int fused_field_smem_bytes(int which) { return which == 0 ? FWD_SMEM : BWD_SMEM; }
+// Shared memory of a CTA: 0 K1 in f32, 1 K2, 2 K1 in bf16.
+int fused_field_smem_bytes(int which) {
+  return which == 0 ? K1W_SMEM : which == 1 ? BWD_SMEM : FWD_SMEM;
+}
 
 // Points per K2 tile (the wrapper sizes the residual scratch with it).
 int fused_field_bwd_tile_points() { return BTP; }
@@ -853,17 +944,34 @@ long fused_field_grad_size(const FieldArgs* fs, const FieldArgs* ft, int n_phase
 // (K2 with two fields only) f32 products over bf16 residuals.
 enum { MODE_F32 = 0, MODE_BF16 = 1, MODE_RES_BF16 = 2 };
 
-// out_t is unused with one field; mode MODE_F32 or MODE_BF16.
+// Floats of K1's weight planes in f32 (static field, then temporal).
+long fused_field_fwd_planes_floats(const FieldArgs* fs, const FieldArgs* ft) {
+  return ((long)k1w_ksteps(*fs) + (ft ? k1w_ksteps(*ft) : 0)) * K1W_KSTEP_FLOATS;
+}
+
+// The weight planes alone (what fused_field_fwd writes into planes first).
+int fused_field_fwd_split(const FieldArgs* fs, const FieldArgs* ft, float* planes,
+                          void* stream) {
+  return launch_wsplit(fs, ft, planes, (cudaStream_t)stream);
+}
+
+// Clusters of two CTAs that a K1 launch in f32 may take (its persistent
+// grid), or a negative CUDA error.
+int fused_field_fwd_clusters() { return k1w_clusters<2, false>(); }
+
+// out_t is unused with one field; mode MODE_F32 (fwd_kernel_wgmma, after
+// the weight planes into planes: fused_field_fwd_planes_floats floats) or
+// MODE_BF16 (fwd_kernel on mma.sync; planes unused).
 int fused_field_fwd(const FieldArgs* fs, const FieldArgs* ft, const RayArgs* r,
-                    float* out_s, float* out_t, int mode, void* stream) {
+                    float* out_s, float* out_t, int mode, float* planes, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (mode != MODE_F32 && mode != MODE_BF16) return (int)cudaErrorInvalidValue;
-  const bool bf16 = mode == MODE_BF16;
-  if (is_fourier(*fs) || (ft && is_fourier(*ft)))
-    return bf16 ? launch_fwd_nf<true, true>(fs, ft, *r, out_s, out_t, st)
-                : launch_fwd_nf<true, false>(fs, ft, *r, out_s, out_t, st);
-  return bf16 ? launch_fwd_nf<false, true>(fs, ft, *r, out_s, out_t, st)
-              : launch_fwd_nf<false, false>(fs, ft, *r, out_s, out_t, st);
+  const bool fourier = is_fourier(*fs) || (ft && is_fourier(*ft));
+  if (mode == MODE_F32)
+    return fourier ? launch_fwd_wgmma_nf<true>(fs, ft, *r, out_s, out_t, planes, st)
+                   : launch_fwd_wgmma_nf<false>(fs, ft, *r, out_s, out_t, planes, st);
+  return fourier ? launch_fwd_nf<true, true>(fs, ft, *r, out_s, out_t, st)
+                 : launch_fwd_nf<false, true>(fs, ft, *r, out_s, out_t, st);
 }
 
 // partials: [n_ctas, part_stride] zero-initialized by this call;

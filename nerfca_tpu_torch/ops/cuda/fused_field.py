@@ -7,9 +7,12 @@ _fwd_kernel`` and K2 ``fused_field_bwd`` replaces ``::_bwd_kernel``, the
 custom VJP of K1. Both live in ``nerfca_tpu_torch/csrc/fused_field.cu``;
 the source note there says what bounds them on the H100 and how the
 design keeps every activation out of HBM. Both run their matrix products
-on the tensor cores in 3xTF32 (``mma.sync``, ``csrc/field_mma.cuh``)
-through the same forward code, both over 128-point tiles: K1 one field
-per CTA, two CTAs per SM; K2 one CTA per SM. The fused-loss step
+on the tensor cores in 3xTF32. K1 in f32 is ``fwd_kernel_wgmma``
+(``csrc/k1_wgmma.cuh``): ``wgmma`` with the activations in registers,
+a producer warp streaming weight planes (split into their TF32 parts once
+a launch by ``fwd_kernel_wsplit``) to clusters of two persistent CTAs,
+encoder warps filling the next tile. K2, and K1 in bf16, run ``mma.sync``
+(``csrc/field_mma.cuh``) over 128-point tiles. The fused-loss step
 (``fused_train.py``) takes its forward from K1. The kernels take the ray
 form (origins, directions, per-ray or shared depths, per-ray phases, the
 latent table) and build points and latents themselves, so no ``[R*S, 3]``
@@ -56,7 +59,9 @@ Launch counts: ``LAUNCHES["fused_field_fwd"]`` / ``["fused_field_bwd"]``
 ``["fused_static_field_bwd"]`` (one field) grow by one at each launch of
 the f32 instantiations and nowhere else; the same names with ``_bf16``
 count the bf16 ones, and ``["fused_field_bwd_res_bf16"]`` K2 over bf16
-residuals.
+residuals. K1's route, whatever its fields: ``["fused_field_fwd.wgmma"]``
+counts the f32 launches (``fwd_kernel_wgmma``), ``["fused_field_fwd.mma_sync"]``
+the bf16 ones (``fwd_kernel``).
 """
 
 from __future__ import annotations
@@ -92,7 +97,8 @@ _SUFFIX = {MODE_F32: "", MODE_BF16: "_bf16", MODE_RES_BF16: "_res_bf16"}
 LAUNCHES = {"fused_field_fwd": 0, "fused_field_bwd": 0, "fused_static_field_fwd": 0,
             "fused_static_field_bwd": 0, "fused_field_fwd_bf16": 0, "fused_field_bwd_bf16": 0,
             "fused_static_field_fwd_bf16": 0, "fused_static_field_bwd_bf16": 0,
-            "fused_field_bwd_res_bf16": 0}
+            "fused_field_bwd_res_bf16": 0, "fused_field_fwd.wgmma": 0,
+            "fused_field_fwd.mma_sync": 0}
 
 
 def reset_launch_counts() -> None:
@@ -302,8 +308,14 @@ def _lib() -> ctypes.CDLL:
         ptr = ctypes.POINTER
         lib.fused_field_fwd.argtypes = [ptr(FieldArgs), ptr(FieldArgs), ptr(RayArgs),
                                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                        ctypes.c_void_p]
+                                        ctypes.c_void_p, ctypes.c_void_p]
         lib.fused_field_fwd.restype = ctypes.c_int
+        lib.fused_field_fwd_planes_floats.argtypes = [ptr(FieldArgs), ptr(FieldArgs)]
+        lib.fused_field_fwd_planes_floats.restype = ctypes.c_long
+        lib.fused_field_fwd_split.argtypes = [ptr(FieldArgs), ptr(FieldArgs), ctypes.c_void_p,
+                                              ctypes.c_void_p]
+        lib.fused_field_fwd_split.restype = ctypes.c_int
+        lib.fused_field_fwd_clusters.restype = ctypes.c_int
         lib.fused_field_bwd.argtypes = [ptr(FieldArgs), ptr(FieldArgs), ptr(RayArgs),
                                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                         ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
@@ -322,6 +334,49 @@ def _lib() -> ctypes.CDLL:
 def _check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what} failed: CUDA error {code}")
+
+
+# ---------------------------------------------------------------------------
+# K1's weight planes in f32, as ``csrc/k1_wgmma.cuh::fwd_kernel_wsplit``
+# writes them: per field the input layer's k-steps of 8 rows (zero past
+# its rows), then 16 per hidden layer; a k-step is its TF32 big plane, then
+# its small plane, each the 128 x 8 tile of B in wgmma's K-major core
+# matrices (element e: output n = 8 (e >> 6) + ((e >> 2) & 7), k slot
+# s = 4 ((e >> 5) & 1) + (e & 3)). Slot s holds input SLOT_INPUT[s] of the
+# k-step: A's slots t and t + 4 are the accumulator's columns 2t, 2t + 1.
+
+SLOT_INPUT = (0, 2, 4, 6, 1, 3, 5, 7)
+KSTEP_FLOATS = 2048
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits), to nearest, ties away from
+    zero (``field_mma.cuh::tf32_rna``), on the int32 view."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _layer_planes(w_in_out: torch.Tensor) -> torch.Tensor:
+    """One layer's planes from its ``[k, 128]`` (in, out) weight."""
+    k = w_in_out.shape[0]
+    w = torch.zeros(-(-k // 8) * 8, WIDTH, dtype=torch.float32, device=w_in_out.device)
+    w[:k] = w_in_out
+    nk = w.shape[0] // 8
+    w = w.view(nk, 8, WIDTH)[:, list(SLOT_INPUT)]  # [kk, slot, n]
+    w = w.view(nk, 2, 4, WIDTH // 8, 8).permute(0, 3, 1, 4, 2).reshape(nk, 1024)
+    big = tf32_rna(w)
+    return torch.stack([big, tf32_rna(w - big)], 1).reshape(-1)
+
+
+def wgmma_planes(pack_s: "_Pack", pack_t: Optional["_Pack"] = None) -> torch.Tensor:
+    """The planes of one pack, or of two (static field first), in torch."""
+    out = []
+    for pk in (pack_s, pack_t):
+        if pk is None:
+            continue
+        out.append(_layer_planes(pk.w0))
+        out += [_layer_planes(pk.wh[l]) for l in range(pk.cfg.num_early_layers)]
+    return torch.cat(out)
 
 
 # ---------------------------------------------------------------------------
@@ -416,23 +471,50 @@ def _field_ptr(pack: Optional[_Pack]):
     return None if pack is None else ctypes.byref(pack.args)
 
 
+def _planes_buffer(pack_s: _Pack, pack_t: Optional[_Pack], device) -> torch.Tensor:
+    return torch.empty(_lib().fused_field_fwd_planes_floats(ctypes.byref(pack_s.args),
+                                                           _field_ptr(pack_t)), device=device)
+
+
 def fused_field_fwd(pack_s: _Pack, pack_t: Optional[_Pack], origins, directions, z, phases,
                     latents):
     """Launch K1 (its bf16 instantiation when ``pack_s.bf16``): the
     ``[R*S]`` raw densities of the static field and of the temporal field
-    (None when ``pack_t`` is None: the one-field launch)."""
+    (None when ``pack_t`` is None: the one-field launch). In f32 the launch
+    first splits the weights into their planes (:func:`wgmma_planes`) in
+    a scratch buffer."""
     n = origins.shape[0] * z.shape[-1]
     out_s = torch.empty(n, device=origins.device)
     out_t = None if pack_t is None else torch.empty(n, device=origins.device)
     rays = _ray_args(origins, directions, z, phases, latents)
     mode = MODE_BF16 if pack_s.bf16 else MODE_F32
+    planes = None if mode == MODE_BF16 else _planes_buffer(pack_s, pack_t, origins.device)
     name = "fused_field_fwd" if pack_t is not None else "fused_static_field_fwd"
     LAUNCHES[name + _SUFFIX[mode]] += 1
+    LAUNCHES["fused_field_fwd." + ("mma_sync" if mode == MODE_BF16 else "wgmma")] += 1
     _check(_lib().fused_field_fwd(ctypes.byref(pack_s.args), _field_ptr(pack_t),
                                   ctypes.byref(rays), out_s.data_ptr(),
-                                  None if out_t is None else out_t.data_ptr(), mode, _stream()),
+                                  None if out_t is None else out_t.data_ptr(), mode,
+                                  None if planes is None else planes.data_ptr(), _stream()),
            "fused_field_fwd")
     return out_s, out_t
+
+
+def fused_field_fwd_planes(pack_s: _Pack, pack_t: Optional[_Pack]) -> torch.Tensor:
+    """The weight planes that K1 in f32 computes for itself at each launch
+    (``fwd_kernel_wsplit`` alone), for a comparison with
+    :func:`wgmma_planes`."""
+    planes = _planes_buffer(pack_s, pack_t, pack_s.w0.device)
+    _check(_lib().fused_field_fwd_split(ctypes.byref(pack_s.args), _field_ptr(pack_t),
+                                        planes.data_ptr(), _stream()), "fused_field_fwd_split")
+    return planes
+
+
+def fwd_clusters() -> int:
+    """Clusters of two CTAs in K1's persistent grid in f32 on this card."""
+    n = _lib().fused_field_fwd_clusters()
+    _check(0 if n > 0 else -n, "fused_field_fwd_clusters")
+    return n
 
 
 def fused_field_bwd(pack_s: _Pack, pack_t: Optional[_Pack], origins, directions, z, phases,

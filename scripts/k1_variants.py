@@ -1,21 +1,22 @@
 #!/usr/bin/env python3
-"""Where K1's time goes on the card: builds variants of
+"""Where the time of K1 in f32 goes on the card: builds variants of
 ``nerfca_tpu_torch/csrc/`` (text edits on a copy, as ``k2_variants.py``
-does) and times K1 in each at the flagship shapes of
+does) and times K1 (``fwd_kernel_wsplit`` + ``fwd_kernel_wgmma``,
+``csrc/k1_wgmma.cuh``) in each at the flagship shapes of
 ``chip_smoke.check_kernels`` (1024 rays x 500 samples, both 4x128 fields,
 every band open) with CUDA events, in turns and then in the reverse order.
 Prints each build's ptxas lines for K1 (registers, spills).
 
     python3 scripts/k1_variants.py [--out k1_variants.json]
 
-Variants (the last three compute wrong densities; only their times count):
-  base       the source as it is (128-point tiles, 32-row weight chunks,
-             two CTAs per SM)
-  tile64     64-point tiles, 64-row weight chunks, two CTAs per SM
-  tile128_c64  128-point tiles, 64-row weight chunks, one CTA per SM
-  one_pass  one TF32 product instead of three: the tensor pipe's share
-  no_mma    no products at all: what K1 spends outside them
-  no_split  three products of unsplit operands: what the TF32 split costs
+Variants (all but base compute wrong densities; only their times count):
+  base       the source as it is
+  one_pass   one TF32 product (big*big) instead of three: the tensor pipe's share
+  no_mma     no products at all: what K1 spends outside them
+  no_split   three products of unsplit operands (activations and weight
+             planes): what the TF32 split of the activations costs
+  no_encode  the encoder warps skip the encoding: whether it hides under
+             the products
 
 Needs one CUDA device and nvcc; imports torch and this repository only.
 """
@@ -31,19 +32,21 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from scripts.k2_variants import FF, MMA, THREE, build_variant  # noqa: E402
+from scripts.k2_variants import MMA, build_variant  # noqa: E402
 
+K1W = "k1_wgmma.cuh"
 SPLIT = "  big = tf32_rna(x);\n  small = tf32_rna(x - __uint_as_float(big));\n"
-TILE, CHUNK = "#define K1_TP 128 ", "#define K1_WCH 32 "
+PRODUCTS = ("wgmma_tf32(acc, a.small, k1w_desc(b));", "wgmma_tf32(acc, a.big, k1w_desc(b + 4096));",
+            "wgmma_tf32(acc, a.big, k1w_desc(b));")
+ENCODE = "k1w_encode<FOURIER>(f, r, tile_of(u), enc + eb * K1W_ENC_FLOATS, et);"
 VARIANTS = {
     "base": [],
-    "tile64": [(FF, TILE, "#define K1_TP 64 "), (FF, CHUNK, "#define K1_WCH 64 ")],
-    "tile128_c64": [(FF, CHUNK, "#define K1_WCH 64 ")],
-    "one_pass": [(MMA, THREE[0], ";"), (MMA, THREE[1], ";")],
-    "no_mma": [(MMA, line, ";") for line in THREE],
+    "one_pass": [(K1W, PRODUCTS[0], ";"), (K1W, PRODUCTS[1], ";")],
+    "no_mma": [(K1W, line, ";") for line in PRODUCTS],
     "no_split": [(MMA, SPLIT, "  big = __float_as_uint(x);\n  small = 0u;\n")],
+    "no_encode": [(K1W, ENCODE, ";")],
 }
-CHECKED = ("base", "tile64", "tile128_c64")  # the variants that compute K1
+CHECKED = ("base",)  # the variants that compute K1
 
 
 def main() -> int:
@@ -80,7 +83,7 @@ def main() -> int:
             k1_lines, in_k1 = [], False
             for line in log.splitlines():
                 if "Compiling entry" in line:
-                    in_k1 = "fwd_kernel" in line
+                    in_k1 = "fwd_kernel_wgmma" in line
                 elif in_k1 and ("registers" in line or "spill" in line):
                     k1_lines.append(line.split(":", 1)[-1].strip())
             ptxas[name] = k1_lines

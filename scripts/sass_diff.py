@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Compare the SASS of the field kernels with another copy of their source.
 
-    python3 scripts/sass_diff.py --parent <dir holding an older csrc/> [--out sass.json]
+    python3 scripts/sass_diff.py --parent <dir holding an older csrc/> [--replaced REGEX ...]
+                                 [--out sass.json]
 
 Compiles ``fused_field.cu`` from ``nerfca_tpu_torch/csrc`` and from
 ``--parent`` to cubins with the device flags of ``ops/cuda/build.py``
@@ -13,10 +14,18 @@ for each new one: the parent's ``fwd_kernel<2, 32, NF, FOURIER>`` and
 ``bwd_kernel<NF, FOURIER>`` with ``fwd_kernel<2, 32, NF, FOURIER, false>``
 and ``bwd_kernel<NF, FOURIER, false, false>`` here (the f32 instantiations,
 without bf16 compute or bf16 residuals), and so on back to the older names.
+A parent kernel that a change replaced on purpose is named by ``--replaced``
+(a regular expression on the demangled name, searched): it is listed as
+replaced and not compared. The f32 ``fwd_kernel`` instantiations gave way to
+``fwd_kernel_wgmma``:
+
+    python3 scripts/sass_diff.py --parent <dir> --replaced 'fwd_kernel<2, 32, [12], (true|false), false>'
+
 Prints one JSON object (per kernel: identical or not, instruction counts,
 the first differing line; branch labels are renamed per kernel, since their
 numbers run across the whole cubin) and exits 1 when a pair differs or a
-parent kernel has no counterpart. Needs ``nvcc`` and ``cuobjdump``.
+parent kernel that is not replaced has no counterpart. Needs ``nvcc`` and
+``cuobjdump``.
 """
 
 from __future__ import annotations
@@ -94,12 +103,17 @@ def counterpart(parent: str, kernels: dict):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, help="directory holding the older fused_field.cu")
+    ap.add_argument("--replaced", action="append", default=[],
+                    help="regex of parent kernels replaced on purpose (not compared)")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
     with tempfile.TemporaryDirectory() as work:
         old, new = sass(args.parent, work, "parent"), sass(CSRC, work, "this")
     result, same = {"kernels_here": sorted(new)}, True
     for p_old in sorted(k for k in old if any(f in k for f in FAMILIES)):
+        if any(re.search(r, p_old) for r in args.replaced):
+            result.setdefault("replaced", []).append(p_old)
+            continue
         p_new = counterpart(p_old, new)
         if p_new is None:
             result[p_old] = {"identical": False, "counterpart": None}

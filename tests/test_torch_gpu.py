@@ -364,6 +364,112 @@ def test_backward_is_deterministic(dev):
         assert torch.equal(a, b)
 
 
+# K1 in f32 on wgmma (csrc/k1_wgmma.cuh): its weight planes, its
+# persistent schedule's edges, every hidden-layer count, one and two
+# fields, run-to-run bits, and the route each precision takes.
+
+
+def k1_forward(args, compute_dtype="float32"):
+    with torch.no_grad():
+        return ff.fused_composite_fields_rays(*args, compute_dtype=compute_dtype)
+
+
+def assert_forward_matches_plain(args):
+    before = dict(ff.LAUNCHES)
+    got = k1_forward(args)
+    assert ff.LAUNCHES["fused_field_fwd.wgmma"] == before["fused_field_fwd.wgmma"] + 1
+    with torch.no_grad():
+        want = ff.plain_composite_fields_rays(*args)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= K1_ATOL
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fields", [1, 2])
+@pytest.mark.parametrize("enc,basis,layers", [("free_windowed", 12, 4), ("fourier", 12, 2),
+                                              ("free_windowed", 20, 0)])
+def test_weight_planes_match_twin(dev, fields, enc, basis, layers):
+    # fwd_kernel_wsplit's planes bit for bit against their torch twin
+    args, _ = make(dev, enc=enc, basis=basis, layers=layers)
+    packs = [ff._Pack(c, ff._leaves(p), ff.enc_table(p, c, w), dev)
+             for p, c, w in ((args[0], args[6], args[8]), (args[1], args[7], args[9]))]
+    packs = packs[:fields] + [None] * (2 - fields)
+    got = ff.fused_field_fwd_planes(*packs)
+    want = ff.wgmma_planes(*packs)
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layers", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("shared_z", [False, True])
+def test_forward_matches_plain_hidden_layers(dev, layers, shared_z):
+    assert_forward_matches_plain(make(dev, r=37, s=100, layers=layers, shared_z=shared_z)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["fewer_tiles_than_ctas", "ragged_last_tile",
+                                  "one_tile_per_cta", "two_rounds_ragged"])
+@pytest.mark.parametrize("fields", [1, 2])
+def test_forward_persistent_schedule_edges(dev, case, fields):
+    # the grid holds fwd_clusters() clusters of two CTAs; a unit is one
+    # field on a pair of 128-point tiles
+    clusters = ff.fwd_clusters()
+    assert clusters >= 1
+    pairs = {"fewer_tiles_than_ctas": 3, "ragged_last_tile": 5,
+             "one_tile_per_cta": clusters // fields, "two_rounds_ragged": 2 * clusters + 1}[case]
+    n = 256 * pairs - (0 if case == "one_tile_per_cta" else 77)
+    if fields == 2:
+        assert_forward_matches_plain(make(dev, r=n, s=1)[0])
+        return
+    params, pts, cfg, w, _ = static_points(dev, n, 1)
+    before = dict(ff.LAUNCHES)
+    with torch.no_grad():
+        got = ff.fused_static_field(params, pts, cfg, w)
+        want = ff.plain_static_field(params, pts, cfg, w)
+    assert ff.LAUNCHES["fused_field_fwd.wgmma"] == before["fused_field_fwd.wgmma"] + 1
+    assert float((got - want).abs().max()) <= K1_ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("enc", ["free_windowed", "fourier"])
+@pytest.mark.parametrize("shared_z", [False, True])
+def test_forward_is_deterministic_wgmma(dev, enc, shared_z):
+    args, _ = make(dev, r=300, s=77, enc=enc, shared_z=shared_z)
+    first = k1_forward(args)
+    for _ in range(2):
+        for a, b in zip(first, k1_forward(args)):
+            assert torch.equal(a, b)
+    params, pts, cfg, w, _ = static_points(dev, 300, 77, enc=enc)
+    with torch.no_grad():
+        one = ff.fused_static_field(params, pts, cfg, w)
+        assert torch.equal(one, ff.fused_static_field(params, pts, cfg, w))
+
+
+@pytest.mark.gpu
+def test_forward_routes(dev):
+    # f32 calls take the wgmma route alone, bf16 calls the mma.sync one alone
+    from nerfca_tpu_torch.ops.cuda import fused_train as ft
+
+    args, _ = make(dev, r=16, s=64)
+    params, pts, cfg, w, _ = static_points(dev, 16, 64)
+    k3_args, h = k3_inputs(dev, r=16, s=64)
+    f32 = [lambda: k1_forward(args), lambda: ff.fused_static_field(params, pts, cfg, w),
+           lambda: ft.fused_train_loss_and_grads(*k3_args, hull=h)]
+    bf16 = [lambda: k1_forward(args, "bfloat16"),
+            lambda: ff.fused_static_field(params, pts, cfg, w, "bfloat16")]
+    for calls, route in ((f32, "wgmma"), (bf16, "mma_sync")):
+        other = "mma_sync" if route == "wgmma" else "wgmma"
+        before = dict(ff.LAUNCHES)
+        for call in calls:
+            call()
+        assert ff.LAUNCHES["fused_field_fwd." + route] == before["fused_field_fwd." + route] + len(
+            calls)
+        assert ff.LAUNCHES["fused_field_fwd." + other] == before["fused_field_fwd." + other]
+
+
 @pytest.mark.gpu
 def test_wrapper_checks_inputs(dev):
     args, _ = make(dev, r=4, s=16)
