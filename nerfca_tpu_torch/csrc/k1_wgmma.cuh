@@ -16,9 +16,9 @@
 // both fields: 3 x 155 GFLOP at 495 TFLOP/s = 0.94 ms at 1024 rays x 500
 // samples, and 36.7 ms for a render view (40,000 rays x 500), so the share
 // of the single-product roofline (portbench's k1_roofline) can reach 33.3%.
-// Measured at 1024 x 500: 1.26 ms (the mma.sync kernel 3.04); without the
-// products 0.51, with one product instead of three 0.76, without the
-// encoding 1.16 (scripts/k1_variants.py).
+// Measured at 1024 x 500: 1.23 ms (the mma.sync kernel 3.04); without the
+// products 0.48, with one product instead of three 0.75, without the
+// encoding 1.12 (scripts/k1_variants.py).
 //
 // Design, one CTA of 512 threads per SM, clusters of two CTAs:
 //   - warpgroups 0 and 3 give registers away (setmaxnreg 56): warp 0 is
@@ -40,6 +40,9 @@
 //     A commit group is two chunks (four k-steps, twelve products), and it
 //     completes before its warp writes the next group's fragments (see the
 //     consumers' loop); the other warpgroup's group keeps the pipe busy.
+//     The two warpgroups settle half a group apart by themselves; making
+//     them take turns with named barriers (FlashAttention-3's ping-pong)
+//     cost 0-2.4% (scripts/k1_variants.py, variant pingpong).
 //   - persistent: a grid of as many clusters as the card holds walks over
 //     units of (field, pair of 128-point tiles); the two CTAs of a cluster
 //     take the two tiles of a pair, with the same field's weights.
@@ -327,11 +330,12 @@ __device__ __forceinline__ void k1w_kstep(float (&acc)[64], const K1wFrag& a, ui
 }
 
 // acc = the layer's bias, by the accumulator layout: acc[4j + q] is row
-// g (q < 2) or g + 8, column 8j + 2t + (q & 1).
+// g (q < 2) or g + 8, column 8j + 2t + (q & 1). Plain loads, here and in
+// the output layer: through __ldg (ld.global.nc) K1 took 2.5-4.7% longer.
 __device__ __forceinline__ void k1w_bias(float (&acc)[64], const float* bias, int t) {
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
-    const float b0 = __ldg(bias + 8 * j + 2 * t), b1 = __ldg(bias + 8 * j + 2 * t + 1);
+    const float b0 = bias[8 * j + 2 * t], b1 = bias[8 * j + 2 * t + 1];
     acc[4 * j] = b0;
     acc[4 * j + 1] = b1;
     acc[4 * j + 2] = b0;
@@ -616,7 +620,7 @@ fwd_kernel_wgmma(FieldArgs fs, FieldArgs ft, RayArgs r, const float* planes, flo
     float s0 = 0.f, s1 = 0.f;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
-      const float w0 = __ldg(f.wo + 8 * j + 2 * t), w1 = __ldg(f.wo + 8 * j + 2 * t + 1);
+      const float w0 = f.wo[8 * j + 2 * t], w1 = f.wo[8 * j + 2 * t + 1];
       s0 = fmaf(fmaxf(acc[4 * j], 0.f), w0, s0);
       s0 = fmaf(fmaxf(acc[4 * j + 1], 0.f), w1, s0);
       s1 = fmaf(fmaxf(acc[4 * j + 2], 0.f), w0, s1);
@@ -628,7 +632,7 @@ fwd_kernel_wgmma(FieldArgs fs, FieldArgs ft, RayArgs r, const float* planes, flo
     s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
     if (t == 0) {
       float* out = temporal ? out_t : out_s;
-      const float bo = __ldg(f.bo);
+      const float bo = *f.bo;
       const long p = tile0 + row0;
       if (p < n_pts) out[p] = s0 + bo;
       if (p + 8 < n_pts) out[p + 8] = s1 + bo;

@@ -449,6 +449,43 @@ def test_forward_is_deterministic_wgmma(dev, enc, shared_z):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    dict(fields=2), dict(fields=2, layers=0), dict(fields=2, layers=1),
+    dict(fields=2, enc="fourier"), dict(fields=1), dict(fields=1, layers=0),
+    dict(fields=1, layers=1), dict(fields=1, enc="fourier"), dict(fields=2, r=1024, s=628),
+    dict(fields=2, r=37, s=101), dict(fields=1, r=37, s=101), dict(fields=2, layers=8)],
+    ids=["pair", "pair_no_hidden", "pair_one_hidden", "pair_fourier", "static",
+         "static_no_hidden", "static_one_hidden", "static_fourier", "pair_fine_shape",
+         "pair_odd_units", "static_odd_units", "pair_eight_hidden"])
+def test_forward_f32_instantiations(dev, case):
+    # every f32 instantiation: bitwise equal from run to run and within
+    # K1_ATOL of the plain version; the fine pass's per-ray depths at its
+    # shape (1024 x 628); 3737 points (off a multiple of 256: the last tile
+    # pair ragged, the two warpgroups on an odd unit); 8 hidden layers a field,
+    # twice the flagship's depth
+    case = dict(case)
+    fields = case.pop("fields")
+    if fields == 2:
+        args, _ = make(dev, **case)
+        first = assert_forward_matches_plain(args)
+        for _ in range(2):
+            for a, b in zip(first, k1_forward(args)):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        return
+    params, pts, cfg, w, _ = static_points(dev, case.pop("r", 37), case.pop("s", 100), **case)
+    before = dict(ff.LAUNCHES)
+    with torch.no_grad():
+        first = ff.fused_static_field(params, pts, cfg, w)
+        want = ff.plain_static_field(params, pts, cfg, w)
+        for _ in range(2):
+            again = ff.fused_static_field(params, pts, cfg, w)
+            assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+    assert ff.LAUNCHES["fused_field_fwd.wgmma"] == before["fused_field_fwd.wgmma"] + 3
+    assert torch.isfinite(first).all()
+    assert float((first - want).abs().max()) <= K1_ATOL
+
+
+@pytest.mark.gpu
 def test_forward_routes(dev):
     # f32 calls take the wgmma route alone, bf16 calls the mma.sync one alone
     from nerfca_tpu_torch.ops.cuda import fused_train as ft

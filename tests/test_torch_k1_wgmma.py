@@ -74,6 +74,13 @@ def test_constants_match_the_source():
     slot_input = [2 * s if s < 4 else 2 * s - 7 for s in range(8)]
     assert tuple(slot_input) == ff.SLOT_INPUT
     assert "return s < 4 ? 2 * s : 2 * s - 7;" in SOURCE.read_text()
+    # shared memory: the encoded-input buffers, the ring and the mbarriers,
+    # as the header's note gives them, within the 232,448 bytes a CTA may take
+    smem = (define("K1W_ENC_BUFS") * define("K1W_TP") * define("K1W_LDE") * 4
+            + define("K1W_STAGES") * 2 * define("K1W_KSTEP_FLOATS") * 4
+            + (2 * define("K1W_STAGES") + 2 * define("K1W_ENC_BUFS")) * 8)
+    assert smem == 221_296 <= 232_448
+    assert "the barriers: 221,296 bytes." in SOURCE.read_text()
 
 
 @pytest.mark.parametrize("layers", [0, 1, 4])
