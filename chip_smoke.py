@@ -1711,7 +1711,7 @@ def check_trained_state(run: dict) -> dict:
     from nerfca_tpu_torch.ops.sampling import stratify_depths
     from nerfca_tpu_torch.train import evaluation
     from nerfca_tpu_torch.train.step import (
-        field_window, jitter_directions, loss_weights, param_items, sample_ray_batch,
+        field_windows, jitter_directions, loss_weights, param_items, sample_ray_batch,
         step_draws, to_device,
     )
 
@@ -1725,7 +1725,7 @@ def check_trained_state(run: dict) -> dict:
     batch = sample_ray_batch(dd["rays"], dd["phases"], dd["var_ids"], dd["non_var_ids"], pos, hp)
     dirs = jitter_directions(batch["directions"], hp.ray_jitter, u[0]) if u else batch["directions"]
     z = stratify_depths(setup["depth_values"], t_rand=t)
-    win = {k: field_window(cfgs[k], state.step, dev) for k in ("static", "temp")}
+    win = field_windows(cfgs, state.step, dev)
     w = loss_weights(state.step, hp)
     i0 = torch.full((hp.img_sample_size,), setup["max_pixel_value"], device=dev)
     args = (state.params["static"], state.params["temp"], batch["origins"], dirs, z,
@@ -2403,13 +2403,13 @@ def dpa_fine_split(pb: dict, fine_args, device) -> tuple:
 
     from nerfca_tpu_torch.ops.render import render_transmission_composite
     from nerfca_tpu_torch.train import trainer as tr
-    from nerfca_tpu_torch.train.step import evaluate_fields, field_window
+    from nerfca_tpu_torch.train.step import evaluate_fields, field_windows
 
     cfgs = tr.field_configs_from_args(fine_args)
     hp = tr.composite_hparams_from_args(fine_args)
     params = tr._init_composite_state(fine_args, cfgs, None, device).params
     rays, phases = pb["rays"], pb["phases"]
-    windows = {k: field_window(cfgs[k], 0, device) for k in ("static", "temp")}
+    windows = field_windows(cfgs, 0, device)
     top = []
     with torch.no_grad():
         for i in range(0, rays.shape[0], 8192):
@@ -2436,7 +2436,7 @@ def dpa_argmax_rank(case: dict, device) -> dict:
     from nerfca_tpu_torch.ops.render import render_transmission_composite
     from nerfca_tpu_torch.ops.sampling import stratify_depths
     from nerfca_tpu_torch.train.step import (
-        evaluate_fields, field_window, sample_ray_batch, step_draws, to_device,
+        evaluate_fields, field_windows, sample_ray_batch, step_draws, to_device,
     )
 
     hp, cfgs, state = case["hp"], case["cfgs"], case["state"]()
@@ -2447,7 +2447,7 @@ def dpa_argmax_rank(case: dict, device) -> dict:
     positions, t = to_device(device, positions, t)
     batch = sample_ray_batch(rays, phases, var_ids, non_var_ids, positions, hp)
     z = stratify_depths(z_base, t_rand=t)
-    windows = {k: field_window(cfgs[k], 0, device) for k in ("static", "temp")}
+    windows = field_windows(cfgs, 0, device)
     with torch.no_grad():
         s_raw, t_raw = evaluate_fields(state.params, batch["origins"], batch["directions"], z,
                                        batch["phases"], windows, cfgs, hp)

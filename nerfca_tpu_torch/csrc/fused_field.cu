@@ -4,11 +4,12 @@
 // (pallas_call in _fused_core_fwd_impl). K2 (fused_field_bwd + fused_field_reduce)
 // replaces ::_bwd_kernel (pallas_call in _fused_core_bwd), the custom VJP of K1.
 // K1 in f32 is fwd_kernel_wgmma (k1_wgmma.cuh: wgmma, warp-specialised,
-// persistent, with its own note); K2 and K1 in bf16 (fwd_kernel) run their
-// matrix products through the same mma.sync device code below (the weight
-// ring, mma_layer_fwd, store_relu_frag); the encoding lives in
-// field_common.cuh. The fused-loss step (fused_train.cu) takes its forward
-// from K1.
+// persistent, with its own note; its SHARED instantiation encodes a tile
+// pair once for two fields whose encodings agree); K2 and K1 in bf16
+// (fwd_kernel) run their matrix products through the same mma.sync device
+// code below (the weight ring, mma_layer_fwd, store_relu_frag); the
+// encoding lives in field_common.cuh. The fused-loss step (fused_train.cu)
+// takes its forward from K1.
 //
 // Both kernels are templated on the field count NF. NF == 2 is the composite
 // pair above; NF == 1 evaluates the static field alone (the field of the
@@ -852,11 +853,11 @@ static int launch_wsplit(const FieldArgs* fs, const FieldArgs* ft, float* planes
 // persistent grid), or a negative CUDA error. setmaxnreg moves registers
 // within a CTA's allocation, so a build whose allocation cannot hold what
 // the warpgroups ask for is refused here: its consumers would wait forever.
-template <int NF, bool FOURIER>
+template <int NF, bool FOURIER, bool SHARED>
 static int k1w_clusters() {
   static int clusters = 0;
   if (clusters > 0) return clusters;
-  auto* kern = fwd_kernel_wgmma<NF, FOURIER>;
+  auto* kern = fwd_kernel_wgmma<NF, FOURIER, SHARED>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, K1W_SMEM);
   if (e != cudaSuccess) return -(int)e;
@@ -885,18 +886,18 @@ static int k1w_clusters() {
 }
 
 // K1 in f32: the weight planes (into planes, fused_field_fwd_planes_floats
-// of them), then the persistent kernel over units of (field, tile pair).
-template <int NF, bool FOURIER>
+// of them), then the persistent kernel over units of (field, tile pair),
+// or with SHARED of tile pairs carrying both fields.
+template <int NF, bool FOURIER, bool SHARED>
 static int launch_fwd_wgmma(const FieldArgs& fs, const FieldArgs& ft, const RayArgs& r,
                             float* out_s, float* out_t, float* planes, cudaStream_t st) {
-  const int clusters = k1w_clusters<NF, FOURIER>();
+  const int clusters = k1w_clusters<NF, FOURIER, SHARED>();
   if (clusters < 0) return -clusters;
-  auto* kern = fwd_kernel_wgmma<NF, FOURIER>;
+  auto* kern = fwd_kernel_wgmma<NF, FOURIER, SHARED>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, K1W_SMEM);
   if (e != cudaSuccess) return (int)e;
-  const long n_pts = (long)r.n_rays * r.n_samples;
-  const long units = NF * ((n_pts + 2 * K1W_TP - 1) / (2 * K1W_TP));
+  const long units = k1w_units<NF, SHARED>((long)r.n_rays * r.n_samples);
   if (units == 0) return 0;
   const int err = launch_wsplit(&fs, NF == 2 ? &ft : nullptr, planes, st);
   if (err != 0) return err;
@@ -918,8 +919,17 @@ static int launch_fwd_wgmma(const FieldArgs& fs, const FieldArgs& ft, const RayA
 template <bool FOURIER>
 static int launch_fwd_wgmma_nf(const FieldArgs* fs, const FieldArgs* ft, const RayArgs& r,
                                float* out_s, float* out_t, float* planes, cudaStream_t st) {
-  return ft ? launch_fwd_wgmma<2, FOURIER>(*fs, *ft, r, out_s, out_t, planes, st)
-            : launch_fwd_wgmma<1, FOURIER>(*fs, *fs, r, out_s, out_t, planes, st);
+  return ft ? launch_fwd_wgmma<2, FOURIER, false>(*fs, *ft, r, out_s, out_t, planes, st)
+            : launch_fwd_wgmma<1, FOURIER, false>(*fs, *fs, r, out_s, out_t, planes, st);
+}
+
+// Whether K1's shared units may carry the pair: neither field fourier, the
+// same basis, encoded width and window, and no latents in the static field
+// (the temporal field's encoded input is then the static field's, with its
+// latents in columns that the static input layer's zero rows cancel).
+static bool k1w_same_encoding(const FieldArgs& fs, const FieldArgs& ft) {
+  return !is_fourier(fs) && !is_fourier(ft) && fs.basis == ft.basis && fs.enc == ft.enc &&
+         fs.n_lat == 0 && (fs.basis == 0 || fs.window == ft.window);
 }
 
 extern "C" {
@@ -957,16 +967,22 @@ int fused_field_fwd_split(const FieldArgs* fs, const FieldArgs* ft, float* plane
 
 // Clusters of two CTAs that a K1 launch in f32 may take (its persistent
 // grid), or a negative CUDA error.
-int fused_field_fwd_clusters() { return k1w_clusters<2, false>(); }
+int fused_field_fwd_clusters() { return k1w_clusters<2, false, false>(); }
 
 // out_t is unused with one field; mode MODE_F32 (fwd_kernel_wgmma, after
 // the weight planes into planes: fused_field_fwd_planes_floats floats) or
-// MODE_BF16 (fwd_kernel on mma.sync; planes unused).
+// MODE_BF16 (fwd_kernel on mma.sync; planes unused). shared_enc (MODE_F32,
+// two fields): K1's shared units, one encoding of each tile pair for both
+// fields; refused unless k1w_same_encoding holds.
 int fused_field_fwd(const FieldArgs* fs, const FieldArgs* ft, const RayArgs* r,
-                    float* out_s, float* out_t, int mode, float* planes, void* stream) {
+                    float* out_s, float* out_t, int mode, float* planes, void* stream,
+                    int shared_enc) {
   cudaStream_t st = (cudaStream_t)stream;
   if (mode != MODE_F32 && mode != MODE_BF16) return (int)cudaErrorInvalidValue;
+  if (shared_enc && (mode != MODE_F32 || !ft || !k1w_same_encoding(*fs, *ft)))
+    return (int)cudaErrorInvalidValue;
   const bool fourier = is_fourier(*fs) || (ft && is_fourier(*ft));
+  if (shared_enc) return launch_fwd_wgmma<2, false, true>(*fs, *ft, *r, out_s, out_t, planes, st);
   if (mode == MODE_F32)
     return fourier ? launch_fwd_wgmma_nf<true>(fs, ft, *r, out_s, out_t, planes, st)
                    : launch_fwd_wgmma_nf<false>(fs, ft, *r, out_s, out_t, planes, st);

@@ -16,9 +16,16 @@
 // both fields: 3 x 155 GFLOP at 495 TFLOP/s = 0.94 ms at 1024 rays x 500
 // samples, and 36.7 ms for a render view (40,000 rays x 500), so the share
 // of the single-product roofline (portbench's k1_roofline) can reach 33.3%.
-// Measured at 1024 x 500: 1.23 ms (the mma.sync kernel 3.04); without the
-// products 0.48, with one product instead of three 0.75, without the
-// encoding 1.12 (scripts/k1_variants.py).
+// Measured at 1024 x 500 (scripts/k1_variants.py, medians of three
+// rounds on an H100 at 700 W): 1.19 ms with the shared units below, 1.22
+// with the per-field units (the mma.sync kernel 3.04); without the
+// products 0.48, with one product instead of three 0.70, without the
+// encoding 1.14. The encoding, on warps of its own, still costs in
+// proportion to its work: ~0.1 ms with the per-field units, ~0.05 with
+// the shared ones. The shared units halve the units (2000 over 66
+// clusters here), so the last round's tail takes ~1.6 points more at this
+// shape than at a render view's 4096-ray tiles. At the fine pass's
+// 1024 x 628, 1.52 against 1.55.
 //
 // Design, one CTA of 512 threads per SM, clusters of two CTAs:
 //   - warpgroups 0 and 3 give registers away (setmaxnreg 56): warp 0 is
@@ -44,8 +51,24 @@
 //     them take turns with named barriers (FlashAttention-3's ping-pong)
 //     cost 0-2.4% (scripts/k1_variants.py, variant pingpong).
 //   - persistent: a grid of as many clusters as the card holds walks over
-//     units of (field, pair of 128-point tiles); the two CTAs of a cluster
-//     take the two tiles of a pair, with the same field's weights.
+//     units; the two CTAs of a cluster take the two 128-point tiles of a
+//     unit's tile pair, with the same weights. When both fields' encodings
+//     agree (SHARED: neither fourier, the same basis, encoded width and
+//     window, no latents in the static field; the wrapper decides on the
+//     host, fused_field.py::encodings_agree, and the C entry checks it), a
+//     unit is a tile pair carrying both fields: the encoders fill one
+//     buffer with the temporal field's encoded input (coordinates, windowed
+//     bands, its latents, zeros to its 8-row padding), the consumers run
+//     the static field's whole MLP on it, then the temporal field's, and
+//     release the buffer after the temporal input layer; the producer
+//     streams the static field's chunks, then the temporal field's. The
+//     static input layer reads its own k-steps, whose last may hold
+//     latents: its planes are zero past its rows, so they add exactly
+//     zero and its densities are bitwise the per-field units'. Each point
+//     is encoded once, not twice, and the encoders have a two-field unit
+//     to fill the next buffer. Otherwise (NF == 1, fourier, windows of
+//     their own) a unit is one field on a tile pair, static and temporal
+//     alternating over the pairs.
 //   - weights: fwd_kernel_wsplit splits every weight once per launch into
 //     its TF32 big and small planes, in the ring's byte image (k-steps of
 //     8 k x 128 n, no swizzle, K-major: nn.Linear's [out, in] order),
@@ -433,9 +456,20 @@ __device__ __forceinline__ void k1w_encode(const FieldArgs& f, const RayArgs& r,
 }
 
 // ---------------------------------------------------------------------------
-// The kernel. NF == 2: units alternate static and temporal field over the
-// tile pairs; NF == 1: fs alone, out_s alone. planes: fwd_kernel_wsplit's.
-template <int NF, bool FOURIER>
+// Units of a launch over n_pts points: tile pairs, one field each
+// (NF == 2 without SHARED: static and temporal alternate over the pairs) or
+// both fields on one encoded input (SHARED).
+template <int NF, bool SHARED>
+__host__ __device__ __forceinline__ long k1w_units(long n_pts) {
+  return (NF == 2 && !SHARED ? 2 : 1) * ((n_pts + 2 * K1W_TP - 1) / (2 * K1W_TP));
+}
+
+// The kernel. NF == 2 without SHARED: per-field units; with SHARED (both
+// encodings the same, fs without latents): a unit is a tile pair carrying
+// both fields, the static field's MLP, then the temporal field's, on the
+// temporal field's encoded input. NF == 1: fs alone, out_s alone. planes:
+// fwd_kernel_wsplit's.
+template <int NF, bool FOURIER, bool SHARED>
 __global__ void __launch_bounds__(K1W_THREADS, 1)
 fwd_kernel_wgmma(FieldArgs fs, FieldArgs ft, RayArgs r, const float* planes, float* out_s,
                  float* out_t) {
@@ -462,13 +496,16 @@ fwd_kernel_wgmma(FieldArgs fs, FieldArgs ft, RayArgs r, const float* planes, flo
   cluster_sync();  // the other CTA's barriers exist before anything lands there
 
   const long n_pts = (long)r.n_rays * r.n_samples;
-  const long units = NF * ((n_pts + 2 * K1W_TP - 1) / (2 * K1W_TP));
+  const long units = k1w_units<NF, SHARED>(n_pts);
   const uint32_t rank = cluster_ctarank();
   const long first = cluster_index(), stride = cluster_count();
   const long planes_t = (long)k1w_ksteps(fs) * K1W_KSTEP_FLOATS;  // the temporal field's planes
-  // unit u: its field (temporal or not) and the first point of this CTA's tile
-  auto temporal_of = [](long u) { return NF == 2 && (u & 1); };
-  auto tile_of = [rank](long u) { return (2 * (NF == 2 ? u >> 1 : u) + rank) * K1W_TP; };
+  constexpr int NU = SHARED ? 2 : 1;  // fields a unit carries
+  // field fi of unit u (temporal or not), and the first point of this CTA's tile
+  auto temporal_of = [](long u, int fi) { return SHARED ? fi == 1 : NF == 2 && (u & 1); };
+  auto tile_of = [rank](long u) {
+    return (2 * (NF == 2 && !SHARED ? u >> 1 : u) + rank) * K1W_TP;
+  };
 
   if (warp < 4 || warp >= 12) {
     setmaxnreg_dec<K1W_PRODUCER_REGS>();
@@ -476,20 +513,22 @@ fwd_kernel_wgmma(FieldArgs fs, FieldArgs ft, RayArgs r, const float* planes, flo
       if (lane == 0) {
         K1wRing ring_pos;
         for (long u = first; u < units; u += stride) {
-          const bool temporal = temporal_of(u);
-          const FieldArgs f = temporal ? ft : fs;
-          const char* src = reinterpret_cast<const char*>(planes + (temporal ? planes_t : 0));
-          const int nk0 = k1w_nk0(f), nc0 = (nk0 + 1) / 2, nc = k1w_chunks(f);
-          for (int c = 0; c < nc; ++c) {
-            const int k = c < nc0 ? 2 * c : nk0 + 2 * (c - nc0);  // the chunk's first k-step
-            const int kn = c < nc0 ? min(2, nk0 - 2 * c) : 2;
-            const uint32_t bytes = kn * K1W_KSTEP_FLOATS * 4, half = bytes / 2;
-            mbar_wait(&empty[ring_pos.stage], ring_pos.phase ^ 1);
-            mbar_expect_tx(&full[ring_pos.stage], bytes);
-            bulk_copy_multicast(ring + ring_pos.stage * K1W_CHUNK_BYTES + rank * half,
-                                src + (long)k * K1W_KSTEP_FLOATS * 4 + rank * half, half,
-                                &full[ring_pos.stage], 0x3);
-            ring_pos.next();
+          for (int fi = 0; fi < NU; ++fi) {
+            const bool temporal = temporal_of(u, fi);
+            const FieldArgs f = temporal ? ft : fs;
+            const char* src = reinterpret_cast<const char*>(planes + (temporal ? planes_t : 0));
+            const int nk0 = k1w_nk0(f), nc0 = (nk0 + 1) / 2, nc = k1w_chunks(f);
+            for (int c = 0; c < nc; ++c) {
+              const int k = c < nc0 ? 2 * c : nk0 + 2 * (c - nc0);  // the chunk's first k-step
+              const int kn = c < nc0 ? min(2, nk0 - 2 * c) : 2;
+              const uint32_t bytes = kn * K1W_KSTEP_FLOATS * 4, half = bytes / 2;
+              mbar_wait(&empty[ring_pos.stage], ring_pos.phase ^ 1);
+              mbar_expect_tx(&full[ring_pos.stage], bytes);
+              bulk_copy_multicast(ring + ring_pos.stage * K1W_CHUNK_BYTES + rank * half,
+                                  src + (long)k * K1W_KSTEP_FLOATS * 4 + rank * half, half,
+                                  &full[ring_pos.stage], 0x3);
+              ring_pos.next();
+            }
           }
         }
         // every stage released by both CTAs: no arrival from the other CTA
@@ -504,7 +543,8 @@ fwd_kernel_wgmma(FieldArgs fs, FieldArgs ft, RayArgs r, const float* planes, flo
       int eb = 0;
       uint32_t ephase = 0;
       for (long u = first; u < units; u += stride) {
-        const FieldArgs f = temporal_of(u) ? ft : fs;
+        // the temporal field's layout for both fields: its latents, its padding
+        const FieldArgs f = temporal_of(u, NU - 1) ? ft : fs;
         mbar_wait(&enc_empty[eb], ephase ^ 1);
         k1w_encode<FOURIER>(f, r, tile_of(u), enc + eb * K1W_ENC_FLOATS, et);
         mbar_arrive(&enc_full[eb]);
@@ -557,85 +597,91 @@ fwd_kernel_wgmma(FieldArgs fs, FieldArgs ft, RayArgs r, const float* planes, flo
   };
   float acc[64], prev[64];
   for (long u = first; u < units; u += stride) {
-    const bool temporal = temporal_of(u);
-    const FieldArgs f = temporal ? ft : fs;
     const long tile0 = tile_of(u);
-    const int nk0 = k1w_nk0(f);
-    k1w_bias(acc, f.b0, t);
-    fence_regs(acc);
-    mbar_wait(&enc_full[eb], ephase);
-    const float* E = enc + eb * K1W_ENC_FLOATS + row0 * K1W_LDE + 2 * t;
-    // the input layer, A from the encoded input: groups of up to four
-    // k-steps (its last chunk may hold one)
-    for (int k = 0; k < nk0; k += 4) {
-      const int kn = min(4, nk0 - k);
-      K1wFrag a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = k1w_frag_smem(E + 8 * min(k + i, nk0 - 1));
-        fence_frag(a[i]);
-      }
-      const uint32_t b0 = take(0), b1 = kn > 2 ? take(1) : b0;
-      wgmma_fence();
-      k1w_kstep(acc, a[0], b0);
-      if (kn > 1) k1w_kstep(acc, a[1], b0 + K1W_KSTEP_FLOATS * 4);
-      if (kn > 2) k1w_kstep(acc, a[2], b1);
-      if (kn > 3) k1w_kstep(acc, a[3], b1 + K1W_KSTEP_FLOATS * 4);
-      give_back(kn > 2 ? 2 : 1);
-    }
-    mbar_arrive(&enc_empty[eb]);  // every read of the encoded input is done
-    if (++eb == K1W_ENC_BUFS) {
-      eb = 0;
-      ephase ^= 1;
-    }
-    // the hidden layers, A from the layer below's accumulators
-    for (int l = 0; l < f.n_hidden; ++l) {
+    for (int fi = 0; fi < NU; ++fi) {
+      const bool temporal = temporal_of(u, fi);
+      const FieldArgs f = temporal ? ft : fs;
+      const int nk0 = k1w_nk0(f);
+      k1w_bias(acc, f.b0, t);
       fence_regs(acc);
-#pragma unroll
-      for (int i = 0; i < 64; ++i) prev[i] = fmaxf(acc[i], 0.f);
-      k1w_bias(acc, f.bh + l * WIDTH, t);
-      fence_regs(acc);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        // k-steps 4c .. 4c + 3: accumulator columns 32c .. 32c + 31
+      if (fi == 0) mbar_wait(&enc_full[eb], ephase);
+      const float* E = enc + eb * K1W_ENC_FLOATS + row0 * K1W_LDE + 2 * t;
+      // the input layer, A from the encoded input: groups of up to four
+      // k-steps (its last chunk may hold one). With SHARED the static
+      // field's last k-step may hold temporal latents: its weight planes
+      // are zero past its rows, so they add exactly zero.
+      for (int k = 0; k < nk0; k += 4) {
+        const int kn = min(4, nk0 - k);
         K1wFrag a[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const float* p = prev + 16 * c + 4 * i;
-          a[i] = k1w_frag(p[0], p[2], p[1], p[3]);
+          a[i] = k1w_frag_smem(E + 8 * min(k + i, nk0 - 1));
           fence_frag(a[i]);
         }
-        const uint32_t b0 = take(0), b1 = take(1);
+        const uint32_t b0 = take(0), b1 = kn > 2 ? take(1) : b0;
         wgmma_fence();
         k1w_kstep(acc, a[0], b0);
-        k1w_kstep(acc, a[1], b0 + K1W_KSTEP_FLOATS * 4);
-        k1w_kstep(acc, a[2], b1);
-        k1w_kstep(acc, a[3], b1 + K1W_KSTEP_FLOATS * 4);
-        give_back(2);
+        if (kn > 1) k1w_kstep(acc, a[1], b0 + K1W_KSTEP_FLOATS * 4);
+        if (kn > 2) k1w_kstep(acc, a[2], b1);
+        if (kn > 3) k1w_kstep(acc, a[3], b1 + K1W_KSTEP_FLOATS * 4);
+        give_back(kn > 2 ? 2 : 1);
       }
-    }
-    fence_regs(acc);
-    // the output layer in f32: each thread's 32 columns of rows row0 and
-    // row0 + 8 in order, then the four threads of a row
-    float s0 = 0.f, s1 = 0.f;
+      if (fi == NU - 1) {
+        mbar_arrive(&enc_empty[eb]);  // every read of the encoded input is done
+        if (++eb == K1W_ENC_BUFS) {
+          eb = 0;
+          ephase ^= 1;
+        }
+      }
+      // the hidden layers, A from the layer below's accumulators
+      for (int l = 0; l < f.n_hidden; ++l) {
+        fence_regs(acc);
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float w0 = f.wo[8 * j + 2 * t], w1 = f.wo[8 * j + 2 * t + 1];
-      s0 = fmaf(fmaxf(acc[4 * j], 0.f), w0, s0);
-      s0 = fmaf(fmaxf(acc[4 * j + 1], 0.f), w1, s0);
-      s1 = fmaf(fmaxf(acc[4 * j + 2], 0.f), w0, s1);
-      s1 = fmaf(fmaxf(acc[4 * j + 3], 0.f), w1, s1);
-    }
-    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
-    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
-    if (t == 0) {
-      float* out = temporal ? out_t : out_s;
-      const float bo = *f.bo;
-      const long p = tile0 + row0;
-      if (p < n_pts) out[p] = s0 + bo;
-      if (p + 8 < n_pts) out[p + 8] = s1 + bo;
+        for (int i = 0; i < 64; ++i) prev[i] = fmaxf(acc[i], 0.f);
+        k1w_bias(acc, f.bh + l * WIDTH, t);
+        fence_regs(acc);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          // k-steps 4c .. 4c + 3: accumulator columns 32c .. 32c + 31
+          K1wFrag a[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float* p = prev + 16 * c + 4 * i;
+            a[i] = k1w_frag(p[0], p[2], p[1], p[3]);
+            fence_frag(a[i]);
+          }
+          const uint32_t b0 = take(0), b1 = take(1);
+          wgmma_fence();
+          k1w_kstep(acc, a[0], b0);
+          k1w_kstep(acc, a[1], b0 + K1W_KSTEP_FLOATS * 4);
+          k1w_kstep(acc, a[2], b1);
+          k1w_kstep(acc, a[3], b1 + K1W_KSTEP_FLOATS * 4);
+          give_back(2);
+        }
+      }
+      fence_regs(acc);
+      // the output layer in f32: each thread's 32 columns of rows row0 and
+      // row0 + 8 in order, then the four threads of a row
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float w0 = f.wo[8 * j + 2 * t], w1 = f.wo[8 * j + 2 * t + 1];
+        s0 = fmaf(fmaxf(acc[4 * j], 0.f), w0, s0);
+        s0 = fmaf(fmaxf(acc[4 * j + 1], 0.f), w1, s0);
+        s1 = fmaf(fmaxf(acc[4 * j + 2], 0.f), w0, s1);
+        s1 = fmaf(fmaxf(acc[4 * j + 3], 0.f), w1, s1);
+      }
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+      if (t == 0) {
+        float* out = temporal ? out_t : out_s;
+        const float bo = *f.bo;
+        const long p = tile0 + row0;
+        if (p < n_pts) out[p] = s0 + bo;
+        if (p + 8 < n_pts) out[p + 8] = s1 + bo;
+      }
     }
   }
 }

@@ -61,12 +61,14 @@ the f32 instantiations and nowhere else; the same names with ``_bf16``
 count the bf16 ones, and ``["fused_field_bwd_res_bf16"]`` K2 over bf16
 residuals. K1's route, whatever its fields: ``["fused_field_fwd.wgmma"]``
 counts the f32 launches (``fwd_kernel_wgmma``), ``["fused_field_fwd.mma_sync"]``
-the bf16 ones (``fwd_kernel``).
+the bf16 ones (``fwd_kernel``); ``["fused_field_fwd.wgmma.shared_enc"]`` the
+f32 launches that took K1's shared units (:func:`encodings_agree`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -98,7 +100,7 @@ LAUNCHES = {"fused_field_fwd": 0, "fused_field_bwd": 0, "fused_static_field_fwd"
             "fused_static_field_bwd": 0, "fused_field_fwd_bf16": 0, "fused_field_bwd_bf16": 0,
             "fused_static_field_fwd_bf16": 0, "fused_static_field_bwd_bf16": 0,
             "fused_field_bwd_res_bf16": 0, "fused_field_fwd.wgmma": 0,
-            "fused_field_fwd.mma_sync": 0}
+            "fused_field_fwd.mma_sync": 0, "fused_field_fwd.wgmma.shared_enc": 0}
 
 
 def reset_launch_counts() -> None:
@@ -308,7 +310,7 @@ def _lib() -> ctypes.CDLL:
         ptr = ctypes.POINTER
         lib.fused_field_fwd.argtypes = [ptr(FieldArgs), ptr(FieldArgs), ptr(RayArgs),
                                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                        ctypes.c_void_p, ctypes.c_void_p]
+                                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
         lib.fused_field_fwd.restype = ctypes.c_int
         lib.fused_field_fwd_planes_floats.argtypes = [ptr(FieldArgs), ptr(FieldArgs)]
         lib.fused_field_fwd_planes_floats.restype = ctypes.c_long
@@ -391,6 +393,14 @@ def _leaves(params) -> list:
     return out + [params["out"]["w"], params["out"]["b"]]
 
 
+@functools.lru_cache(maxsize=None)
+def _open_window(basis: int, device) -> torch.Tensor:
+    """Every band open: one tensor for a basis and a device, so that two
+    fields with it read one window (:func:`encodings_agree`). Read only:
+    every pack without a window holds it."""
+    return torch.ones(max(basis, 1), device=device)
+
+
 class _Pack:
     """Contiguous [in, out] weights of one field plus its FieldArgs; keeps
     the tensors alive while their pointers are in use. ``table`` is the
@@ -413,7 +423,7 @@ class _Pack:
         self.bo = leaves[-1].detach().reshape(1).contiguous()
         basis = cfg.pos_enc_basis if cfg.pos_enc != "none" else 0
         if table is None:
-            table = torch.ones(max(basis, 1), device=device)
+            table = _open_window(basis, device)
         self.table = table.detach().to(torch.float32).contiguous()
         self.n_lat = cfg.num_time_dim if cfg.use_time_latents else 0
         self.cfg = cfg
@@ -476,26 +486,46 @@ def _planes_buffer(pack_s: _Pack, pack_t: Optional[_Pack], device) -> torch.Tens
                                                            _field_ptr(pack_t)), device=device)
 
 
+def encodings_agree(pack_s: _Pack, pack_t: Optional[_Pack]) -> bool:
+    """Whether K1 in f32 may encode each tile pair once for both fields (its
+    shared units): two fields, neither fourier (their projections differ),
+    the same basis and encoded width, no latents in the static field, and
+    one window: the same tensor in memory (every band open is one tensor,
+    :func:`_open_window`).
+    Decided on the host from the packs alone, with no read of the device;
+    the C entry checks the same (``k1w_same_encoding``)."""
+    if pack_t is None or "fourier" in (pack_s.cfg.pos_enc, pack_t.cfg.pos_enc):
+        return False
+    a, b = pack_s.args, pack_t.args
+    return ((a.basis, a.enc, a.n_lat) == (b.basis, b.enc, 0)
+            and (a.basis == 0 or a.table == b.table))
+
+
 def fused_field_fwd(pack_s: _Pack, pack_t: Optional[_Pack], origins, directions, z, phases,
                     latents):
     """Launch K1 (its bf16 instantiation when ``pack_s.bf16``): the
     ``[R*S]`` raw densities of the static field and of the temporal field
     (None when ``pack_t`` is None: the one-field launch). In f32 the launch
     first splits the weights into their planes (:func:`wgmma_planes`) in
-    a scratch buffer."""
+    a scratch buffer, and takes the shared units when
+    :func:`encodings_agree`; the densities are bitwise those of the
+    per-field units."""
     n = origins.shape[0] * z.shape[-1]
     out_s = torch.empty(n, device=origins.device)
     out_t = None if pack_t is None else torch.empty(n, device=origins.device)
     rays = _ray_args(origins, directions, z, phases, latents)
     mode = MODE_BF16 if pack_s.bf16 else MODE_F32
     planes = None if mode == MODE_BF16 else _planes_buffer(pack_s, pack_t, origins.device)
+    shared = mode == MODE_F32 and encodings_agree(pack_s, pack_t)
     name = "fused_field_fwd" if pack_t is not None else "fused_static_field_fwd"
     LAUNCHES[name + _SUFFIX[mode]] += 1
     LAUNCHES["fused_field_fwd." + ("mma_sync" if mode == MODE_BF16 else "wgmma")] += 1
+    LAUNCHES["fused_field_fwd.wgmma.shared_enc"] += shared
     _check(_lib().fused_field_fwd(ctypes.byref(pack_s.args), _field_ptr(pack_t),
                                   ctypes.byref(rays), out_s.data_ptr(),
                                   None if out_t is None else out_t.data_ptr(), mode,
-                                  None if planes is None else planes.data_ptr(), _stream()),
+                                  None if planes is None else planes.data_ptr(), _stream(),
+                                  int(shared)),
            "fused_field_fwd")
     return out_s, out_t
 

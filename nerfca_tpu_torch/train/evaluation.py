@@ -22,8 +22,8 @@ from nerfca_tpu_torch.ops.losses import weighted_mse
 from nerfca_tpu_torch.ops.render import render_transmission, render_transmission_composite
 from nerfca_tpu_torch.ops.cuda.fused_field import plain_static_field
 from nerfca_tpu_torch.train.step import (
-    CompositeHParams, StaticHParams, evaluate_fields, field_window, loss_weights,
-    regularized_loss, regularizer_losses,
+    CompositeHParams, StaticHParams, evaluate_fields, field_window, field_windows,
+    loss_weights, regularized_loss, regularizer_losses,
 )
 from nerfca_tpu_torch.utils.profiling import span
 
@@ -69,7 +69,7 @@ def render_test_view(params, test_origins, test_directions, test_phases, depth_v
     dists."""
     with span("nerfca.eval.view"):
         dev = test_origins.device
-        windows = {k: field_window(cfgs[k], step, dev) for k in ("static", "temp")}
+        windows = field_windows(cfgs, step, dev)
         parts = _render_tiles(params, test_origins, test_directions, test_phases,
                               depth_values, windows, cfgs, hp, tile, hull)
         with span("nerfca.eval.composite"):

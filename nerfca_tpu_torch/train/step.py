@@ -154,6 +154,26 @@ def field_window(cfg: FieldConfig, step: int, device=None) -> Optional[torch.Ten
     return None
 
 
+def same_window_schedule(cfg_s: FieldConfig, cfg_t: FieldConfig) -> bool:
+    """Whether two fields' windows are equal at every step: the same
+    windowed (or ``'none'``) encoding, basis and schedule. ``'fourier'``
+    fields have no window but projections of their own."""
+    keys = ("pos_enc", "pos_enc_basis", "pos_enc_window_decay_steps", "pos_enc_window_start",
+            "pos_enc_window_max")
+    return (cfg_s.pos_enc in ("none", "free_windowed", "nerfies_windowed")
+            and all(getattr(cfg_s, k) == getattr(cfg_t, k) for k in keys))
+
+
+def field_windows(cfgs: dict, step: int, device=None) -> dict:
+    """Both fields' windows at ``step`` (:func:`field_window`), as one tensor
+    when :func:`same_window_schedule` holds: K1 in f32 then encodes each
+    tile once for both fields (``ops/cuda/fused_field.py::encodings_agree``)."""
+    w_s = field_window(cfgs["static"], step, device)
+    if same_window_schedule(cfgs["static"], cfgs["temp"]):
+        return {"static": w_s, "temp": w_s}
+    return {"static": w_s, "temp": field_window(cfgs["temp"], step, device)}
+
+
 def window_alpha(cfg: FieldConfig, step: int) -> float:
     """The scalar logged as ``train_*_windowed``."""
     if cfg.pos_enc == "free_windowed":
@@ -459,7 +479,7 @@ def composite_loss_fn(params, batch, depth_values, step: int, cfgs, hp: Composit
     if mesh is not None:
         n, batch, u_fine = shard_rays(mesh, batch, u_fine)
     dev = batch["origins"].device
-    windows = {k: field_window(cfgs[k], step, dev) for k in ("static", "temp")}
+    windows = field_windows(cfgs, step, dev)
     fwd = composite_forward(params, batch, depth_values, windows, cfgs, hp, hull=hull,
                             u_fine=u_fine, mesh=mesh)
     weights = loss_weights(step, hp)
@@ -616,7 +636,7 @@ def _fused_loss_metrics_grads(params, batch, depth_values, step: int, cfgs,
     sharded one)."""
     fused_fn = fused_fn or fused_train_loss_and_grads
     dev = batch["origins"].device
-    windows = {k: field_window(cfgs[k], step, dev) for k in ("static", "temp")}
+    windows = field_windows(cfgs, step, dev)
     weights = loss_weights(step, hp)
     lw = [weights["favor_s"], weights["dynamic_entro"], weights["occl"], weights["l1"],
           weights["hull_static_l1"]]

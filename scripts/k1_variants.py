@@ -2,9 +2,11 @@
 """Where the time of K1 in f32 goes on the card: builds variants of
 ``nerfca_tpu_torch/csrc/`` (text edits on a copy, as ``k2_variants.py``
 does) and times K1 (``fwd_kernel_wsplit`` + ``fwd_kernel_wgmma``,
-``csrc/k1_wgmma.cuh``) in each with CUDA events, in turns, then in the
-reverse order, then in turns again. Prints each build's ptxas lines for K1
-(registers, spills).
+``csrc/k1_wgmma.cuh``) in each with CUDA events, in turns: ``ROUNDS``
+passes over the builds, every other one in the reverse order (three passes
+left the medians of two builds of the same work up to 2% apart). Prints
+each build's ptxas lines for K1 (registers, spills) and each build's median
+time a problem.
 
     python3 scripts/k1_variants.py [--parent DIR] [--out k1_variants.json]
 
@@ -17,17 +19,23 @@ Every variant on every problem (``chip_smoke``'s inputs, every band open):
 
 Variants:
   base         the source as it is
+  per_field    K1's per-field units on every problem: the C entry never takes
+               the shared units (one encoding of a tile pair for both fields)
   pingpong     the consumer warpgroups take turns to issue their groups
                (two named barriers, FlashAttention-3's ping-pong)
   one_pass     one TF32 product (big*big) instead of three: the tensor pipe's share
   no_mma       no products at all: what K1 spends outside them
   no_split     three products of unsplit operands (activations and weight
                planes): what the TF32 split of the activations costs
-  no_encode    the encoder warps skip the encoding: whether it hides under
+  no_encode    the encoder warps skip the encoding (each unit's one call,
+               both fields' with the shared units): whether it hides under
                the products
-  parent       with ``--parent DIR``: DIR's ``nerfca_tpu_torch/csrc`` as it is
+  parent       with ``--parent DIR``: DIR's ``nerfca_tpu_torch/csrc`` as it is;
+               a build from before the shared units takes no flag for them
+               (the wrapper's last argument is then left unread) and runs
+               its own units
 
-The variants that compute K1 (base, pingpong, parent) must give base's
+The variants that compute K1 (base, per_field, pingpong, parent) must give base's
 densities bit for bit on every problem, and base must lie within
 ``chip_smoke.K1_ATOL`` of the plain version; the others compute wrong
 densities and only their times count.
@@ -42,6 +50,7 @@ import ctypes
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 
@@ -72,28 +81,33 @@ __device__ __forceinline__ void k1w_turn_pass(int wg) {
 }
 
 """
-GROUP_INPUT = "      const uint32_t b0 = take(0), b1 = kn > 2 ? take(1) : b0;\n      wgmma_fence();\n"
-GROUP_HIDDEN = "        const uint32_t b0 = take(0), b1 = take(1);\n        wgmma_fence();\n"
+GROUP_INPUT = "        const uint32_t b0 = take(0), b1 = kn > 2 ? take(1) : b0;\n        wgmma_fence();\n"
+GROUP_HIDDEN = "          const uint32_t b0 = take(0), b1 = take(1);\n          wgmma_fence();\n"
 COMMIT = "    wgmma_commit();\n    wgmma_wait<0>();\n"
 PINGPONG = [
     (K1W, "__device__ __forceinline__ void wgmma_fence()",
      TURN_HELPERS + "__device__ __forceinline__ void wgmma_fence()"),
     (K1W, "  float acc[64], prev[64];\n", "  if (wg == 1) k1w_turn_pass(0);\n  float acc[64], prev[64];\n"),
-    (K1W, GROUP_INPUT, GROUP_INPUT.replace("      wgmma_fence();", "      k1w_turn_wait(wg);\n      wgmma_fence();")),
+    (K1W, GROUP_INPUT,
+     GROUP_INPUT.replace("        wgmma_fence();", "        k1w_turn_wait(wg);\n        wgmma_fence();")),
     (K1W, GROUP_HIDDEN,
-     GROUP_HIDDEN.replace("        wgmma_fence();", "        k1w_turn_wait(wg);\n        wgmma_fence();")),
+     GROUP_HIDDEN.replace("          wgmma_fence();", "          k1w_turn_wait(wg);\n          wgmma_fence();")),
     (K1W, COMMIT, "    wgmma_commit();\n    k1w_turn_pass(wg ^ 1);\n    wgmma_wait<0>();\n"),
 ]
+# the C entry never takes the shared units
+SHARED_UNITS = "  if (shared_enc) return launch_fwd_wgmma<2, false, true>"
 VARIANTS = {
     "base": [],
+    "per_field": [(FF, SHARED_UNITS, SHARED_UNITS.replace("shared_enc", "false"))],
     "pingpong": PINGPONG,
     "one_pass": [(K1W, PRODUCTS[0], ";"), (K1W, PRODUCTS[1], ";")],
     "no_mma": [(K1W, line, ";") for line in PRODUCTS],
     "no_split": [(MMA, SPLIT, "  big = __float_as_uint(x);\n  small = 0u;\n")],
     "no_encode": [(K1W, ENCODE, ";")],
 }
-CHECKED = ("base", "pingpong", "parent")  # the variants that compute K1
+CHECKED = ("base", "per_field", "pingpong", "parent")  # the variants that compute K1
 PROBLEMS = ("flagship", "fourier", "static", "fine")
+ROUNDS = 15  # passes over the builds, each timing every build once a problem
 
 
 def build_parent(parent: str, workdir: str):
@@ -201,7 +215,8 @@ def main() -> int:
         for prob in PROBLEMS:
             k1, want = problem(prob, dev)
             outs = {}
-            for name in order + order[::-1] + order:
+            passes = [order if i % 2 == 0 else order[::-1] for i in range(ROUNDS)]
+            for name in [n for one in passes for n in one]:
                 bind(libs[name])
                 with torch.no_grad():
                     got = k1()
@@ -227,7 +242,8 @@ def main() -> int:
         print(f"{prob}: base max abs err {errors[prob]:.3e}")
         for name, ms in times[prob].items():
             same = f"  bitwise as base: {bitwise[prob][name]}" if name in bitwise[prob] else ""
-            print(f"  {name:11s} ms {', '.join(f'{t:.3f}' for t in ms)}{same}")
+            print(f"  {name:11s} median {statistics.median(ms):.4f} ms "
+                  f"({', '.join(f'{t:.3f}' for t in ms)}){same}")
     for name in libs:
         print(f"ptxas {name}: {'; '.join(ptxas[name])}")
     result = {"card": card, "ms": times, "max_abs_err": errors, "bitwise_as_base": bitwise,

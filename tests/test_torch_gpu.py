@@ -414,16 +414,29 @@ def test_forward_matches_plain_hidden_layers(dev, layers, shared_z):
                                   "one_tile_per_cta", "two_rounds_ragged"])
 @pytest.mark.parametrize("fields", [1, 2])
 def test_forward_persistent_schedule_edges(dev, case, fields):
-    # the grid holds fwd_clusters() clusters of two CTAs; a unit is one
-    # field on a pair of 128-point tiles
+    # the grid holds fwd_clusters() clusters of two CTAs; a unit is a pair
+    # of 128-point tiles, carrying both fields (the shared units: make's
+    # pair has one window) or the one field; the per-field units of the
+    # pair (a window apart for each field), two units a tile pair, give the
+    # same bits. One unit a cluster: `clusters` tile pairs for the shared
+    # units and the one field, half as many for the per-field units of two
     clusters = ff.fwd_clusters()
     assert clusters >= 1
-    pairs = {"fewer_tiles_than_ctas": 3, "ragged_last_tile": 5,
-             "one_tile_per_cta": clusters // fields, "two_rounds_ragged": 2 * clusters + 1}[case]
-    n = 256 * pairs - (0 if case == "one_tile_per_cta" else 77)
+    pairs = {"fewer_tiles_than_ctas": [3], "ragged_last_tile": [5],
+             "one_tile_per_cta": [clusters, max(1, clusters // 2)],
+             "two_rounds_ragged": [2 * clusters + 1]}[case]
     if fields == 2:
-        assert_forward_matches_plain(make(dev, r=n, s=1)[0])
+        for p in pairs:
+            n = 256 * p - (0 if case == "one_tile_per_cta" else 77)
+            args = make(dev, r=n, s=1)[0]
+            before = ff.LAUNCHES[SHARED]
+            got = assert_forward_matches_plain(args)
+            assert ff.LAUNCHES[SHARED] == before + 1
+            rays = (*args[2:5], args[5].to(torch.int32), args[1]["latents"].detach())
+            for a, b in zip(got, k1_per_field(args, rays)):
+                assert torch.equal(a.reshape(-1).view(torch.int32), b.view(torch.int32))
         return
+    n = 256 * pairs[0] - (0 if case == "one_tile_per_cta" else 77)
     params, pts, cfg, w, _ = static_points(dev, n, 1)
     before = dict(ff.LAUNCHES)
     with torch.no_grad():
@@ -505,6 +518,132 @@ def test_forward_routes(dev):
         assert ff.LAUNCHES["fused_field_fwd." + route] == before["fused_field_fwd." + route] + len(
             calls)
         assert ff.LAUNCHES["fused_field_fwd." + other] == before["fused_field_fwd." + other]
+
+
+# K1's shared units: one encoding of a tile pair for both fields when their
+# encodings agree (fused_field.encodings_agree), the per-field units
+# otherwise; two windows of equal values in two tensors take the latter.
+
+SHARED = "fused_field_fwd.wgmma.shared_enc"
+
+
+def packs_of(args, apart: bool = False) -> tuple:
+    """The two fields' packs; ``apart``: the temporal field reads a copy of
+    its window, so that the packs do not share one (the per-field units)."""
+    ps, pt, o, _, _, _, cfg_s, cfg_t, w_s, w_t = args
+    w_t = w_t.clone() if apart and w_t is not None else w_t
+    return tuple(ff._Pack(c, ff._leaves(p), ff.enc_table(p, c, w), o.device)
+                 for p, c, w in ((ps, cfg_s, w_s), (pt, cfg_t, w_t)))
+
+
+def k1_route(args, rays, apart: bool) -> tuple:
+    """K1 on ``rays`` with the packs of ``args`` (:func:`packs_of`): the
+    densities and the launch's count on SHARED."""
+    packs = packs_of(args, apart)
+    assert ff.encodings_agree(*packs) != apart
+    before = ff.LAUNCHES[SHARED]
+    with torch.no_grad():
+        got = ff.fused_field_fwd(*packs, *rays)
+    return got, ff.LAUNCHES[SHARED] - before
+
+
+def k1_per_field(args, rays) -> tuple:
+    """K1's per-field units on ``rays``: the densities; SHARED stays put."""
+    got, count = k1_route(args, rays, apart=True)
+    assert count == 0
+    return got
+
+
+def k1_both_routes(args, rays) -> dict:
+    """K1 on ``rays`` through the shared and the per-field units, twice
+    each: the densities of each route, each call's count on SHARED."""
+    out = {}
+    for route, apart in (("shared", False), ("per_field", True)):
+        runs, counts = zip(*(k1_route(args, rays, apart) for _ in range(2)))
+        for a, b in zip(*runs):  # deterministic from run to run
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        out[route] = (runs[0], list(counts))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("problem", ["flagship", "fine", "point_form"])
+def test_shared_units_match_per_field(dev, problem):
+    # both fields' densities bitwise the per-field units' on the flagship
+    # pair (1024 x 500, shared depths), the fine pass's per-ray depths
+    # (1024 x 628) and the point form (one-sample rays); within K1_ATOL of
+    # the plain version
+    r, s = (1024, 628) if problem == "fine" else (1024, 500) if problem == "flagship" else (37, 101)
+    args, _ = make(dev, r=r, s=s, shared_z=problem == "flagship")
+    _, pt, o, d, z, ph = args[:6]
+    lat = pt["latents"].detach()
+    if problem == "point_form":
+        with torch.no_grad():
+            pts = ff._points(o, d, z).contiguous()
+        rays = (*ff._point_rays(pts), ph[:, None].expand(r, s).reshape(-1).to(torch.int32)
+                .contiguous(), lat)
+    else:
+        rays = (o, d, z, ph.to(torch.int32), lat)
+    got = k1_both_routes(args, rays)
+    assert got["shared"][1] == [1, 1] and got["per_field"][1] == [0, 0]
+    for a, b in zip(got["shared"][0], got["per_field"][0]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    with torch.no_grad():
+        want = ff.plain_composite_fields_rays(*args)
+    for a, b in zip(got["shared"][0], want):
+        assert torch.isfinite(a).all()
+        assert float((a - b.reshape(-1)).abs().max()) <= K1_ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["static", "fourier", "other_windows", "other_basis"])
+def test_shared_units_only_where_encodings_agree(dev, case):
+    # NF 1, fourier (projections of their own), two windows of different
+    # schedules and two bases take the per-field units: SHARED stays put
+    if case == "static":
+        params, pts, cfg, w, _ = static_points(dev, 37, 100)
+        before = dict(ff.LAUNCHES)
+        with torch.no_grad():
+            got = ff.fused_static_field(params, pts, cfg, w)
+            want = ff.plain_static_field(params, pts, cfg, w)
+        assert ff.LAUNCHES["fused_field_fwd.wgmma"] == before["fused_field_fwd.wgmma"] + 1
+        assert ff.LAUNCHES[SHARED] == before[SHARED]
+        assert float((got - want).abs().max()) <= K1_ATOL
+        return
+    args, _ = make(dev, r=37, s=100, enc="fourier" if case == "fourier" else "free_windowed")
+    args = list(args)
+    if case == "other_windows":
+        args[9] = free_window_mask(12, 70, 150, 1, device=dev)  # another decay
+        assert not torch.equal(args[8], args[9])
+    if case == "other_basis":
+        args[7] = dataclasses.replace(args[7], pos_enc_basis=10)
+        args[1] = init_temporal_field(prng.key(5), args[7], dev)
+        args[9] = free_window_mask(10, 70, 100, 1, device=dev)
+    assert not ff.encodings_agree(*packs_of(args))
+    before = dict(ff.LAUNCHES)
+    assert_forward_matches_plain(args)
+    assert ff.LAUNCHES[SHARED] == before[SHARED]
+
+
+@pytest.mark.gpu
+def test_render_path_shares_every_k1_launch(dev):
+    # the eval renderer's windows (train.step.field_windows) are one tensor
+    # for the flagship's pair, so every K1 launch of a view shares its
+    # encoding
+    from nerfca_tpu_torch.train.evaluation import render_test_view
+    from nerfca_tpu_torch.train.step import CompositeHParams
+
+    args, _ = make(dev, r=600, s=64, shared_z=True)
+    ps, pt, o, d, z, ph, cfg_s, cfg_t, _, _ = args
+    cfg_s = dataclasses.replace(cfg_s, pos_enc_window_decay_steps=150000)
+    cfg_t = dataclasses.replace(cfg_t, pos_enc_window_decay_steps=150000)
+    hp = CompositeHParams(use_pallas=True, depth_samples_coarse=64)
+    before = dict(ff.LAUNCHES)
+    out = render_test_view({"static": ps, "temp": pt}, o, d, ph, z, 75000,
+                           {"static": cfg_s, "temp": cfg_t}, hp, 2.16, tile=256)
+    n = ff.LAUNCHES["fused_field_fwd.wgmma"] - before["fused_field_fwd.wgmma"]
+    assert n == 3 and ff.LAUNCHES[SHARED] - before[SHARED] == n
+    assert torch.isfinite(out["pix"]).all()
 
 
 @pytest.mark.gpu

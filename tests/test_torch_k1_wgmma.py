@@ -138,7 +138,10 @@ def test_fragment_mappings_follow_the_slot_order():
 
 
 def emulate_field(params, cfg, pk, x):
-    """One field as the kernel computes it on its encoded input ``x [N, k0]``."""
+    """One field as the kernel computes it on its encoded input ``x [N, k]``:
+    the input layer reads its k-steps' columns (``k1w_nk0``), so a wider
+    ``x``, the shared units' buffer, gives it the temporal latents past its
+    rows, against zero planes."""
     planes = ff.wgmma_planes(pk)
     ws = [pk.w0] + [pk.wh[l] for l in range(cfg.num_early_layers)]
     bs = [pk.b0] + [pk.bh[l] for l in range(cfg.num_early_layers)]
@@ -148,7 +151,8 @@ def emulate_field(params, cfg, pk, x):
         big, small = decode(planes[off:off + n], w.shape[0])
         off += n
         inp = torch.zeros(h.shape[0], big.shape[0] * 8)
-        inp[:, :h.shape[1]] = h
+        cols = min(h.shape[1], inp.shape[1])
+        inp[:, :cols] = h[:, :cols]
         acc = b.expand(h.shape[0], 128).clone()
         for kk in range(big.shape[0]):
             a = inp[:, [8 * kk + s for s in ff.SLOT_INPUT]]
@@ -182,14 +186,27 @@ def test_emulated_forward_matches_plain(case):
     pts = torch.tensor(rng.uniform(-0.6, 0.6, (N_POINTS, 3)), dtype=torch.float32)
     phases = torch.tensor(rng.integers(0, 10, N_POINTS))
     window = None if cs.pos_enc == "fourier" else torch.ones(cs.pos_enc_basis)
-    for params, cfg, latent in ((ps, cs, False), (pt, ct, True)):
+    packs = [ff._Pack(c, ff._leaves(p), ff.enc_table(p, c, window), "cpu")
+             for p, c in ((ps, cs), (pt, ct))]
+    shared = None  # the shared units' buffer: the temporal field's encoded input
+    if ff.encodings_agree(*packs):
+        x = posenc(pts, ct.pos_enc, ct.pos_enc_basis, window=window)
+        shared = torch.cat([x, pt["latents"][phases]], -1)
+        shared = torch.cat([shared, torch.zeros(N_POINTS, -shared.shape[1] % 8)], -1)
+    assert (shared is None) == (cs.pos_enc == "fourier")
+    for params, cfg, latent, pk in ((ps, cs, False, packs[0]), (pt, ct, True, packs[1])):
         x = posenc(pts, cfg.pos_enc, cfg.pos_enc_basis, window=window,
                    fourier_coefficients=params.get("fourier"))
         if latent:
             x = torch.cat([x, params["latents"][phases]], -1)
-        pk = ff._Pack(cfg, ff._leaves(params), ff.enc_table(params, cfg, window), "cpu")
         with torch.no_grad():
             got = emulate_field(params, cfg, pk, x)
+            if shared is not None:
+                if not latent:  # the static input layer's last k-step holds latents
+                    k = -(-x.shape[1] // 8) * 8
+                    assert k > x.shape[1] and bool((shared[:, x.shape[1]:k] != 0).any())
+                same = emulate_field(params, cfg, pk, shared)
+                assert torch.equal(same.view(torch.int32), got.view(torch.int32))
             if latent:
                 want = ff.apply_temporal_field(params, pts[None], phases[None], cfg,
                                                window=window)[0, :, 0]
@@ -237,3 +254,73 @@ def test_pack_has_the_kernel_shapes():
         assert ff.wgmma_planes(ff._Pack(cut, [pk.w0.t(), pk.b0, pk.wo[None], pk.bo],
                                         pk.table, "cpu")).numel() == \
             -(-cfg.input_features // 8) * ff.KSTEP_FLOATS
+
+
+# When K1 encodes each tile pair once for both fields: train.step's
+# same_window_schedule / field_windows on the host, fused_field's
+# encodings_agree on the packs.
+
+COMPOSITE = Path(__file__).resolve().parents[1] / "configs" / "composite.txt"
+
+
+def composite_cfgs():
+    from nerfca_tpu_torch.train.config import parse_args
+    from nerfca_tpu_torch.train.trainer import field_configs_from_args
+
+    return field_configs_from_args(parse_args(["--config", str(COMPOSITE)]))
+
+
+@pytest.mark.parametrize("step", [0, 75000, 150000])
+def test_composite_pair_shares_its_encoding(step):
+    from nerfca_tpu_torch.train.step import field_window, field_windows, same_window_schedule
+
+    cfgs = composite_cfgs()
+    cs, ct = cfgs["static"], cfgs["temp"]
+    assert same_window_schedule(cs, ct)
+    assert torch.equal(field_window(cs, step), field_window(ct, step))
+    windows = field_windows(cfgs, step)
+    assert windows["temp"] is windows["static"]
+    assert torch.equal(windows["static"], field_window(cs, step))
+    ps, pt = init_static_field(prng.key(0), cs, "cpu"), init_temporal_field(prng.key(1), ct, "cpu")
+    packs = [ff._Pack(c, ff._leaves(p), ff.enc_table(p, c, windows[k]), "cpu")
+             for p, c, k in ((ps, cs, "static"), (pt, ct, "temp"))]
+    assert ff.encodings_agree(*packs)
+    # the same values in two tensors are not taken for one window
+    other = ff._Pack(ct, ff._leaves(pt), windows["temp"].clone(), "cpu")
+    assert not ff.encodings_agree(packs[0], other)
+    assert not ff.encodings_agree(packs[0], None)
+
+
+@pytest.mark.parametrize("change", [
+    dict(pos_enc="fourier", fourier_sigma=2.0), dict(pos_enc_basis=10),
+    dict(pos_enc_window_decay_steps=100000), dict(pos_enc_window_start=2),
+    dict(pos_enc_window_max=6.0), dict(pos_enc="nerfies_windowed")],
+    ids=["fourier", "basis", "decay", "start", "max", "kind"])
+def test_other_encodings_take_per_field_units(change):
+    from nerfca_tpu_torch.train.step import field_window, field_windows, same_window_schedule
+
+    cfgs = composite_cfgs()
+    cfgs["temp"] = dataclasses.replace(cfgs["temp"], **change)
+    cs, ct = cfgs["static"], cfgs["temp"]
+    assert not same_window_schedule(cs, ct)
+    windows = field_windows(cfgs, 75000)
+    assert windows["temp"] is not windows["static"] or windows["temp"] is None
+    want = field_window(ct, 75000)
+    assert (windows["temp"] is None) == (want is None)
+    if want is not None:
+        assert torch.equal(windows["temp"], want)
+    ps, pt = init_static_field(prng.key(0), cs, "cpu"), init_temporal_field(prng.key(1), ct, "cpu")
+    packs = [ff._Pack(c, ff._leaves(p), ff.enc_table(p, c, windows[k]), "cpu")
+             for p, c, k in ((ps, cs, "static"), (pt, ct, "temp"))]
+    assert not ff.encodings_agree(*packs)
+
+
+def test_open_windows_are_one_window():
+    # every band open (no window given) in both fields is one encoding
+    ps, pt, cs, ct = fields()
+    assert ff.encodings_agree(pack(ps, cs), pack(pt, ct))
+    ps, pt, cs, ct = fields(enc="none", basis=0)
+    assert ff.encodings_agree(pack(ps, cs), pack(pt, ct))
+    # the one-field launch and a static field with latents never share
+    assert not ff.encodings_agree(pack(ps, cs), None)
+    assert not ff.encodings_agree(pack(pt, ct), pack(pt, ct))
