@@ -61,18 +61,18 @@
 // per SM sub-partition, half of what wgmma reaches, so the products alone
 // take ~6 ms; the encoding and the CUDA-core phases run at low occupancy
 // (8 warps per SM). K2 on wgmma is later work.
-// The short loop for work on these kernels is chip_smoke.check_kernels()
-// on the card (build, errors and times at the flagship shapes);
-// scripts/k2_variants.py splits K2's time by phase, scripts/k1_variants.py
-// times K1 at two tile sizes and without parts of its work.
+// The short loop for work on these kernels is tests/test_torch_gpu.py on
+// the card (the kernels against their plain versions, the flagship shapes
+// among others); scripts/k1_variants.py times K1 as it is and without parts
+// of its work, scripts/k2_variants.py times K2 and splits it by phase.
 //
-// bf16 (compute_dtype "bfloat16", the JAX kernel's _dot/_dotg casts): both
-// mma.sync kernels take a BF16 template parameter (fwd_kernel is launched
-// with BF16 alone; its f32 path remains for the SASS it had). Every matrix product then rounds
-// its operands to bf16 (to nearest, ties to even) as it loads them from the
-// f32 shared-memory tiles and runs one mma.sync.m16n8k16 product per MAC
-// into f32 (field_mma.cuh); k steps are 16 deep, so the input layer pads to
-// round16(k0) (96 at the flagship's temporal 83). The output layer, dwo,
+// bf16 (compute_dtype "bfloat16", the JAX kernel's _dot/_dotg casts): K2
+// takes a BF16 template parameter, and fwd_kernel is K1 in bf16 alone. Every
+// matrix product then rounds its operands to bf16 (to nearest, ties to even)
+// as it loads them from the f32 shared-memory tiles and runs one
+// mma.sync.m16n8k16 product per MAC into f32 (field_mma.cuh); k steps are 16
+// deep, so the input layer pads to round16(k0) (96 at the flagship's
+// temporal 83). The output layer, dwo,
 // the output layer's dh and the latent cotangent take bf16-rounded
 // operands on the CUDA cores; biases, ReLUs and the bias sums stay f32, and
 // every gradient leaves in f32. The bound falls to 155 GFLOP at 989
@@ -720,10 +720,10 @@ __global__ void reduce_kernel(const float* partials, long part_stride, int n_par
 // two fields (NF == 2) CTA 2t runs the static field and CTA 2t + 1 the
 // temporal field on the tile of K1_TP points at t * K1_TP; with one
 // (NF == 1) CTA t runs fs on tile t and writes out_s alone. Each CTA:
-// encode, the input and hidden layers as 3xTF32 mma.sync (mma_layer_fwd,
+// encode, the input and hidden layers as bf16 mma.sync (mma_layer_fwd,
 // weights through the ring in chunks of K1_WCH rows), then the output layer
-// out[i] = bo + sum_n wo[n] relu(h_L[i][n]) on the CUDA cores in f32, a
-// warp per point, for the points that exist.
+// out[i] = bo + sum_n round_bf16(wo[n]) round_bf16(relu(h_L[i][n])) on the
+// CUDA cores, summed in f32, a warp per point, for the points that exist.
 
 #define K1_TP 128            // K1 points per tile
 #define K1_WCH 32            // weight rows per K1 ring chunk
@@ -732,7 +732,7 @@ __global__ void reduce_kernel(const float* partials, long part_stride, int n_par
 constexpr int k1_smem(int np, int c) { return (np * LDH + 2 * c * LDW) * 4 + np * 4; }
 
 // two CTAs per SM where their shared memory fits (1 KB of each is reserved)
-template <int M, int C, int NF, bool FOURIER, bool BF16>
+template <int M, int C, int NF, bool FOURIER>
 __global__ void __launch_bounds__(NTHREADS, 2 * (k1_smem(64 * M, C) + 1024) <= 233472 ? 2 : 1)
 fwd_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, float* out_s, float* out_t) {
   constexpr int NP = 64 * M;
@@ -749,19 +749,19 @@ fwd_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, float* out_s, float* out_t) {
   for (int h = 0; h < M; ++h)
     encode_tile<FOURIER>(f, r, tile0 + h * TP, H + h * TP * LDH, phase_sm + h * TP);
   const int k0 = f.enc + f.n_lat, k4 = round4(k0);
-  const int k_pad = BF16 ? round16(k0) : round8(k0);
-  // the mma steps are 8 deep (16 in bf16): zero the columns encode_tile leaves
-  const int k_zero = BF16 ? min(k_pad, LDH) : k_pad;
+  const int k_pad = round16(k0);
+  // the mma steps are 16 deep: zero the columns encode_tile leaves
+  const int k_zero = min(k_pad, LDH);
   for (int t = threadIdx.x; t < NP * (k_zero - k4); t += NTHREADS) {
     const int p = t / (k_zero - k4);
     H[p * LDH + k4 + t - p * (k_zero - k4)] = 0.f;
   }
   float acc[M][8][4];
-  mma_layer_fwd<M, C, BF16>(f, ring, H, f.b0, k_pad, acc);  // its first barrier publishes H
+  mma_layer_fwd<M, C, true>(f, ring, H, f.b0, k_pad, acc);  // its first barrier publishes H
   for (int l = 0; l < f.n_hidden; ++l) {
     __syncthreads();  // every read of H is done
     store_relu_frag(H, LDH, acc);
-    mma_layer_fwd<M, C, BF16>(f, ring, H, f.bh + l * WIDTH, WIDTH, acc);
+    mma_layer_fwd<M, C, true>(f, ring, H, f.bh + l * WIDTH, WIDTH, acc);
   }
   __syncthreads();
   store_relu_frag(H, LDH, acc);
@@ -769,14 +769,14 @@ fwd_kernel(FieldArgs fs, FieldArgs ft, RayArgs r, float* out_s, float* out_t) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float wo[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) wo[j] = BF16 ? round_bf16(f.wo[lane + 32 * j]) : f.wo[lane + 32 * j];
+  for (int j = 0; j < 4; ++j) wo[j] = round_bf16(f.wo[lane + 32 * j]);
   const float bo = f.bo[0];
   float* out = temporal ? out_t : out_s;
   for (int p = warp; p < NP; p += NTHREADS / 32) {
     float s = 0.f;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      s = fmaf(BF16 ? round_bf16(H[p * LDH + lane + 32 * j]) : H[p * LDH + lane + 32 * j], wo[j], s);
+      s = fmaf(round_bf16(H[p * LDH + lane + 32 * j]), wo[j], s);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
     if (lane == 0 && tile0 + p < n_pts) out[tile0 + p] = s + bo;
@@ -789,18 +789,18 @@ static const int FWD_SMEM = k1_smem(K1_TP, K1_WCH);
 static const int BWD_SMEM =
     (BTP * LDH + BTP * LDD + 2 * WCH * LDW + BTP + BTP * MAX_LAT) * 4 + BTP * 4;
 
-// The launches of one instantiation (NF fields, FOURIER, BF16 and, for K2,
-// RES_BF16; the C entries pick them). K1 in f32 is launch_fwd_wgmma.
-template <int NF, bool FOURIER, bool BF16>
+// The launches of one instantiation (NF fields, FOURIER and, for K2, BF16
+// and RES_BF16; the C entries pick them). K1 in f32 is launch_fwd_wgmma.
+template <int NF, bool FOURIER>
 static int launch_fwd(const FieldArgs& fs, const FieldArgs& ft, const RayArgs& r, float* out_s,
                       float* out_t, cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(fwd_kernel<K1_TP / 64, K1_WCH, NF, FOURIER, BF16>,
+  cudaError_t e = cudaFuncSetAttribute(fwd_kernel<K1_TP / 64, K1_WCH, NF, FOURIER>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
   if (e != cudaSuccess) return (int)e;
   const long n_pts = (long)r.n_rays * r.n_samples;
   const long n_tiles = (n_pts + K1_TP - 1) / K1_TP;
   if (n_tiles == 0) return 0;
-  fwd_kernel<K1_TP / 64, K1_WCH, NF, FOURIER, BF16>
+  fwd_kernel<K1_TP / 64, K1_WCH, NF, FOURIER>
       <<<(unsigned)(NF * n_tiles), NTHREADS, FWD_SMEM, st>>>(fs, ft, r, out_s, out_t);
   return (int)cudaGetLastError();
 }
@@ -832,11 +832,11 @@ static cudaError_t launch_bwd_nf(const FieldArgs* fs, const FieldArgs* ft, const
                                                   part_stride, scratch, scratch_stride, st);
 }
 
-template <bool FOURIER, bool BF16>
+template <bool FOURIER>
 static int launch_fwd_nf(const FieldArgs* fs, const FieldArgs* ft, const RayArgs& r,
                          float* out_s, float* out_t, cudaStream_t st) {
-  return ft ? launch_fwd<2, FOURIER, BF16>(*fs, *ft, r, out_s, out_t, st)
-            : launch_fwd<1, FOURIER, BF16>(*fs, *fs, r, out_s, out_t, st);
+  return ft ? launch_fwd<2, FOURIER>(*fs, *ft, r, out_s, out_t, st)
+            : launch_fwd<1, FOURIER>(*fs, *fs, r, out_s, out_t, st);
 }
 
 // The weight planes of K1 in f32 (fwd_kernel_wsplit), both fields' when ft
@@ -986,8 +986,8 @@ int fused_field_fwd(const FieldArgs* fs, const FieldArgs* ft, const RayArgs* r,
   if (mode == MODE_F32)
     return fourier ? launch_fwd_wgmma_nf<true>(fs, ft, *r, out_s, out_t, planes, st)
                    : launch_fwd_wgmma_nf<false>(fs, ft, *r, out_s, out_t, planes, st);
-  return fourier ? launch_fwd_nf<true, true>(fs, ft, *r, out_s, out_t, st)
-                 : launch_fwd_nf<false, true>(fs, ft, *r, out_s, out_t, st);
+  return fourier ? launch_fwd_nf<true>(fs, ft, *r, out_s, out_t, st)
+                 : launch_fwd_nf<false>(fs, ft, *r, out_s, out_t, st);
 }
 
 // partials: [n_ctas, part_stride] zero-initialized by this call;

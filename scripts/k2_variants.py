@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where K2's time goes on the card: builds variants of
 ``nerfca_tpu_torch/csrc/fused_field.cu`` (text edits on a copy of ``csrc``),
-times each at the flagship shapes of ``chip_smoke.check_kernels`` (1024 rays
-x 500 samples, both 4x128 fields, every band open) with CUDA events, in turns
+times each at the flagship shapes (``chip_smoke.flagship_rays``: 1024 rays x
+500 samples, both 4x128 fields, every band open) with CUDA events, in turns
 and then in the reverse order, and prints the cycles each phase of K2 takes
 on thread 0 of every CTA.
 
@@ -47,7 +47,8 @@ def _phase_edits() -> list:
     marks = [
         ("    WeightRing ring = ring_begin(f, ring_buf);\n", 0, "after"),
         ("  __syncthreads();\n  for (int t = threadIdx.x; t < BTP * (k_pad / 4); t += NTHREADS) {", 1, "mid"),
-        ("  mma_layer_fwd(f, ring, H, f.b0, k_pad, acc);\n", 2, "after"),
+        ("  mma_layer_fwd<MT, WCH, BF16>(f, ring, H, f.b0, BF16 ? round16(k0) : k_pad, acc);\n", 2,
+         "after"),
         ("  store_relu_frag(D, LDD, acc);", 3, "before"),
         ("  float* lat_w = ring.buf;", 4, "before"),
         ("    cp_async_wait<2>();  // H's copy; the next layer's weight may still be in flight\n"
@@ -56,7 +57,8 @@ def _phase_edits() -> list:
          "after"),
         ("    accumulate_db(D, part + (l > 0 ? L.bh + (long)(l - 1) * WIDTH : L.b0));\n", 6, "after"),
         ("      const int c = ring_acquire_pair(ring);", 7, "before"),
-        ("      mma_dx(D, ring.buf + ((c + (warp >> 2)) & 1) * WCH * LDW, acc);\n", 8, "after"),
+        ("      mma_dx<BF16>(D, ring.buf + ((c + (warp >> 2)) & 1) * WCH * LDW, acc);\n", 8,
+         "after"),
         ("      __syncthreads();  // every read of D and of the ring is done\n", 9, "after"),
         ("    } else if (f.n_lat > 0) {", 10, "before"),
         ("        *lat_acc += s;\n      }\n", 11, "after"),

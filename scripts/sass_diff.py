@@ -1,23 +1,29 @@
 #!/usr/bin/env python3
-"""Compare the SASS of the field kernels with another copy of their source.
+"""Compare the SASS of the CUDA kernels with another copy of their source.
 
     python3 scripts/sass_diff.py --parent <dir holding an older csrc/> [--replaced REGEX ...]
                                  [--out sass.json]
 
-Compiles ``fused_field.cu`` from ``nerfca_tpu_torch/csrc`` and from
-``--parent`` to cubins with the device flags of ``ops/cuda/build.py``
-(``sm_90a``, ``-O3``), disassembles both with ``cuobjdump -sass`` and
-compares every kernel of the parent with its counterpart here instruction by
-instruction (addresses and encodings dropped). A kernel that gained template
-parameters since is paired by the parent's arguments followed by ``false``
-for each new one: the parent's ``fwd_kernel<2, 32, NF, FOURIER>`` and
-``bwd_kernel<NF, FOURIER>`` with ``fwd_kernel<2, 32, NF, FOURIER, false>``
-and ``bwd_kernel<NF, FOURIER, false, false>`` here (the f32 instantiations,
+Compiles ``fused_field.cu`` and ``fused_train.cu`` from
+``nerfca_tpu_torch/csrc`` and from ``--parent`` to cubins with the device
+flags of ``ops/cuda/build.py`` (``sm_90a``, ``-O3``, each source's own
+extra flags), disassembles them with ``cuobjdump -sass`` and compares every
+kernel of the parent (``fwd_kernel``, ``fwd_kernel_wgmma``,
+``fwd_kernel_wsplit``, ``bwd_kernel``, ``reduce_kernel``, ``loss_kernel``,
+``terms_kernel``) with its counterpart here instruction by instruction
+(addresses and encodings dropped). A kernel that gained template parameters
+since is paired by the parent's arguments followed by ``false`` for each new
+one: the parent's ``fwd_kernel<2, 32, NF, FOURIER>`` and ``bwd_kernel<NF,
+FOURIER>`` with ``fwd_kernel<2, 32, NF, FOURIER, false>`` and
+``bwd_kernel<NF, FOURIER, false, false>`` here (the f32 instantiations,
 without bf16 compute or bf16 residuals), and so on back to the older names.
-A parent kernel that a change replaced on purpose is named by ``--replaced``
-(a regular expression on the demangled name, searched): it is listed as
-replaced and not compared. The f32 ``fwd_kernel`` instantiations gave way to
-``fwd_kernel_wgmma``:
+A kernel that lost its last template parameter since, fixed at the one value
+it was launched with, is paired by the parent's arguments without that one:
+the parent's bf16 ``fwd_kernel<2, 32, NF, FOURIER, true>`` with
+``fwd_kernel<2, 32, NF, FOURIER>`` here. A parent kernel that a change
+replaced on purpose is named by ``--replaced`` (a regular expression on the
+demangled name, searched): it is listed as replaced and not compared. The
+f32 ``fwd_kernel`` instantiations gave way to ``fwd_kernel_wgmma``:
 
     python3 scripts/sass_diff.py --parent <dir> --replaced 'fwd_kernel<2, 32, [12], (true|false), false>'
 
@@ -39,9 +45,13 @@ import sys
 import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+from nerfca_tpu_torch.ops.cuda.build import EXTRA_FLAGS  # noqa: E402
+
 CSRC = os.path.join(REPO, "nerfca_tpu_torch", "csrc")
 CUDA_BIN = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin")
-FAMILIES = ("fwd_kernel<", "bwd_kernel<", "reduce_kernel(")
+FAMILIES = ("fwd_kernel<", "fwd_kernel_wgmma<", "fwd_kernel_wsplit(", "bwd_kernel<",
+            "reduce_kernel(", "loss_kernel(", "terms_kernel(")
 MAX_NEW_PARAMS = 4
 
 
@@ -51,11 +61,19 @@ def tool(name: str) -> str:
 
 
 def sass(csrc: str, workdir: str, tag: str) -> dict:
-    """Demangled kernel name -> its instructions, for fused_field.cu in csrc."""
-    cubin = os.path.join(workdir, f"{tag}.cubin")
-    subprocess.run([tool("nvcc"), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                    "-O3", "-cubin", "-o", cubin, os.path.join(csrc, "fused_field.cu")],
-                   check=True, capture_output=True, text=True)
+    """Demangled kernel name -> its instructions, for every source in csrc."""
+    kernels = {}
+    for name, flags in EXTRA_FLAGS.items():
+        cubin = os.path.join(workdir, f"{tag}-{name}.cubin")
+        subprocess.run([tool("nvcc"), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                        "-O3", *flags, "-cubin", "-o", cubin, os.path.join(csrc, f"{name}.cu")],
+                       check=True, capture_output=True, text=True)
+        kernels.update(cubin_sass(cubin))
+    return kernels
+
+
+def cubin_sass(cubin: str) -> dict:
+    """Demangled kernel name -> its instructions, for one cubin."""
     dump = subprocess.run([tool("cuobjdump"), "-sass", cubin], check=True,
                           capture_output=True, text=True).stdout
     names = subprocess.run([tool("cu++filt")], input="\n".join(
@@ -89,15 +107,14 @@ def relabel(lines: list) -> list:
 
 def counterpart(parent: str, kernels: dict):
     """The kernel here that is ``parent`` with zero or more ``false``
-    template arguments appended (None if there is none)."""
+    template arguments appended, else ``parent`` without its last template
+    argument (None if there is neither)."""
     head, sep, tail = parent.partition(">(")
     if not sep:
         return parent if parent in kernels else None
-    for extra in range(MAX_NEW_PARAMS + 1):
-        name = head + ", false" * extra + ">(" + tail
-        if name in kernels:
-            return name
-    return None
+    names = [head + ", false" * extra + ">(" + tail for extra in range(MAX_NEW_PARAMS + 1)]
+    names.append(head.rpartition(", ")[0] + ">(" + tail)
+    return next((name for name in names if name in kernels), None)
 
 
 def main() -> int:

@@ -14,6 +14,8 @@ Pallas kernel's backward (``_field_bwd``) returns f32 gradients and rounds
 the two differ by 6.2e-3 of a leaf's scale and bf16 differs from f32 by
 2.0e-2; each tolerance here is stated against those gaps."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import dataclasses
 
 import jax

@@ -4,6 +4,8 @@ bitwise save/load round trip, bitwise resume through the trainer, the
 patience stop and checkpoint selection, the profile window, and Adam's
 state carried between optax and the port."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import dataclasses
 import json
 import os

@@ -7,6 +7,8 @@ and dynamic-volume providers, and a short ``train_composite`` on the
 MAGIX-SURR data against JAX's. The XCAT-SURR dataset is built in
 ``tests/test_torch_surrogates.py`` beside the XCAT driver."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import json
 import os
 

@@ -3,6 +3,8 @@ CPU: ``--volume_root`` volumes read ahead of the phantom, the
 ``--visualize_geometry`` plot, the MIP renders of ``--only_prepare_data``
 (and the projector's ``mip`` mode), and ``exp_param_decay``."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import json
 import os
 

@@ -1,6 +1,8 @@
 """The torch port's fields against the JAX fields, with the JAX parameters
 copied over by ``params_from_jax`` (CPU)."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

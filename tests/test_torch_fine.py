@@ -6,6 +6,8 @@ initialisation and eval depths, the eval's fine terms, ``run_eval``'s fine
 scores, checkpoints with fine leaves, a short ``train_composite`` and the
 envelope rule that lets the coarse pair decide."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import dataclasses
 import functools
 import json

@@ -8,6 +8,8 @@ the static and composite steps against JAX's, and ``run_eval`` of a
 fourier checkpoint against JAX's. The CUDA kernels' fourier mode is held
 against these twins on the card by ``tests/test_torch_gpu.py``."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import dataclasses
 import json
 import os

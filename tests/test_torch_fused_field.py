@@ -3,6 +3,8 @@ Pallas kernels (interpret mode) and the JAX jnp fields, and the wrapper's
 packing and dispatch. The kernels themselves are checked against the plain
 version on the card by ``tests/test_torch_gpu.py``."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import dataclasses
 
 import jax

@@ -4,6 +4,8 @@ same numpy inputs, and the hand-derived loss cotangents against
 ``torch.autograd`` of the plain loss. The CUDA kernel itself is checked
 against the plain version on the card by ``tests/test_torch_gpu.py``."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import dataclasses
 
 import jax

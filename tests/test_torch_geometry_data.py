@@ -1,6 +1,8 @@
 """The torch port's geometry, phantom, views, projector and dataset builder
 against the JAX package on the same inputs (CPU)."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import argparse
 import json
 import os

@@ -1,6 +1,8 @@
 """The torch port's motion hull (``ops/hull.py``) and the gated renderers
 against the JAX package on the same numpy inputs (CPU)."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import warnings
 from types import SimpleNamespace
 

@@ -13,6 +13,8 @@ ReLU; the output layer per thread over its 32 columns, then over the four
 threads of a row. The emulated forward at the flagship widths is held
 against the plain f32 fields."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import dataclasses
 import re
 from pathlib import Path

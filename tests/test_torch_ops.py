@@ -1,6 +1,8 @@
 """The torch port's encodings, schedules, sampling, rendering and losses
 against the JAX package on the same numpy inputs (CPU)."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -3,6 +3,8 @@ package: AdamW (``make_optimizer(weight_decay > 0)``, optax.adamw with the
 ``w``-leaf mask) and skip/late layers (``num_late_layers > 0``: init, apply
 and gradients of the fields, and the trainer on the CPU)."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import json
 import math
 import os

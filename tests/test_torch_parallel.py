@@ -11,6 +11,8 @@ strictness, and each train step under a one-rank mesh against the same
 step without one, run in this process (the autograd paths under two ranks
 are in ``tests/test_torch_parallel_autograd.py``)."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import multiprocessing as mp
 import os
 import pickle

@@ -16,6 +16,8 @@ for the fine pass its Pallas entries in interpret mode: the twin, as the
 kernels, gives the fine depths no cotangent, as JAX's Pallas ray entry,
 where JAX's plain fields backpropagate through the fine points."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import multiprocessing as mp
 import pickle
 

@@ -2,6 +2,8 @@
 and what rests on it: the fields' init, the trainer's initial state, one
 step's draws, and several train steps that follow the JAX step's."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -2,6 +2,8 @@
 one JAX param tree saved through each package's checkpoint writer, then
 scored and rendered by each package's CLI on the same dataset folder."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import json
 import os
 

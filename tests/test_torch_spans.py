@@ -3,6 +3,8 @@ profiler, operator-scope records under one, where the eval renderer, the
 train steps, the hull gate and the chunk's read-back put them, and no
 change to what a profiled call computes."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import copy
 import re
 from pathlib import Path

@@ -6,6 +6,8 @@ its loss, metrics and Adam steps, the static eval view, and a tiny
 one-field kernels themselves are checked against the twins on the card by
 ``tests/test_torch_gpu.py``."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import dataclasses
 import json
 import os

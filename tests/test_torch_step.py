@@ -2,6 +2,8 @@
 a time on injected batches and depths (torch and JAX random numbers never
 agree, so nothing here compares trajectories)."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import dataclasses
 
 import jax

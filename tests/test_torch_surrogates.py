@@ -7,6 +7,8 @@ binding. Each host pipeline makes the same numpy/scipy calls in
 both packages, so their outputs are held bit for bit; the projectors within
 the 1e-4 of ``tests/test_native.py``."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import json
 import os
 import sys

@@ -4,6 +4,8 @@ yaml, the hyperband rungs, the overrides, the local executor's
 ``sweep_results.json`` with a stub trainer, and a sweep through
 ``run_composite`` whose promoted configs resume from their checkpoints."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import glob
 import json
 import math

@@ -11,6 +11,8 @@ and both cotangents against the JAX package on the same numpy inputs: its
 jnp fields, its K3 (Pallas in interpret mode) and ``jax.vjp`` of its
 renderer and loss battery."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

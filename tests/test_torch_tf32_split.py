@@ -7,6 +7,8 @@ runs the field backward through it as K2 does (the encoding, the output
 layer, the bias sums and the latent cotangent in plain f32) and holds the
 result against ``jax.vjp`` of the JAX package's jnp fields."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -1,6 +1,8 @@
 """The torch port's composite driver end to end on the CPU, its config
 surface against the JAX one, and its import isolation."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import dataclasses
 import glob
 import json

@@ -6,6 +6,8 @@ numpy weights (``params_from_jax``), the activation statistics (JAX's
 card's memory statistics and a trace on the card are in
 ``tests/test_torch_gpu.py``."""
 
+from tests import torch_cpu  # noqa: F401 (first: one CPU thread for torch)
+
 import json
 import os
 
@@ -138,3 +140,11 @@ def test_trace_writes_a_chrome_trace(tmp_path, monkeypatch):
     with tprof.trace(str(tmp_path / "u")) as t:
         t.name = "steps-0-2.json"
     assert os.listdir(tmp_path / "u") == ["steps-0-2.json"]
+
+
+def test_torch_keeps_one_cpu_thread_in_test_processes():
+    # tests/torch_cpu.py, imported first by every CPU test file of the port:
+    # 6 xdist workers on 8 cores, one torch thread each, and the same for
+    # the processes the tests spawn
+    assert torch.get_num_threads() == 1
+    assert os.environ["OMP_NUM_THREADS"] == "1"
