@@ -18,8 +18,10 @@ numbers from ``portbench/``. This script times nothing. It
       (:func:`kernel_checks`): ``tests/test_torch_gpu.py``'s ``check``,
       ``check_bf16``, ``check_k3``, ``check_k3_bf16``, ``check_res_loss``
       and ``check_res_k2_change`` at 500 shared depths and, for K1/K2, at
-      the fine pass's 628 per-ray depths from ``sample_pdf``; prints a
-      ``kernels`` line, each case with its shape and the launches it made;
+      the fine pass's 628 per-ray depths from ``sample_pdf``; the eval's
+      Beer-Lambert kernel (``check_composite_view``, ``check_composite``);
+      prints a ``kernels`` line, each case with its shape and the launches
+      it made;
 3. drives the main paths through ``nerfca_tpu_torch.train.run_composite.main``
    (``run_nerf.main`` for the static method), each with the launch counts
    set to 0 just before and read just after:
@@ -447,8 +449,10 @@ def kernel_checks(seed: int = 0) -> list:
     1024 x 500 and in f32 at the fine pass's 1024 x 628 per-ray depths
     (:func:`fine_rays`); K3 in f32 and fourier, without and with a hull;
     K3 in bf16; K3 over bf16 residuals against its twin and against the f32
-    K3, and K2's change under them. Returns each case with its shape and
-    the launches it made."""
+    K3, and K2's change under them; the eval's Beer-Lambert kernel against
+    the torch composite on the benchmark cell's view (40000 rays x 500) and
+    at the fine pair's per-ray depths under a hull gate. Returns each case
+    with its shape and the launches it made."""
     import torch
 
     sys.path.insert(0, os.path.join(REPO, "tests"))  # as scripts/gpu_check_seeds.py imports it
@@ -472,27 +476,30 @@ def kernel_checks(seed: int = 0) -> list:
         args, h = gpu.k3_bf16(*k3(), pallas_bf16_residuals=True)
         gpu.check_k3(args, h, k2="fused_field_bwd_res_bf16")
 
-    cases = [("K1/K2", 500, lambda: gpu.check(*fields())),
-             ("K1/K2 fourier", 500, lambda: gpu.check(*fields(fourier=True))),
-             ("K1/K2 fine", 500 + FINE_SAMPLES, lambda: gpu.check(*fields(fine=True))),
-             ("K1/K2 bf16", 500, lambda: gpu.check_bf16(*fields())),
-             ("K1/K2 bf16 fourier", 500, lambda: gpu.check_bf16(*fields(fourier=True))),
-             ("K3", 500, lambda: gpu.check_k3(*k3())),
-             ("K3 hull", 500, lambda: gpu.check_k3(*k3(hull=True))),
-             ("K3 fourier", 500, lambda: gpu.check_k3(*k3(fourier=True))),
-             ("K3 fourier hull", 500, lambda: gpu.check_k3(*k3(hull=True, fourier=True))),
-             ("K3 bf16", 500, lambda: gpu.check_k3_bf16(*k3())),
-             ("K3 bf16 residuals vs twin", 500, residuals_vs_twin),
-             ("K3 bf16 residuals vs f32 K3", 500, lambda: gpu.check_res_loss(*k3())),
-             ("K2 bf16 residuals' change", 500, lambda: gpu.check_res_k2_change(fields()[0]))]
+    cases = [("K1/K2", 1024, 500, lambda: gpu.check(*fields())),
+             ("K1/K2 fourier", 1024, 500, lambda: gpu.check(*fields(fourier=True))),
+             ("K1/K2 fine", 1024, 500 + FINE_SAMPLES, lambda: gpu.check(*fields(fine=True))),
+             ("K1/K2 bf16", 1024, 500, lambda: gpu.check_bf16(*fields())),
+             ("K1/K2 bf16 fourier", 1024, 500, lambda: gpu.check_bf16(*fields(fourier=True))),
+             ("K3", 1024, 500, lambda: gpu.check_k3(*k3())),
+             ("K3 hull", 1024, 500, lambda: gpu.check_k3(*k3(hull=True))),
+             ("K3 fourier", 1024, 500, lambda: gpu.check_k3(*k3(fourier=True))),
+             ("K3 fourier hull", 1024, 500, lambda: gpu.check_k3(*k3(hull=True, fourier=True))),
+             ("K3 bf16", 1024, 500, lambda: gpu.check_k3_bf16(*k3())),
+             ("K3 bf16 residuals vs twin", 1024, 500, residuals_vs_twin),
+             ("K3 bf16 residuals vs f32 K3", 1024, 500, lambda: gpu.check_res_loss(*k3())),
+             ("K2 bf16 residuals' change", 1024, 500, lambda: gpu.check_res_k2_change(fields()[0])),
+             ("eval composite, the cell's view", 40000, 500, lambda: gpu.check_composite_view(dev)),
+             ("eval composite fine hull", 777, 628,
+              lambda: gpu.check_composite(dev, gated=True, per_ray=True, images=False))]
     done = []
-    for name, samples, run in cases:
+    for name, rays, samples, run in cases:
         before = launch_counts()
         run()
         torch.cuda.synchronize()
         made = {k: v - before.get(k, 0) for k, v in launch_counts().items()
                 if v != before.get(k, 0)}
-        done.append({"case": name, "rays": 1024, "samples": samples, "launches": made})
+        done.append({"case": name, "rays": rays, "samples": samples, "launches": made})
     return done
 
 

@@ -33,6 +33,15 @@
 // Clips take JAX's derivative (jnp.clip is maximum-then-minimum): 0.5 when
 // the value sits on a bound. The build uses accurate math and -fmad=false
 // (no fast-math, no flush-to-zero), so the 1e-19 and 1e-10 guards hold.
+//
+// The file also holds the eval renderer's composite (composite_kernel),
+// launched once per tile of a test view right after that tile's K1: per
+// ray the activation, the optional motion-hull gate, the scaled sigmas and
+// the three Beer-Lambert sums of nerfca_tpu_torch/ops/render.py (the
+// composite, the static image and the dynamic image), with render.py's
+// order of products, each sum a fixed-order warp reduction in exact f32.
+// It reads the two raw densities and writes the two scaled sigmas, 16 B a
+// sample, where the torch renders made ~10 passes over the view.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -268,7 +277,101 @@ __global__ void terms_kernel(const float* partials, int n_rays, LossArgs la, flo
   }
 }
 
+// One warp per ray. sig_s = act(raw_s) * 1e-2, sig_t = (act(raw_t) * 1e-2)
+// * gate, as render_transmission_composite returns them; the sums are
+// pix = i0 - sum (sig_s + sig_t) dist, pix_static = i0 - sum (act(raw_s) *
+// dist) * 1e-2, pix_temp = i0 - sum ((act(raw_t) * gate) * dist) * 1e-2
+// (the last sample's dist 1e-10). Lane l adds samples l, l + 32, ... in
+// order, then the lanes' partials are added in a fixed tree.
+#define CW_WARPS 8
+#define CW_UNROLL 4
+
+struct CompositeArgs {
+  const float* raw_s;  // [R * S] raw densities (K1's output)
+  const float* raw_t;
+  const float* gate;   // [R * S] motion-hull gate, or null (all ones)
+  const float* z;      // the shared [S] depths, or per-ray rows [R, S]
+  float* sig_s;        // [R * S] scaled sigmas
+  float* sig_t;
+  float* dists;        // the [S] deltas (written by ray 0), per-ray rows, or null
+  float* pix;          // [R]
+  float* pix_s;        // [R], or null
+  float* pix_t;        // [R], or null
+  float i0;            // the initial intensity
+  int n_rays, n_samples;
+  int z_stride;        // 0 shared depths, S per-ray rows
+  int activation;      // 0 softplus, 1 sigmoid, 2 clamp
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = v + __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__global__ void __launch_bounds__(CW_WARPS * 32) composite_kernel(CompositeArgs a) {
+  const int lane = threadIdx.x & 31;
+  const long ray = (long)blockIdx.x * CW_WARPS + (threadIdx.x >> 5);
+  if (ray >= a.n_rays) return;
+  const int S = a.n_samples;
+  const long row = ray * S;
+  const float* z = a.z + ray * a.z_stride;
+  float* dists = (a.dists != nullptr && (a.z_stride != 0 || ray == 0))
+                     ? a.dists + ray * a.z_stride : nullptr;
+  float acc = 0.f, acc_s = 0.f, acc_t = 0.f;
+  // CW_UNROLL samples a lane in flight: their loads first, then their sums
+  // in sample order
+  for (int j0 = lane; j0 < S; j0 += 32 * CW_UNROLL) {
+    float rs[CW_UNROLL], rt[CW_UNROLL], gt[CW_UNROLL], dz[CW_UNROLL];
+#pragma unroll
+    for (int u = 0; u < CW_UNROLL; ++u) {
+      const int j = j0 + 32 * u;
+      if (j < S) {
+        rs[u] = a.raw_s[row + j];
+        rt[u] = a.raw_t[row + j];
+        gt[u] = a.gate != nullptr ? a.gate[row + j] : 1.f;
+        dz[u] = j < S - 1 ? z[j + 1] - z[j] : 1e-10f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < CW_UNROLL; ++u) {
+      const int j = j0 + 32 * u;
+      if (j < S) {
+        float unused;
+        const float act_s = activation(rs[u], a.activation, &unused);
+        const float act_t = activation(rt[u], a.activation, &unused);
+        const float ss = act_s * 1e-2f;
+        const float st = (act_t * 1e-2f) * gt[u];
+        a.sig_s[row + j] = ss;
+        a.sig_t[row + j] = st;
+        if (dists != nullptr) dists[j] = dz[u];
+        acc += (ss + st) * dz[u];
+        acc_s += (act_s * dz[u]) * 1e-2f;
+        acc_t += ((act_t * gt[u]) * dz[u]) * 1e-2f;
+      }
+    }
+  }
+  acc = warp_sum(acc);
+  acc_s = warp_sum(acc_s);
+  acc_t = warp_sum(acc_t);
+  if (lane == 0) {
+    a.pix[ray] = a.i0 - acc;
+    if (a.pix_s != nullptr) a.pix_s[ray] = a.i0 - acc_s;
+    if (a.pix_t != nullptr) a.pix_t[ray] = a.i0 - acc_t;
+  }
+}
+
 extern "C" {
+
+int eval_composite_args_bytes(int) { return (int)sizeof(CompositeArgs); }
+
+// The eval's composite of one tile of rays: see composite_kernel.
+int eval_composite(const CompositeArgs* a, void* stream) {
+  if (a->n_samples < 1 || a->n_rays < 1) return (int)cudaErrorInvalidValue;
+  const int blocks = (a->n_rays + CW_WARPS - 1) / CW_WARPS;
+  composite_kernel<<<blocks, CW_WARPS * 32, 0, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
 
 int fused_train_terms(int) { return TERMS; }
 

@@ -42,6 +42,14 @@ Dispatch: CPU tensors take :func:`plain_train_loss_and_grads`; CUDA
 tensors launch the kernels or raise. ``LAUNCHES["fused_train_loss"]``
 grows by one at each launch of the loss kernel and nowhere else; a step
 also counts one K1 and one K2 launch in ``fused_field.LAUNCHES``.
+
+The same library holds the eval renderer's composite,
+:func:`eval_composite` (``composite_kernel``): launched once per tile of
+a test view after its K1, it forms the scaled sigmas and the three
+Beer-Lambert images of ``ops/render.py`` in one pass over the raw
+densities (no autograd; ``train/evaluation.py`` takes it on the card).
+``LAUNCHES["eval_composite.kernel"]`` counts its launches,
+``["eval_composite.torch"]`` the views whose composite ran in torch.
 """
 
 from __future__ import annotations
@@ -74,7 +82,7 @@ MAX_TERMS = (T_SMAX, T_DMAX)
 ACTIVATIONS = ("softplus", "sigmoid", "clamp")
 MAX_SAMPLES = 1024  # the loss kernel keeps a ray's raw densities in shared memory
 
-LAUNCHES = {"fused_train_loss": 0}
+LAUNCHES = {"fused_train_loss": 0, "eval_composite.kernel": 0, "eval_composite.torch": 0}
 
 
 def reset_launch_counts() -> None:
@@ -333,6 +341,16 @@ class LossArgs(ctypes.Structure):
                 ("use_weighting", ctypes.c_int), ("has_hull", ctypes.c_int)]
 
 
+class CompositeArgs(ctypes.Structure):
+    _fields_ = [("raw_s", ctypes.c_void_p), ("raw_t", ctypes.c_void_p),
+                ("gate", ctypes.c_void_p), ("z", ctypes.c_void_p), ("sig_s", ctypes.c_void_p),
+                ("sig_t", ctypes.c_void_p), ("dists", ctypes.c_void_p),
+                ("pix", ctypes.c_void_p), ("pix_s", ctypes.c_void_p),
+                ("pix_t", ctypes.c_void_p), ("i0", ctypes.c_float), ("n_rays", ctypes.c_int),
+                ("n_samples", ctypes.c_int), ("z_stride", ctypes.c_int),
+                ("activation", ctypes.c_int)]
+
+
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -350,6 +368,12 @@ def _lib() -> ctypes.CDLL:
         lib.fused_train_terms.restype = ctypes.c_int
         if lib.fused_train_terms(0) != TERMS:
             raise RuntimeError("term layout differs between the wrapper and the kernel")
+        lib.eval_composite.argtypes = [ptr(CompositeArgs), ctypes.c_void_p]
+        lib.eval_composite.restype = ctypes.c_int
+        lib.eval_composite_args_bytes.argtypes = [ctypes.c_int]
+        lib.eval_composite_args_bytes.restype = ctypes.c_int
+        if lib.eval_composite_args_bytes(0) != ctypes.sizeof(CompositeArgs):
+            raise RuntimeError("CompositeArgs differs between the wrapper and the kernel")
         _LIB = lib
     return _LIB
 
@@ -383,6 +407,66 @@ def fused_train_loss(raw_s, raw_t, z, largs: LossArgs):
         g_s.data_ptr(), g_t.data_ptr(), partials.data_ptr(), terms.data_ptr(), ff._stream()),
         "fused_train_loss")
     return terms, g_s, g_t
+
+
+def eval_composite_buffers(n_rays: int, z, images: bool = True) -> dict:
+    """The outputs of a view's :func:`eval_composite` launches, allocated
+    once for the view: ``pix [N]``, the scaled ``static_sigma`` and
+    ``temp_sigma [N, S]``, ``dists`` shaped like the depths ``z`` (the
+    shared ``[S]`` or per-ray ``[N, S]``), and with ``images`` the static
+    and dynamic images ``pix_static``, ``pix_temp [N]``."""
+    dev, s = z.device, z.shape[-1]
+    if z.dim() == 2 and z.shape[0] != n_rays:
+        raise ValueError(f"per-ray depths for {z.shape[0]} rays, not {n_rays}")
+    out = {"pix": torch.empty(n_rays, device=dev)}
+    if images:
+        out.update(pix_static=torch.empty(n_rays, device=dev),
+                   pix_temp=torch.empty(n_rays, device=dev))
+    out.update(static_sigma=torch.empty(n_rays, s, device=dev),
+               temp_sigma=torch.empty(n_rays, s, device=dev), dists=torch.empty_like(z))
+    return out
+
+
+def eval_composite(raw_s, raw_t, z, initial_intensity: float, activation: str, out: dict,
+                   start: int, gate=None) -> None:
+    """Launch the eval renderer's composite (``composite_kernel``) on one
+    tile of a view: ``raw_s``, ``raw_t`` are K1's ``[r, S]`` raw densities
+    of rays ``[start, start + r)``, ``gate`` their optional ``[r, S]``
+    motion-hull gate, ``z`` the view's depths (the shared ``[S]`` or
+    per-ray ``[N, S]``). Writes those rays' rows of the buffers ``out``
+    (:func:`eval_composite_buffers`): what ``render_transmission_composite``
+    and, for ``pix_static``/``pix_temp``, ``render_transmission`` return,
+    the sigmas and dists bit for bit, each image's per-ray sum in another
+    order of additions."""
+    s = z.shape[-1]
+    r = raw_s.numel() // s
+    rows = slice(start, start + r)
+    per_ray = z.dim() == 2
+    for name, t in (("raw_s", raw_s), ("raw_t", raw_t), ("gate", gate), ("z", z)):
+        if t is not None and (t.device != z.device or t.dtype != torch.float32
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name}: expected a contiguous float32 tensor on {z.device}")
+    if any(t is not None and t.numel() != r * s for t in (raw_s, raw_t, gate)):
+        raise ValueError(f"raw_s, raw_t and gate must each hold {r} x {s} values")
+    if out["dists"].shape != z.shape or start + r > out["pix"].shape[0]:
+        raise ValueError(f"rays [{start}, {start + r}) at depths {tuple(z.shape)} outside the "
+                         f"view's buffers")
+
+    def ptr(name):
+        t = out.get(name)
+        return None if t is None else t[rows].data_ptr()
+
+    if per_ray:
+        dists = ptr("dists")
+    else:  # the shared [S] deltas, written once, by the view's first tile
+        dists = out["dists"].data_ptr() if start == 0 else None
+    args = CompositeArgs(
+        raw_s.data_ptr(), raw_t.data_ptr(), None if gate is None else gate.data_ptr(),
+        z[rows].data_ptr() if per_ray else z.data_ptr(), ptr("static_sigma"), ptr("temp_sigma"),
+        dists, ptr("pix"), ptr("pix_static"), ptr("pix_temp"), float(initial_intensity), r, s,
+        s if per_ray else 0, ACTIVATIONS.index(activation.lower()))
+    LAUNCHES["eval_composite.kernel"] += 1
+    ff._check(_lib().eval_composite(ctypes.byref(args), ff._stream()), "eval_composite")
 
 
 def _check_batch(origins, z, pixels, weights, initial_intensities):

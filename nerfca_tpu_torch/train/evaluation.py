@@ -8,6 +8,13 @@ reference's test losses and pure image PSNR / SSIM. With the fine pass the
 fine pair is rendered the same way on its own fixed depth grid. The static
 method's view (:func:`render_static_test_view`) is the single-field render
 of the static field in plain torch, as the JAX package renders it.
+
+On the card, with both fields of a pair on K1, each tile's composite is
+one launch of the Beer-Lambert kernel right after the tile's K1
+(``ops/cuda/fused_train.py::eval_composite``), into buffers allocated once
+for the view; everywhere else the tiles are joined and composited by
+``ops/render.py``. Both give the same sigmas and dists bit for bit and the
+same images up to the order of each per-ray sum.
 """
 
 from __future__ import annotations
@@ -20,7 +27,8 @@ import torch
 from nerfca_tpu_torch.ops.hull import hull_gate_rays
 from nerfca_tpu_torch.ops.losses import weighted_mse
 from nerfca_tpu_torch.ops.render import render_transmission, render_transmission_composite
-from nerfca_tpu_torch.ops.cuda.fused_field import plain_static_field
+from nerfca_tpu_torch.ops.cuda import fused_train as ft
+from nerfca_tpu_torch.ops.cuda.fused_field import kernel_supported, plain_static_field
 from nerfca_tpu_torch.train.step import (
     CompositeHParams, StaticHParams, evaluate_fields, field_window, field_windows,
     loss_weights, regularized_loss, regularizer_losses,
@@ -28,29 +36,62 @@ from nerfca_tpu_torch.train.step import (
 from nerfca_tpu_torch.utils.profiling import span
 
 
-def _render_tiles(params, origins, directions, phases, depth_values, windows, cfgs,
-                  hp: CompositeHParams, tile: int, hull, suffix: str = "") -> tuple:
-    """The pair ``suffix`` names on every ray, ``tile`` rays at a time:
-    the raw densities ``[tile, S]`` of each field and the hull gate, a list
-    of tiles each (the gate's empty without a hull)."""
-    s_parts, t_parts, g_parts = [], [], []
+def _tiles(params, origins, directions, phases, depth_values, windows, cfgs,
+           hp: CompositeHParams, tile: int, hull, suffix: str):
+    """The pair ``suffix`` names on every ray, ``tile`` rays at a time: per
+    tile its first ray, the raw densities ``[tile, S]`` of each field and
+    the hull gate (None without a hull)."""
     for start in range(0, origins.shape[0], tile):
         with span("nerfca.eval.tile"):
             o, d = origins[start:start + tile], directions[start:start + tile]
             s_raw, t_raw = evaluate_fields(params, o, d, depth_values,
                                            phases[start:start + tile], windows, cfgs, hp,
                                            suffix)
-            s_parts.append(s_raw[..., 0])
-            t_parts.append(t_raw[..., 0])
-            if hull is not None:
-                g_parts.append(hull_gate_rays(hull, o, d, depth_values))
-    return s_parts, t_parts, g_parts
+            gate = hull_gate_rays(hull, o, d, depth_values) if hull is not None else None
+        yield start, s_raw[..., 0], t_raw[..., 0], gate
 
 
-def _joined(s_parts, t_parts, g_parts) -> tuple:
-    """The tiles of :func:`_render_tiles` as ``[N, S]`` densities of each
-    field and the gate (None without a hull)."""
-    return torch.cat(s_parts), torch.cat(t_parts), torch.cat(g_parts) if g_parts else None
+def composite_on_kernel(origins, cfgs: dict, hp: CompositeHParams, suffix: str = "") -> bool:
+    """Whether the pair ``suffix`` names takes the eval's Beer-Lambert kernel:
+    CUDA tensors with both fields on K1 (:func:`evaluate_fields`'s
+    condition)."""
+    return (origins.device.type == "cuda" and hp.use_pallas
+            and kernel_supported(cfgs["static" + suffix])
+            and kernel_supported(cfgs["temp" + suffix]))
+
+
+def _render_pair(params, origins, directions, phases, depth_values, windows, cfgs,
+                 hp: CompositeHParams, tile: int, hull, i0: float, suffix: str, images: bool,
+                 on_kernel: bool) -> dict:
+    """The pair's composite and, with ``images``, its static and dynamic
+    images. ``on_kernel``: each tile's Beer-Lambert kernel right after its
+    K1, into buffers for the view; else the tiles joined, then the renders
+    of ``ops/render.py`` over the whole view."""
+    tiles = _tiles(params, origins, directions, phases, depth_values, windows, cfgs, hp, tile,
+                   hull, suffix)
+    if on_kernel:
+        out = ft.eval_composite_buffers(origins.shape[0], depth_values, images)
+        for start, s_raw, t_raw, gate in tiles:
+            with span("nerfca.eval.composite"):
+                ft.eval_composite(s_raw, t_raw, depth_values, i0, hp.output_activation, out,
+                                  start, gate)
+        return out
+    parts = list(tiles)
+    with span("nerfca.eval.composite"):
+        s_raw, t_raw = (torch.cat([p[k] for p in parts])[..., None] for k in (1, 2))
+        gate = torch.cat([p[3] for p in parts]) if hull is not None else None
+        del parts  # the tiles, released before the renders as the joins replace them
+        i0_rays = torch.full((s_raw.shape[0],), i0, device=origins.device)
+        pix, s_sig, t_sig, dists = render_transmission_composite(
+            s_raw, t_raw, i0_rays, depth_values, hp.output_activation, temp_gate=gate)
+        out = {"pix": pix}
+        if images:
+            out["pix_static"] = render_transmission(s_raw, i0_rays, depth_values,
+                                                    hp.output_activation)[0]
+            out["pix_temp"] = render_transmission(t_raw, i0_rays, depth_values,
+                                                  hp.output_activation, gate=gate)[0]
+    out.update(static_sigma=s_sig, temp_sigma=t_sig, dists=dists)
+    return out
 
 
 @torch.no_grad()
@@ -66,36 +107,23 @@ def render_test_view(params, test_origins, test_directions, test_phases, depth_v
     With ``depth_values_fine`` and fine params, the fine pair is rendered
     directly on that fixed grid, as the reference's eval does (not a
     resampled hierarchical pass): ``pix_fine`` and the fine sigmas and
-    dists."""
+    dists. Each pair's composite takes the Beer-Lambert kernel where
+    :func:`composite_on_kernel` holds; a view whose composite ran in torch
+    counts one ``fused_train.LAUNCHES["eval_composite.torch"]``."""
     with span("nerfca.eval.view"):
-        dev = test_origins.device
-        windows = field_windows(cfgs, step, dev)
-        parts = _render_tiles(params, test_origins, test_directions, test_phases,
-                              depth_values, windows, cfgs, hp, tile, hull)
-        with span("nerfca.eval.composite"):
-            s_raw, t_raw, gate = _joined(*parts)
-            del parts  # the tiles, released before the renders as the joins replace them
-            i0 = torch.full((s_raw.shape[0],), initial_intensity, device=dev)
-            pix, s_sig, t_sig, dists = render_transmission_composite(
-                s_raw[..., None], t_raw[..., None], i0, depth_values, hp.output_activation,
-                temp_gate=gate)
-            pix_temp, _, _ = render_transmission(t_raw[..., None], i0, depth_values,
-                                                 hp.output_activation, gate=gate)
-            pix_static, _, _ = render_transmission(s_raw[..., None], i0, depth_values,
-                                                   hp.output_activation)
-        out = {"pix": pix, "pix_static": pix_static, "pix_temp": pix_temp,
-               "static_sigma": s_sig, "temp_sigma": t_sig, "dists": dists}
+        windows = field_windows(cfgs, step, test_origins.device)
+        pairs = [("", depth_values)]
         if depth_values_fine is not None and "static_fine" in params:
-            parts = _render_tiles(params, test_origins, test_directions, test_phases,
-                                  depth_values_fine, windows, cfgs, hp, tile, hull, "_fine")
-            with span("nerfca.eval.composite"):
-                s_raw, t_raw, gate = _joined(*parts)
-                del parts
-                pix, s_sig, t_sig, dists = render_transmission_composite(
-                    s_raw[..., None], t_raw[..., None], i0, depth_values_fine,
-                    hp.output_activation, temp_gate=gate)
-            out.update(pix_fine=pix, static_sigma_fine=s_sig, temp_sigma_fine=t_sig,
-                       dists_fine=dists)
+            pairs.append(("_fine", depth_values_fine))
+        out, on_kernel = {}, True
+        for suffix, z in pairs:
+            kernel = composite_on_kernel(test_origins, cfgs, hp, suffix)
+            on_kernel = on_kernel and kernel
+            got = _render_pair(params, test_origins, test_directions, test_phases, z, windows,
+                               cfgs, hp, tile, hull, initial_intensity, suffix,
+                               images=not suffix, on_kernel=kernel)
+            out.update({k + suffix: v for k, v in got.items()})
+        ft.LAUNCHES["eval_composite.torch"] += int(not on_kernel)
         return out
 
 

@@ -10,7 +10,7 @@ flags of ``ops/cuda/build.py`` (``sm_90a``, ``-O3``, each source's own
 extra flags), disassembles them with ``cuobjdump -sass`` and compares every
 kernel of the parent (``fwd_kernel``, ``fwd_kernel_wgmma``,
 ``fwd_kernel_wsplit``, ``bwd_kernel``, ``reduce_kernel``, ``loss_kernel``,
-``terms_kernel``) with its counterpart here instruction by instruction
+``terms_kernel``, ``composite_kernel``) with its counterpart here instruction by instruction
 (addresses and encodings dropped). A kernel that gained template parameters
 since is paired by the parent's arguments followed by ``false`` for each new
 one: the parent's ``fwd_kernel<2, 32, NF, FOURIER>`` and ``bwd_kernel<NF,
@@ -51,7 +51,7 @@ from nerfca_tpu_torch.ops.cuda.build import EXTRA_FLAGS  # noqa: E402
 CSRC = os.path.join(REPO, "nerfca_tpu_torch", "csrc")
 CUDA_BIN = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin")
 FAMILIES = ("fwd_kernel<", "fwd_kernel_wgmma<", "fwd_kernel_wsplit(", "bwd_kernel<",
-            "reduce_kernel(", "loss_kernel(", "terms_kernel(")
+            "reduce_kernel(", "loss_kernel(", "terms_kernel(", "composite_kernel(")
 MAX_NEW_PARAMS = 4
 
 

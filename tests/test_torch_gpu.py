@@ -1283,3 +1283,179 @@ def test_device_memory_stats_and_trace_on_the_card(dev, tmp_path):
     with open(os.path.join(tmp_path, t.name)) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "kernel" for e in events)
+
+
+# ---------------------------------------------------------------------------
+# The eval renderer's composite: the Beer-Lambert kernel
+# (ops/cuda/fused_train.py::eval_composite) against ops/render.py's torch
+# composite on the same raw densities. The sigmas and dists bit for bit;
+# each image within COMPOSITE_REL of the largest composite attenuation
+# (only the order of each per-ray f32 sum differs)
+
+COMPOSITE_REL = 1e-6
+
+
+def torch_composite(s_raw, t_raw, z, i0, act, gate=None, images=True) -> dict:
+    """``ops/render.py``'s composite of ``[R, S]`` raw densities, as the eval
+    renders it in torch."""
+    from nerfca_tpu_torch.ops.render import render_transmission, render_transmission_composite
+
+    i0v = torch.full((s_raw.shape[0],), i0, device=s_raw.device)
+    pix, s_sig, t_sig, dists = render_transmission_composite(
+        s_raw[..., None], t_raw[..., None], i0v, z, act, temp_gate=gate)
+    out = {"pix": pix, "static_sigma": s_sig, "temp_sigma": t_sig, "dists": dists}
+    if images:
+        out["pix_temp"] = render_transmission(t_raw[..., None], i0v, z, act, gate=gate)[0]
+        out["pix_static"] = render_transmission(s_raw[..., None], i0v, z, act)[0]
+    return out
+
+
+def composite_gap(got: dict, want: dict, i0: float) -> float:
+    """Asserts the sigmas and dists bit for bit; returns the images' worst
+    gap over the largest composite attenuation."""
+    assert set(got) == set(want)
+    for k in ("static_sigma", "temp_sigma", "dists"):
+        assert got[k].shape == want[k].shape and torch.equal(got[k], want[k]), k
+    scale = float((i0 - want["pix"].double()).abs().max())
+    return max(float((got[k].double() - want[k].double()).abs().max())
+               for k in want if k.startswith("pix")) / scale
+
+
+def view_raw(params, o, d, ph, z, step, cfgs, hp, tile, suffix=""):
+    """The pair's raw densities of a view, tile by tile as the eval renders
+    them (K1 gives the same bits on every launch), joined ``[N, S]``."""
+    from nerfca_tpu_torch.train.step import evaluate_fields, field_windows
+
+    windows = field_windows(cfgs, step, o.device)
+    with torch.no_grad():
+        parts = [evaluate_fields(params, o[i:i + tile], d[i:i + tile], z, ph[i:i + tile],
+                                 windows, cfgs, hp, suffix) for i in range(0, o.shape[0], tile)]
+    return tuple(torch.cat([p[k][..., 0] for p in parts]) for k in (0, 1))
+
+
+def check_composite(dev, act="softplus", gated=False, per_ray=False, images=True) -> float:
+    """The kernel against the torch composite on densities across every
+    branch of the activations (softplus past +-20, clamp on both bounds), a
+    gate with exact zeros, 500 shared depths or the fine pair's 628 per-ray
+    ones, in three tiles with a partial last one; the depths span 100, so
+    that every activation attenuates by about one (a view's trained range)
+    and an image's last rounding, i0 - sum near 2.16, is not what the limit
+    reads. Returns the images' gap."""
+    from nerfca_tpu_torch.ops.cuda import fused_train as ft
+
+    r, s, tile, i0 = 777, 628 if per_ray else 500, 320, 2.16
+    g = torch.Generator(device=dev).manual_seed(s + 7 * gated)
+    s_raw = 8.0 * torch.randn(r, s, generator=g, device=dev)
+    t_raw = 8.0 * torch.randn(r, s, generator=g, device=dev) - 2.0
+    gate = None
+    if gated:
+        gate = torch.rand(r, s, generator=g, device=dev)
+        gate = torch.where(gate < 0.2, torch.zeros_like(gate), gate)
+    z = torch.sort(100.0 * torch.rand(r if per_ray else 1, s, generator=g, device=dev),
+                   dim=1).values
+    z = z if per_ray else z[0].contiguous()
+    before = ft.LAUNCHES["eval_composite.kernel"]
+    got = ft.eval_composite_buffers(r, z, images)
+    for start in range(0, r, tile):
+        rows = slice(start, start + tile)
+        ft.eval_composite(s_raw[rows], t_raw[rows], z, i0, act, got, start,
+                          None if gate is None else gate[rows])
+    assert ft.LAUNCHES["eval_composite.kernel"] == before + 3
+    gap = composite_gap(got, torch_composite(s_raw, t_raw, z, i0, act, gate, images), i0)
+    assert gap <= COMPOSITE_REL, gap
+    return gap
+
+
+def check_composite_view(dev, seed=3_000_000_019) -> float:
+    """``render_test_view`` on composite-k1-render's view (``portbench/``):
+    40000 rays x 500 samples in ten 4096-ray tiles, output layers x50 and
+    +20 (a trained field's densities); ten kernel launches, no torch
+    composite, and the torch composite of the same raw densities. Returns
+    the images' gap."""
+    from nerfca_tpu_torch.ops.cuda import fused_train as ft
+    from nerfca_tpu_torch.train.evaluation import render_test_view
+    from portbench import harness
+    from portbench.mixes import render
+
+    bench = harness.load_json(harness.ROOT / "BENCHMARK.json")
+    _, cfg, traffic, _ = harness.cell_files(bench, "composite-k1-render")
+    su = render.setup(cfg, traffic, seed, dev)
+    view = su["views"][int(su["order"][0])]
+    rays = (su["params"], view["origins"], view["directions"], view["phases"], su["z"],
+            su["step"], su["fields"], su["hp"])
+    before = dict(ft.LAUNCHES)
+    got = render_test_view(*rays, su["i0"], tile=su["tile"])
+    assert ft.LAUNCHES["eval_composite.kernel"] == before["eval_composite.kernel"] + 10
+    assert ft.LAUNCHES["eval_composite.torch"] == before["eval_composite.torch"]
+    want = torch_composite(*view_raw(*rays, su["tile"]), su["z"], su["i0"],
+                           su["hp"].output_activation)
+    gap = composite_gap(got, want, su["i0"])
+    assert gap <= COMPOSITE_REL, gap
+    return gap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["softplus", "sigmoid", "clamp"])
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("per_ray,images", [(False, True), (False, False), (True, False),
+                                            (True, True)])
+def test_eval_composite_kernel_matches_torch(dev, act, gated, per_ray, images):
+    gap = check_composite(dev, act, gated, per_ray, images)
+    print(f"eval composite, {act} gated={gated} per_ray={per_ray} images={images}: "
+          f"images within {gap:.3e}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["kernel", "hull", "fine", "bf16", "plain"])
+def test_eval_view_routes_its_composite(dev, case):
+    # render_test_view on the card: with both fields on K1 each tile's
+    # composite is one kernel launch (the hull-gated, fine-pair and bf16
+    # evals too); the plain fields keep the torch composite, counted once
+    from nerfca_tpu_torch.ops.cuda import fused_train as ft
+    from nerfca_tpu_torch.ops.hull import MotionHull, hull_gate_rays
+    from nerfca_tpu_torch.train.evaluation import render_test_view
+    from nerfca_tpu_torch.train.step import CompositeHParams
+
+    args, _ = make(dev, r=600, s=64, shared_z=True)
+    ps, pt, o, d, z, ph, cfg_s, cfg_t, _, _ = args
+    params, cfgs = {"static": ps, "temp": pt}, {"static": cfg_s, "temp": cfg_t}
+    z_fine = None
+    if case == "fine":
+        fine, _ = make(dev, r=600, s=64, shared_z=True, seed=1)
+        params.update(static_fine=fine[0], temp_fine=fine[1])
+        cfgs.update(static_fine=cfg_s, temp_fine=cfg_t)
+        z_fine = torch.linspace(3.7, 5.3, 90, device=dev)
+    h = None
+    if case == "hull":
+        g = torch.Generator(device=dev).manual_seed(3)
+        h = MotionHull(torch.rand(8, 8, 8, generator=g, device=dev),
+                       torch.full((3,), 0.1, device=dev),
+                       torch.tensor([0.25, -0.1, 0.0], device=dev))
+    hp = CompositeHParams(use_pallas=case != "plain", depth_samples_coarse=64,
+                          compute_dtype="bfloat16" if case == "bf16" else "float32")
+    step, tile, i0 = 50, 256, 2.16
+    ft.reset_launch_counts()
+    got = render_test_view(params, o, d, ph, z, step, cfgs, hp, i0, tile=tile,
+                           depth_values_fine=z_fine, hull=h)
+    pairs = 2 if case == "fine" else 1
+    assert ft.LAUNCHES["eval_composite.kernel"] == (0 if case == "plain" else 3 * pairs)
+    assert ft.LAUNCHES["eval_composite.torch"] == (1 if case == "plain" else 0)
+    s_raw, t_raw = view_raw(params, o, d, ph, z, step, cfgs, hp, tile)
+    gate = None if h is None else hull_gate_rays(h, o, d, z)
+    if h is not None:
+        assert 0 < int((gate == 0).sum()) < gate.numel()
+    want = torch_composite(s_raw, t_raw, z, i0, hp.output_activation, gate)
+    if case == "fine":
+        s_raw, t_raw = view_raw(params, o, d, ph, z_fine, step, cfgs, hp, tile, "_fine")
+        fine = torch_composite(s_raw, t_raw, z_fine, i0, hp.output_activation, images=False)
+        want.update({k + "_fine": v for k, v in fine.items()})
+    gap = composite_gap(got, want, i0)
+    print(f"eval composite, view ({case}): images within {gap:.3e}")
+    assert gap <= COMPOSITE_REL
+
+
+@pytest.mark.gpu
+def test_eval_composite_on_the_cells_view(dev):
+    gap = check_composite_view(dev)
+    print(f"eval composite, the cell's view: images within {gap:.3e} of the largest "
+          f"attenuation")
