@@ -20,6 +20,9 @@ numbers from ``portbench/``. This script times nothing. It
       and ``check_res_k2_change`` at 500 shared depths and, for K1/K2, at
       the fine pass's 628 per-ray depths from ``sample_pdf``; the eval's
       Beer-Lambert kernel (``check_composite_view``, ``check_composite``);
+      the static method's eval (``check_static_rays``, free_windowed and
+      fourier, ``check_static_view`` on its cell's 40000 x 500 view,
+      ``check_eval_static`` at per-ray depths);
       prints a ``kernels`` line, each case with its shape and the launches
       it made;
 3. drives the main paths through ``nerfca_tpu_torch.train.run_composite.main``
@@ -86,7 +89,8 @@ numbers from ``portbench/``. This script times nothing. It
       XCAT preset's dataset, 6 K3 steps and one eval;
    d. the static 3-D method through ``run_nerf.main`` on ``configs/3d.txt``
       (its own one-phase 128^3 dataset, ``STATIC_STEPS`` steps): the
-      one-field K1 and K2 once a step and nothing else; the train loss and
+      one-field K1 and K2 once a step and nothing else, each eval view one
+      one-field K1 on rays and one ``eval_static`` a tile; the train loss and
       ``test_image_psnr`` at steps 0, 100, 200 beside the JAX record
       (``JAX_STATIC``), gated (``GATE_STATIC_LOSS0_REL``,
       ``GATE_STATIC_PSNR_DB``); the entries against their plain versions at
@@ -451,8 +455,12 @@ def kernel_checks(seed: int = 0) -> list:
     K3 in bf16; K3 over bf16 residuals against its twin and against the f32
     K3, and K2's change under them; the eval's Beer-Lambert kernel against
     the torch composite on the benchmark cell's view (40000 rays x 500) and
-    at the fine pair's per-ray depths under a hull gate. Returns each case
-    with its shape and the launches it made."""
+    at the fine pair's per-ray depths under a hull gate; the static
+    method's eval: the one-field K1 on rays against the point form and the
+    plain field (free_windowed and fourier, 1024 x 500 of ``make``'s rays),
+    its view on ``static3d-k1-render``'s 40000 x 500 (the launches of each
+    route counted) and the one-field Beer-Lambert kernel at 628 per-ray
+    depths. Returns each case with its shape and the launches it made."""
     import torch
 
     sys.path.insert(0, os.path.join(REPO, "tests"))  # as scripts/gpu_check_seeds.py imports it
@@ -491,7 +499,13 @@ def kernel_checks(seed: int = 0) -> list:
              ("K2 bf16 residuals' change", 1024, 500, lambda: gpu.check_res_k2_change(fields()[0])),
              ("eval composite, the cell's view", 40000, 500, lambda: gpu.check_composite_view(dev)),
              ("eval composite fine hull", 777, 628,
-              lambda: gpu.check_composite(dev, gated=True, per_ray=True, images=False))]
+              lambda: gpu.check_composite(dev, gated=True, per_ray=True, images=False)),
+             ("static K1 rays", 1024, 500, lambda: gpu.check_static_rays(dev, 1024, 500, True)),
+             ("static K1 rays fourier", 1024, 500,
+              lambda: gpu.check_static_rays(dev, 1024, 500, True, enc="fourier")),
+             ("eval static, the cell's view", 40000, 500, lambda: gpu.check_static_view(dev)),
+             ("eval static per-ray", 777, 628,
+              lambda: gpu.check_eval_static(dev, "softplus", per_ray=True))]
     done = []
     for name, rays, samples, run in cases:
         before = launch_counts()
@@ -533,8 +547,7 @@ def counted_run(argv: list, static: bool = False) -> dict:
     from nerfca_tpu_torch.train import evaluation, run_composite, run_nerf
 
     info = {"eval_launches": {}}
-    render_name = "render_static_test_view" if static else "render_test_view"
-    render = getattr(evaluation, render_name)
+    render = evaluation.render_test_view  # the static method's eval renders through it too
 
     def counted_render(*a, **k):
         before = launch_counts()
@@ -543,13 +556,13 @@ def counted_run(argv: list, static: bool = False) -> dict:
             info["eval_launches"][key] = info["eval_launches"].get(key, 0) + v - before[key]
         return out
 
-    setattr(evaluation, render_name, counted_render)
+    evaluation.render_test_view = counted_render
     try:
         reset_launch_counts()
         out = (run_nerf if static else run_composite).main(argv)
         total = launch_counts()
     finally:
-        setattr(evaluation, render_name, render)
+        evaluation.render_test_view = render
     with open(os.path.join(out["log_dir"], "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
     info.update(run=out, launches=total, train=[r for r in records if "train_loss" in r],
@@ -2014,7 +2027,8 @@ def static_phase(workdir: str, fourier: bool = False) -> dict:
     one-phase 128^3 dataset, ``STATIC_STEPS`` steps, an eval every
     ``STATIC_EVERY``), launch counts set to 0 just before and read just
     after: the one-field K1 and K2 once a step, no composite launch and no
-    K3. Then the step-0 eval (the seed's initial field, as the trainer's
+    K3; each eval view one one-field K1 on rays and one ``eval_static`` a
+    4096-ray tile, no torch composite. Then the step-0 eval (the seed's initial field, as the trainer's
     eval scores it) and the entries against their plain versions at the
     trained state. With ``fourier`` (phase 4f): ``configs/3d.txt
     --static_pos_enc fourier`` on the same dataset, ``FOURIER_STATIC_STEPS``
@@ -2048,6 +2062,16 @@ def static_phase(workdir: str, fourier: bool = False) -> dict:
                              f"other launch: {tl}")
     if [r["step"] for r in res["evals"]] != list(range(every, n_total, every)):
         raise AssertionError(f"static: evals at {[r['step'] for r in res['evals']]}")
+    # each eval view one one-field K1 on rays and one Beer-Lambert launch a
+    # 4096-ray tile, no torch composite and no two-field launch
+    el, view_rays = res["eval_launches"], int(out["setup"]["test_view"]["origins"].shape[0])
+    n_tiles = len(res["evals"]) * -(-view_rays // 4096)
+    if (el.get("fused_static_field_fwd.rays") != n_tiles
+            or el.get("fused_static_field_fwd") != n_tiles
+            or el.get("eval_static.kernel") != n_tiles or el.get("eval_composite.torch")
+            or el.get("eval_composite.kernel") or el.get("fused_field_fwd")):
+        raise AssertionError(f"static: expected {n_tiles} one-field K1 and eval_static "
+                             f"launches in the evals and no other: {el}")
 
     setup, state = out["setup"], out["state"]
     cfg, view = setup["cfg"], setup["test_view"]

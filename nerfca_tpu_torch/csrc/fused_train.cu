@@ -41,7 +41,10 @@
 // composite, the static image and the dynamic image), with render.py's
 // order of products, each sum a fixed-order warp reduction in exact f32.
 // It reads the two raw densities and writes the two scaled sigmas, 16 B a
-// sample, where the torch renders made ~10 passes over the view.
+// sample, where the torch renders made ~10 passes over the view. Its
+// one-field sibling (static_composite_kernel) renders the static method's
+// view after the one-field K1: render_transmission's UNSCALED sigma and
+// its image, 8 B a sample.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -361,9 +364,71 @@ __global__ void __launch_bounds__(CW_WARPS * 32) composite_kernel(CompositeArgs 
   }
 }
 
+// One warp per ray, as composite_kernel, over one field (the static
+// method's): sigma = act(raw), UNSCALED, and pix = i0 - sum (act(raw) *
+// dist) * 1e-2, as render_transmission returns them (the last sample's
+// dist 1e-10); the same fixed order of additions as composite_kernel's.
+struct StaticCompositeArgs {
+  const float* raw;    // [R * S] raw densities (the one-field K1's output)
+  const float* z;      // the shared [S] depths, or per-ray rows [R, S]
+  float* sigma;        // [R * S] unscaled sigma
+  float* dists;        // the [S] deltas (written by ray 0), per-ray rows, or null
+  float* pix;          // [R]
+  float i0;            // the initial intensity
+  int n_rays, n_samples;
+  int z_stride;        // 0 shared depths, S per-ray rows
+  int activation;      // 0 softplus, 1 sigmoid, 2 clamp
+};
+
+__global__ void __launch_bounds__(CW_WARPS * 32) static_composite_kernel(StaticCompositeArgs a) {
+  const int lane = threadIdx.x & 31;
+  const long ray = (long)blockIdx.x * CW_WARPS + (threadIdx.x >> 5);
+  if (ray >= a.n_rays) return;
+  const int S = a.n_samples;
+  const long row = ray * S;
+  const float* z = a.z + ray * a.z_stride;
+  float* dists = (a.dists != nullptr && (a.z_stride != 0 || ray == 0))
+                     ? a.dists + ray * a.z_stride : nullptr;
+  float acc = 0.f;
+  for (int j0 = lane; j0 < S; j0 += 32 * CW_UNROLL) {
+    float rs[CW_UNROLL], dz[CW_UNROLL];
+#pragma unroll
+    for (int u = 0; u < CW_UNROLL; ++u) {
+      const int j = j0 + 32 * u;
+      if (j < S) {
+        rs[u] = a.raw[row + j];
+        dz[u] = j < S - 1 ? z[j + 1] - z[j] : 1e-10f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < CW_UNROLL; ++u) {
+      const int j = j0 + 32 * u;
+      if (j < S) {
+        float unused;
+        const float act = activation(rs[u], a.activation, &unused);
+        a.sigma[row + j] = act;
+        if (dists != nullptr) dists[j] = dz[u];
+        acc += (act * dz[u]) * 1e-2f;
+      }
+    }
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) a.pix[ray] = a.i0 - acc;
+}
+
 extern "C" {
 
 int eval_composite_args_bytes(int) { return (int)sizeof(CompositeArgs); }
+
+int eval_static_args_bytes(int) { return (int)sizeof(StaticCompositeArgs); }
+
+// The static method's render of one tile of rays: see static_composite_kernel.
+int eval_static(const StaticCompositeArgs* a, void* stream) {
+  if (a->n_samples < 1 || a->n_rays < 1) return (int)cudaErrorInvalidValue;
+  const int blocks = (a->n_rays + CW_WARPS - 1) / CW_WARPS;
+  static_composite_kernel<<<blocks, CW_WARPS * 32, 0, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
 
 // The eval's composite of one tile of rays: see composite_kernel.
 int eval_composite(const CompositeArgs* a, void* stream) {

@@ -28,7 +28,10 @@ Entries, each with its plain twin:
   - :func:`fused_static_field`, the static method's field: the point form
     with no temporal field, which launches the one-field instantiation of
     K1 and K2 (``NF == 1`` in the source: half the CTAs of a composite
-    launch, the gradient the static block alone).
+    launch, the gradient the static block alone);
+  - :class:`StaticFieldRays`, the static method's field in the ray form
+    for a caller that takes no gradient (the eval renderer): the field
+    packed once, then one launch of the one-field K1 a batch of rays.
 
 bf16 compute (``compute_dtype="bfloat16"``, ``nerfca_tpu/ops/pallas/
 fused_field.py:709,730-738,793``): the kernels' BF16 instantiations round
@@ -57,7 +60,9 @@ launch the kernels' FOURIER instantiation when a field is fourier.
 Launch counts: ``LAUNCHES["fused_field_fwd"]`` / ``["fused_field_bwd"]``
 (two fields) and ``["fused_static_field_fwd"]`` /
 ``["fused_static_field_bwd"]`` (one field) grow by one at each launch of
-the f32 instantiations and nowhere else; the same names with ``_bf16``
+the f32 instantiations and nowhere else, and ``["fused_static_field_fwd.rays"]``
+at each one-field K1 launch of :class:`StaticFieldRays`, whatever its
+precision; the same names with ``_bf16``
 count the bf16 ones, and ``["fused_field_bwd_res_bf16"]`` K2 over bf16
 residuals. K1's route, whatever its fields: ``["fused_field_fwd.wgmma"]``
 counts the f32 launches (``fwd_kernel_wgmma``), ``["fused_field_fwd.mma_sync"]``
@@ -100,7 +105,8 @@ LAUNCHES = {"fused_field_fwd": 0, "fused_field_bwd": 0, "fused_static_field_fwd"
             "fused_static_field_bwd": 0, "fused_field_fwd_bf16": 0, "fused_field_bwd_bf16": 0,
             "fused_static_field_fwd_bf16": 0, "fused_static_field_bwd_bf16": 0,
             "fused_field_bwd_res_bf16": 0, "fused_field_fwd.wgmma": 0,
-            "fused_field_fwd.mma_sync": 0, "fused_field_fwd.wgmma.shared_enc": 0}
+            "fused_field_fwd.mma_sync": 0, "fused_field_fwd.wgmma.shared_enc": 0,
+            "fused_static_field_fwd.rays": 0}
 
 
 def reset_launch_counts() -> None:
@@ -168,6 +174,14 @@ def plain_composite_fields(params_s, params_t, points, point_phases, cfg_s: Fiel
 def plain_static_field(params, points, cfg: FieldConfig, window, compute_dtype="float32"):
     """The static field in torch: ``points [R, S, 3] -> [R, S, 1]``."""
     return apply_static_field(params, points, cfg, window=window, compute_dtype=compute_dtype)
+
+
+def plain_static_field_rays(params, origins, directions, z, cfg: FieldConfig, window,
+                            compute_dtype="float32"):
+    """The static field in torch on the points of rays with shared ``[S]``
+    or per-ray ``[R, S]`` depths: ``[R, S, 1]``."""
+    return plain_static_field(params, _points(origins, directions, z), cfg, window,
+                              compute_dtype)
 
 
 # The kernels' twins: in f32 the plain fields above; in bf16 (or over bf16
@@ -789,3 +803,44 @@ def fused_static_field(params, points, cfg: FieldConfig, window, compute_dtype="
                                           enc_table(params, cfg, window), None, latents,
                                           *_leaves(params))
     return out_s.view(r, s, 1)
+
+
+class StaticFieldRays:
+    """The static method's field in the ray form on the card, for a caller
+    that takes no gradient (the eval renderer): the field's weights packed
+    and its buffers allocated once, on the weights' device, for up to
+    ``n_rays`` rays a launch. Each call is one launch of the one-field K1
+    (``pack_t`` None: ``NF == 1``, the static method's training forward;
+    the bf16 instantiation under a bf16 ``compute_dtype``) from the rays
+    and the depths, shared ``[S]`` or per-ray ``[R, S]``, so no point is
+    ever materialized. The densities are bitwise those of
+    :func:`fused_static_field` on the same points."""
+
+    def __init__(self, params, cfg: FieldConfig, window, compute_dtype, n_rays: int):
+        device = _leaves(params)[0].device
+        _check_field("static", params, cfg, window, device)
+        self.pack = _Pack(cfg, _leaves(params), enc_table(params, cfg, window), device,
+                          is_bf16(compute_dtype))
+        # the encoding reads a phase per ray even for a field without
+        # latents: phase 0 of a one-row table that is never read
+        self.phases = torch.zeros(n_rays, dtype=torch.int32, device=device)
+        self.latents = torch.zeros(1, MAX_LAT, device=device)
+
+    def __call__(self, origins, directions, z) -> torch.Tensor:
+        """The raw densities ``[R, S]`` of the rays ``origins/directions
+        [R, 3]`` at the depths ``z``."""
+        dev, r, s = self.phases.device, origins.shape[0], z.shape[-1]
+        for name, t in (("origins", origins), ("directions", directions), ("z", z)):
+            if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+                raise ValueError(f"{name}: expected a contiguous float32 tensor on {dev}")
+        if origins.shape != (r, 3) or directions.shape != (r, 3):
+            raise ValueError("origins and directions must both be [R, 3]")
+        if not (z.dim() == 1 or (z.dim() == 2 and z.shape[0] == r)):
+            raise ValueError("z must be the shared [S] depths or per-ray [R, S]")
+        if r > self.phases.shape[0] or r * s >= 2**31:
+            raise ValueError(f"{r} rays x {s} samples outside the launch's "
+                             f"{self.phases.shape[0]} rays")
+        LAUNCHES["fused_static_field_fwd.rays"] += 1
+        out, _ = fused_field_fwd(self.pack, None, origins, directions, z, self.phases[:r],
+                                 self.latents)
+        return out.view(r, s)

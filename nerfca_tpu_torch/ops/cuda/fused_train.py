@@ -49,7 +49,11 @@ a test view after its K1, it forms the scaled sigmas and the three
 Beer-Lambert images of ``ops/render.py`` in one pass over the raw
 densities (no autograd; ``train/evaluation.py`` takes it on the card).
 ``LAUNCHES["eval_composite.kernel"]`` counts its launches,
-``["eval_composite.torch"]`` the views whose composite ran in torch.
+``["eval_composite.torch"]`` the views whose composite ran in torch. Its
+one-field sibling, :func:`eval_static` (``static_composite_kernel``),
+renders the static method's view after the one-field K1, the UNSCALED
+sigma and the image of ``render_transmission``;
+``LAUNCHES["eval_static.kernel"]`` counts its launches.
 """
 
 from __future__ import annotations
@@ -82,7 +86,8 @@ MAX_TERMS = (T_SMAX, T_DMAX)
 ACTIVATIONS = ("softplus", "sigmoid", "clamp")
 MAX_SAMPLES = 1024  # the loss kernel keeps a ray's raw densities in shared memory
 
-LAUNCHES = {"fused_train_loss": 0, "eval_composite.kernel": 0, "eval_composite.torch": 0}
+LAUNCHES = {"fused_train_loss": 0, "eval_composite.kernel": 0, "eval_composite.torch": 0,
+            "eval_static.kernel": 0}
 
 
 def reset_launch_counts() -> None:
@@ -351,6 +356,13 @@ class CompositeArgs(ctypes.Structure):
                 ("activation", ctypes.c_int)]
 
 
+class StaticCompositeArgs(ctypes.Structure):
+    _fields_ = [("raw", ctypes.c_void_p), ("z", ctypes.c_void_p), ("sigma", ctypes.c_void_p),
+                ("dists", ctypes.c_void_p), ("pix", ctypes.c_void_p), ("i0", ctypes.c_float),
+                ("n_rays", ctypes.c_int), ("n_samples", ctypes.c_int),
+                ("z_stride", ctypes.c_int), ("activation", ctypes.c_int)]
+
+
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -374,6 +386,12 @@ def _lib() -> ctypes.CDLL:
         lib.eval_composite_args_bytes.restype = ctypes.c_int
         if lib.eval_composite_args_bytes(0) != ctypes.sizeof(CompositeArgs):
             raise RuntimeError("CompositeArgs differs between the wrapper and the kernel")
+        lib.eval_static.argtypes = [ptr(StaticCompositeArgs), ctypes.c_void_p]
+        lib.eval_static.restype = ctypes.c_int
+        lib.eval_static_args_bytes.argtypes = [ctypes.c_int]
+        lib.eval_static_args_bytes.restype = ctypes.c_int
+        if lib.eval_static_args_bytes(0) != ctypes.sizeof(StaticCompositeArgs):
+            raise RuntimeError("StaticCompositeArgs differs between the wrapper and the kernel")
         _LIB = lib
     return _LIB
 
@@ -439,34 +457,80 @@ def eval_composite(raw_s, raw_t, z, initial_intensity: float, activation: str, o
     the sigmas and dists bit for bit, each image's per-ray sum in another
     order of additions."""
     s = z.shape[-1]
-    r = raw_s.numel() // s
+    r = _check_tile({"raw_s": raw_s, "raw_t": raw_t, "gate": gate}, z, out, start, "pix")
     rows = slice(start, start + r)
     per_ray = z.dim() == 2
-    for name, t in (("raw_s", raw_s), ("raw_t", raw_t), ("gate", gate), ("z", z)):
-        if t is not None and (t.device != z.device or t.dtype != torch.float32
-                              or not t.is_contiguous()):
-            raise ValueError(f"{name}: expected a contiguous float32 tensor on {z.device}")
-    if any(t is not None and t.numel() != r * s for t in (raw_s, raw_t, gate)):
-        raise ValueError(f"raw_s, raw_t and gate must each hold {r} x {s} values")
-    if out["dists"].shape != z.shape or start + r > out["pix"].shape[0]:
-        raise ValueError(f"rays [{start}, {start + r}) at depths {tuple(z.shape)} outside the "
-                         f"view's buffers")
 
     def ptr(name):
         t = out.get(name)
         return None if t is None else t[rows].data_ptr()
 
-    if per_ray:
-        dists = ptr("dists")
-    else:  # the shared [S] deltas, written once, by the view's first tile
-        dists = out["dists"].data_ptr() if start == 0 else None
     args = CompositeArgs(
         raw_s.data_ptr(), raw_t.data_ptr(), None if gate is None else gate.data_ptr(),
         z[rows].data_ptr() if per_ray else z.data_ptr(), ptr("static_sigma"), ptr("temp_sigma"),
-        dists, ptr("pix"), ptr("pix_static"), ptr("pix_temp"), float(initial_intensity), r, s,
-        s if per_ray else 0, ACTIVATIONS.index(activation.lower()))
+        _dists_ptr(out, z, rows), ptr("pix"), ptr("pix_static"), ptr("pix_temp"),
+        float(initial_intensity), r, s, s if per_ray else 0, ACTIVATIONS.index(activation.lower()))
     LAUNCHES["eval_composite.kernel"] += 1
     ff._check(_lib().eval_composite(ctypes.byref(args), ff._stream()), "eval_composite")
+
+
+def eval_static_buffers(n_rays: int, z) -> dict:
+    """The outputs of a static view's :func:`eval_static` launches,
+    allocated once for the view: ``pix_static [N]``, the UNSCALED
+    ``static_sigma [N, S]`` and ``dists`` shaped like the depths ``z``."""
+    if z.dim() == 2 and z.shape[0] != n_rays:
+        raise ValueError(f"per-ray depths for {z.shape[0]} rays, not {n_rays}")
+    return {"pix_static": torch.empty(n_rays, device=z.device),
+            "static_sigma": torch.empty(n_rays, z.shape[-1], device=z.device),
+            "dists": torch.empty_like(z)}
+
+
+def eval_static(raw, z, initial_intensity: float, activation: str, out: dict,
+                start: int) -> None:
+    """Launch the static method's render (``static_composite_kernel``) on
+    one tile of a view: ``raw`` is the one-field K1's ``[r, S]`` raw
+    densities of rays ``[start, start + r)``, ``z`` the view's depths (the
+    shared ``[S]`` or per-ray ``[N, S]``). Writes those rays' rows of the
+    buffers ``out`` (:func:`eval_static_buffers`): what
+    ``render_transmission`` returns, the sigma and dists bit for bit, the
+    image's per-ray sum in another order of additions."""
+    s = z.shape[-1]
+    r = _check_tile({"raw": raw}, z, out, start, "pix_static")
+    rows = slice(start, start + r)
+    per_ray = z.dim() == 2
+    args = StaticCompositeArgs(
+        raw.data_ptr(), z[rows].data_ptr() if per_ray else z.data_ptr(),
+        out["static_sigma"][rows].data_ptr(), _dists_ptr(out, z, rows),
+        out["pix_static"][rows].data_ptr(), float(initial_intensity), r, s,
+        s if per_ray else 0, ACTIVATIONS.index(activation.lower()))
+    LAUNCHES["eval_static.kernel"] += 1
+    ff._check(_lib().eval_static(ctypes.byref(args), ff._stream()), "eval_static")
+
+
+def _check_tile(raws: dict, z, out: dict, start: int, pix: str) -> int:
+    """The checks of one tile's inputs against the view's buffers, made
+    before a launch hands them to the card as pointers; the tile's ray
+    count. ``raws``: the ``[r, S]`` inputs by name (None: absent)."""
+    s = z.shape[-1]
+    r = next(iter(raws.values())).numel() // s
+    for name, t in (*raws.items(), ("z", z)):
+        if t is not None and (t.device != z.device or t.dtype != torch.float32
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name}: expected a contiguous float32 tensor on {z.device}")
+    if any(t is not None and t.numel() != r * s for t in raws.values()):
+        raise ValueError(f"{', '.join(raws)} must each hold {r} x {s} values")
+    if out["dists"].shape != z.shape or start + r > out[pix].shape[0]:
+        raise ValueError(f"rays [{start}, {start + r}) at depths {tuple(z.shape)} outside the "
+                         f"view's buffers")
+    return r
+
+
+def _dists_ptr(out: dict, z, rows: slice):
+    """Where a tile writes its dists: its rows of per-ray deltas; the
+    shared ``[S]`` deltas once, by the view's first tile."""
+    if z.dim() == 2:
+        return out["dists"][rows].data_ptr()
+    return out["dists"].data_ptr() if rows.start == 0 else None
 
 
 def _check_batch(origins, z, pixels, weights, initial_intensities):

@@ -7,14 +7,16 @@ decomposed static-only / dynamic-only intensity maps are formed, plus the
 reference's test losses and pure image PSNR / SSIM. With the fine pass the
 fine pair is rendered the same way on its own fixed depth grid. The static
 method's view (:func:`render_static_test_view`) is the single-field render
-of the static field in plain torch, as the JAX package renders it.
+of the static field through the same renderer and tiles.
 
 On the card, with both fields of a pair on K1, each tile's composite is
 one launch of the Beer-Lambert kernel right after the tile's K1
 (``ops/cuda/fused_train.py::eval_composite``), into buffers allocated once
-for the view; everywhere else the tiles are joined and composited by
-``ops/render.py``. Both give the same sigmas and dists bit for bit and the
-same images up to the order of each per-ray sum.
+for the view; the static method's field takes the one-field K1
+(``ops/cuda/fused_field.py::StaticFieldRays``) and the kernel's one-field
+sibling (``eval_static``) the same way. Everywhere else the tiles are
+joined and rendered by ``ops/render.py``. Both give the same sigmas and
+dists bit for bit and the same images up to the order of each per-ray sum.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ from nerfca_tpu_torch.ops.hull import hull_gate_rays
 from nerfca_tpu_torch.ops.losses import weighted_mse
 from nerfca_tpu_torch.ops.render import render_transmission, render_transmission_composite
 from nerfca_tpu_torch.ops.cuda import fused_train as ft
-from nerfca_tpu_torch.ops.cuda.fused_field import kernel_supported, plain_static_field
+from nerfca_tpu_torch.ops.cuda.fused_field import (
+    StaticFieldRays, kernel_supported, plain_static_field_rays,
+)
 from nerfca_tpu_torch.train.step import (
     CompositeHParams, StaticHParams, evaluate_fields, field_window, field_windows,
     loss_weights, regularized_loss, regularizer_losses,
@@ -36,67 +40,108 @@ from nerfca_tpu_torch.train.step import (
 from nerfca_tpu_torch.utils.profiling import span
 
 
-def _tiles(params, origins, directions, phases, depth_values, windows, cfgs,
-           hp: CompositeHParams, tile: int, hull, suffix: str):
+def _fields(cfgs: dict, suffix: str) -> tuple:
+    """The fields of the pair ``suffix`` names: the static and the temporal
+    one, or, for the static method, the static field alone."""
+    return ("static", "temp") if "temp" + suffix in cfgs else ("static",)
+
+
+def _tile_fields(params, step: int, windows, cfgs, hp, z, tile: int, suffix: str,
+                 on_kernel: bool):
+    """A tile's raw densities ``[r, S]``, one for each field of the pair
+    ``suffix`` names, from its rays and phases: both fields through
+    :func:`evaluate_fields` (``windows``: :func:`field_windows`); the static
+    method's field through the one-field K1 on the card (``on_kernel``:
+    packed with its window once for the view's tiles), else the plain field
+    under ``hp.dtype``, as the JAX package renders it."""
+    if "temp" + suffix in cfgs:
+        def both(o, d, ph):
+            s_raw, t_raw = evaluate_fields(params, o, d, z, ph, windows, cfgs, hp, suffix)
+            return s_raw[..., 0], t_raw[..., 0]
+        return both
+    p, cfg = params["static" + suffix], cfgs["static" + suffix]
+    window = field_window(cfg, step, z.device)
+    if on_kernel:
+        k1 = StaticFieldRays(p, cfg, window, hp.compute_dtype, tile)
+        return lambda o, d, ph: (k1(o, d, z),)
+    return lambda o, d, ph: (plain_static_field_rays(p, o, d, z, cfg, window, hp.dtype)[..., 0],)
+
+
+def _tiles(params, origins, directions, phases, depth_values, step: int, windows, cfgs, hp,
+           tile: int, hull, suffix: str, on_kernel: bool):
     """The pair ``suffix`` names on every ray, ``tile`` rays at a time: per
-    tile its first ray, the raw densities ``[tile, S]`` of each field and
-    the hull gate (None without a hull)."""
+    tile its first ray, the raw densities ``[tile, S]`` of each field
+    (:func:`_tile_fields`) and the hull gate (None without a hull)."""
+    fields = _tile_fields(params, step, windows, cfgs, hp, depth_values, tile, suffix,
+                          on_kernel)
     for start in range(0, origins.shape[0], tile):
         with span("nerfca.eval.tile"):
-            o, d = origins[start:start + tile], directions[start:start + tile]
-            s_raw, t_raw = evaluate_fields(params, o, d, depth_values,
-                                           phases[start:start + tile], windows, cfgs, hp,
-                                           suffix)
+            rows = slice(start, start + tile)
+            o, d = origins[rows], directions[rows]
+            raws = fields(o, d, None if phases is None else phases[rows])
             gate = hull_gate_rays(hull, o, d, depth_values) if hull is not None else None
-        yield start, s_raw[..., 0], t_raw[..., 0], gate
+        yield start, raws, gate
 
 
-def composite_on_kernel(origins, cfgs: dict, hp: CompositeHParams, suffix: str = "") -> bool:
-    """Whether the pair ``suffix`` names takes the eval's Beer-Lambert kernel:
-    CUDA tensors with both fields on K1 (:func:`evaluate_fields`'s
+def composite_on_kernel(origins, cfgs: dict, hp, suffix: str = "") -> bool:
+    """Whether the pair ``suffix`` names takes the eval's Beer-Lambert kernel
+    (the static method's field alone: its one-field sibling): CUDA tensors
+    with every field of the pair on K1 (:func:`evaluate_fields`'s
     condition)."""
     return (origins.device.type == "cuda" and hp.use_pallas
-            and kernel_supported(cfgs["static" + suffix])
-            and kernel_supported(cfgs["temp" + suffix]))
+            and all(kernel_supported(cfgs[f + suffix]) for f in _fields(cfgs, suffix)))
 
 
-def _render_pair(params, origins, directions, phases, depth_values, windows, cfgs,
-                 hp: CompositeHParams, tile: int, hull, i0: float, suffix: str, images: bool,
+def _render_pair(params, origins, directions, phases, depth_values, step: int, windows, cfgs,
+                 hp, tile: int, hull, i0: float, suffix: str, images: bool,
                  on_kernel: bool) -> dict:
     """The pair's composite and, with ``images``, its static and dynamic
-    images. ``on_kernel``: each tile's Beer-Lambert kernel right after its
-    K1, into buffers for the view; else the tiles joined, then the renders
-    of ``ops/render.py`` over the whole view."""
-    tiles = _tiles(params, origins, directions, phases, depth_values, windows, cfgs, hp, tile,
-                   hull, suffix)
+    images; the static method's pair (one field): its image ``pix_static``,
+    UNSCALED sigma and dists. ``on_kernel``: each tile's Beer-Lambert
+    kernel right after its K1, into buffers for the view; else the tiles
+    joined, then the renders of ``ops/render.py`` over the whole view."""
+    one = len(_fields(cfgs, suffix)) == 1
+    tiles = _tiles(params, origins, directions, phases, depth_values, step, windows, cfgs, hp,
+                   tile, hull, suffix, on_kernel)
+    act = hp.output_activation
+    if on_kernel and one:
+        out = None
+        for start, (raw,), _ in tiles:
+            with span("nerfca.eval.composite"):
+                if out is None:  # made once tile 0's K1 is queued
+                    out = ft.eval_static_buffers(origins.shape[0], depth_values)
+                ft.eval_static(raw, depth_values, i0, act, out, start)
+        return out
     if on_kernel:
         out = ft.eval_composite_buffers(origins.shape[0], depth_values, images)
-        for start, s_raw, t_raw, gate in tiles:
+        for start, (s_raw, t_raw), gate in tiles:
             with span("nerfca.eval.composite"):
-                ft.eval_composite(s_raw, t_raw, depth_values, i0, hp.output_activation, out,
-                                  start, gate)
+                ft.eval_composite(s_raw, t_raw, depth_values, i0, act, out, start, gate)
         return out
     parts = list(tiles)
     with span("nerfca.eval.composite"):
-        s_raw, t_raw = (torch.cat([p[k] for p in parts])[..., None] for k in (1, 2))
-        gate = torch.cat([p[3] for p in parts]) if hull is not None else None
+        raws = [torch.cat([p[1][k] for p in parts])[..., None] for k in range(len(parts[0][1]))]
+        gate = torch.cat([p[2] for p in parts]) if hull is not None else None
         del parts  # the tiles, released before the renders as the joins replace them
-        i0_rays = torch.full((s_raw.shape[0],), i0, device=origins.device)
+        i0_rays = torch.full((raws[0].shape[0],), i0, device=origins.device)
+        if one:
+            pix, sigma, dists = render_transmission(raws[0], i0_rays, depth_values, act)
+            return {"pix_static": pix, "static_sigma": sigma, "dists": dists}
+        s_raw, t_raw = raws
         pix, s_sig, t_sig, dists = render_transmission_composite(
-            s_raw, t_raw, i0_rays, depth_values, hp.output_activation, temp_gate=gate)
+            s_raw, t_raw, i0_rays, depth_values, act, temp_gate=gate)
         out = {"pix": pix}
         if images:
-            out["pix_static"] = render_transmission(s_raw, i0_rays, depth_values,
-                                                    hp.output_activation)[0]
-            out["pix_temp"] = render_transmission(t_raw, i0_rays, depth_values,
-                                                  hp.output_activation, gate=gate)[0]
+            out["pix_static"] = render_transmission(s_raw, i0_rays, depth_values, act)[0]
+            out["pix_temp"] = render_transmission(t_raw, i0_rays, depth_values, act,
+                                                  gate=gate)[0]
     out.update(static_sigma=s_sig, temp_sigma=t_sig, dists=dists)
     return out
 
 
 @torch.no_grad()
 def render_test_view(params, test_origins, test_directions, test_phases, depth_values,
-                     step: int, cfgs: dict, hp: CompositeHParams, initial_intensity: float,
+                     step: int, cfgs: dict, hp, initial_intensity: float,
                      tile: int = 4096, depth_values_fine=None, hull=None) -> dict:
     """Render one full test view; per-pixel composite and decomposed
     intensity maps plus the scaled sigmas and dists, the fields under
@@ -109,9 +154,18 @@ def render_test_view(params, test_origins, test_directions, test_phases, depth_v
     resampled hierarchical pass): ``pix_fine`` and the fine sigmas and
     dists. Each pair's composite takes the Beer-Lambert kernel where
     :func:`composite_on_kernel` holds; a view whose composite ran in torch
-    counts one ``fused_train.LAUNCHES["eval_composite.torch"]``."""
+    counts one ``fused_train.LAUNCHES["eval_composite.torch"]``.
+
+    The static method's view: ``cfgs`` ``{"static": cfg}`` with its
+    ``StaticHParams``, no phases (``test_phases`` None) and no hull; it
+    returns ``pix_static``, the single-field render of the static field,
+    with its UNSCALED sigma ``static_sigma`` and the ``dists``
+    (:func:`render_static_test_view`)."""
+    if hull is not None and "temp" not in cfgs:
+        raise ValueError("the motion hull gates the temporal field; the static method has none")
     with span("nerfca.eval.view"):
-        windows = field_windows(cfgs, step, test_origins.device)
+        # the static method's field takes its window in _tile_fields
+        windows = field_windows(cfgs, step, test_origins.device) if "temp" in cfgs else None
         pairs = [("", depth_values)]
         if depth_values_fine is not None and "static_fine" in params:
             pairs.append(("_fine", depth_values_fine))
@@ -119,15 +173,14 @@ def render_test_view(params, test_origins, test_directions, test_phases, depth_v
         for suffix, z in pairs:
             kernel = composite_on_kernel(test_origins, cfgs, hp, suffix)
             on_kernel = on_kernel and kernel
-            got = _render_pair(params, test_origins, test_directions, test_phases, z, windows,
-                               cfgs, hp, tile, hull, initial_intensity, suffix,
+            got = _render_pair(params, test_origins, test_directions, test_phases, z, step,
+                               windows, cfgs, hp, tile, hull, initial_intensity, suffix,
                                images=not suffix, on_kernel=kernel)
             out.update({k + suffix: v for k, v in got.items()})
         ft.LAUNCHES["eval_composite.torch"] += int(not on_kernel)
         return out
 
 
-@torch.no_grad()
 def render_static_test_view(params, test_origins, test_directions, depth_values, step: int,
                             cfg, hp: StaticHParams, initial_intensity: float,
                             tile: int = 4096) -> dict:
@@ -137,19 +190,13 @@ def render_static_test_view(params, test_origins, test_directions, depth_values,
     the dists. The JAX package renders it through its composite renderer
     beside a zero temporal field, on the plain path (its hyperparameters
     there leave ``use_pallas`` off), and scores ``pix_static``, which that
-    field does not enter; this renders the static field alone, plain, under
-    ``hp.compute_dtype`` (``nerfca_tpu/train/evaluation.py:261``)."""
-    window = field_window(cfg, step, test_origins.device)
-    parts = []
-    for start in range(0, test_origins.shape[0], tile):
-        o, d = test_origins[start:start + tile], test_directions[start:start + tile]
-        pts = o[:, None, :] + d[:, None, :] * depth_values[:, None]
-        parts.append(plain_static_field(params["static"], pts, cfg, window, hp.dtype)[..., 0])
-    raw = torch.cat(parts)
-    i0 = torch.full((raw.shape[0],), initial_intensity, device=test_origins.device)
-    pix, sigma, dists = render_transmission(raw[..., None], i0, depth_values,
-                                            hp.output_activation)
-    return {"pix_static": pix, "static_sigma": sigma, "dists": dists}
+    field does not enter; this renders the static field alone through the
+    same renderer, :func:`render_test_view`: on the card with
+    ``use_pallas`` through the one-field K1 and its Beer-Lambert kernel,
+    elsewhere plain under ``hp.compute_dtype``
+    (``nerfca_tpu/train/evaluation.py:261``)."""
+    return render_test_view(params, test_origins, test_directions, None, depth_values, step,
+                            {"static": cfg}, hp, initial_intensity, tile=tile)
 
 
 def test_metrics(render: dict, test_img_flat: torch.Tensor, step: int, hp: CompositeHParams,

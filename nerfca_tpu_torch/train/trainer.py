@@ -563,10 +563,11 @@ def train_static(args=None, argv=None, max_steps: Optional[int] = None) -> dict:
     last_eval: dict = {}  # feeds best-by-metric checkpoint retention
 
     def eval_fn(state, step):
-        # in-loop test render (run_nerf.py:254-287)
-        render = evaluation.render_static_test_view(
-            state.params, test_view["origins"], test_view["directions"], test_depths, step,
-            cfg, hp, max_pixel_value)
+        # in-loop test render (run_nerf.py:254-287), through the eval's
+        # renderer with the static field alone
+        render = evaluation.render_test_view(
+            state.params, test_view["origins"], test_view["directions"], None, test_depths,
+            step, {"static": cfg}, hp, max_pixel_value)
         w, h = test_view["shape"]
         gt = test_view["image"].cpu().numpy()
         pred = render["pix_static"].cpu().numpy()

@@ -1459,3 +1459,232 @@ def test_eval_composite_on_the_cells_view(dev):
     gap = check_composite_view(dev)
     print(f"eval composite, the cell's view: images within {gap:.3e} of the largest "
           f"attenuation")
+
+
+# ---------------------------------------------------------------------------
+# The static method's view on the card: the one-field K1 in the ray form
+# (ops/cuda/fused_field.py::StaticFieldRays) and the Beer-Lambert kernel's
+# one-field sibling (ops/cuda/fused_train.py::eval_static). The densities
+# bitwise the point form's on the same points; the sigma and dists bitwise
+# ops/render.py's render_transmission, the image within COMPOSITE_REL of
+# the largest attenuation (only the order of each per-ray f32 sum differs,
+# as for the composite)
+
+
+def static_rays(dev, r, s, shared_z, compute_dtype="float32", open_bands=False, seed=0,
+                enc="free_windowed"):
+    """The static field's params, config, window and ``make``'s rays, and
+    the one-field K1 packed for them."""
+    args, _ = make(dev, r=r, s=s, shared_z=shared_z, open_bands=open_bands, seed=seed, enc=enc)
+    params, o, d, z, cfg, w = args[0], args[2], args[3], args[4], args[6], args[8]
+    return params, cfg, w, o, d, z, ff.StaticFieldRays(params, cfg, w, compute_dtype, r)
+
+
+def check_static_rays(dev, r, s, shared_z, compute_dtype="float32", enc="free_windowed"):
+    """The one-field K1 on rays against the point form on the same points
+    (one launch of the one-field K1 each, so the densities are bitwise
+    equal); in f32 within K1_ATOL of the plain field, in bf16 within the
+    bf16 gate of the twin; 1024 rays with every band open. Raises on a
+    disagreement."""
+    params, cfg, w, o, d, z, k1 = static_rays(dev, r, s, shared_z, compute_dtype,
+                                              open_bands=r == 1024, enc=enc)
+    before = dict(ff.LAUNCHES)
+    with torch.no_grad():
+        got = k1(o, d, z)
+        pts = ff._points(o, d, z).contiguous()
+        point = ff.fused_static_field(params, pts, cfg, w, compute_dtype)[..., 0]
+        plain = ff.plain_static_field_rays(params, o, d, z, cfg, w)[..., 0]
+    suffix = "_bf16" if compute_dtype == "bfloat16" else ""
+    assert ff.LAUNCHES["fused_static_field_fwd.rays"] == before["fused_static_field_fwd.rays"] + 1
+    assert (ff.LAUNCHES["fused_static_field_fwd" + suffix]
+            == before["fused_static_field_fwd" + suffix] + 2)
+    assert ff.LAUNCHES["fused_field_fwd" + suffix] == before["fused_field_fwd" + suffix]
+    assert got.shape == (r, s) and torch.equal(got, point)
+    if suffix:
+        with torch.no_grad():
+            twin = ff.twin_static_field(params, pts, cfg, w, compute_dtype)[..., 0]
+        assert_bf16_forward([got], [twin], [plain])
+    else:
+        assert float((got - plain).abs().max()) <= K1_ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("enc", ["free_windowed", "fourier"])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shared_z", [False, True])
+@pytest.mark.parametrize("r,s", [(37, 100), (3, 43), (1024, 500)])
+def test_static_field_rays_match_point_form(dev, r, s, shared_z, compute_dtype, enc):
+    # the fourier field is phase 4f's (configs/3d.txt --static_pos_enc
+    # fourier), whose eval takes this route
+    check_static_rays(dev, r, s, shared_z, compute_dtype, enc)
+
+
+@pytest.mark.gpu
+def test_static_field_rays_check_inputs(dev):
+    params, cfg, w, o, d, z, k1 = static_rays(dev, 4, 16, shared_z=True)
+    with pytest.raises(ValueError):
+        k1(o.double(), d, z)
+    with pytest.raises(ValueError):
+        k1(torch.cat([o, o]), torch.cat([d, d]), z)  # more rays than packed for
+    with pytest.raises(ValueError):
+        k1(o, d, z[None].expand(3, -1).contiguous())
+    with pytest.raises(NotImplementedError):
+        ff.StaticFieldRays(params, dataclasses.replace(cfg, num_filters=64), w, "float32", 4)
+
+
+def torch_static(raw, z, i0, act) -> dict:
+    """``ops/render.py``'s single-field render of ``[R, S]`` raw densities,
+    as the static method's view renders it in torch."""
+    from nerfca_tpu_torch.ops.render import render_transmission
+
+    i0v = torch.full((raw.shape[0],), i0, device=raw.device)
+    pix, sigma, dists = render_transmission(raw[..., None], i0v, z, act)
+    return {"pix_static": pix, "static_sigma": sigma, "dists": dists}
+
+
+def static_gap(got: dict, want: dict, i0: float) -> float:
+    """Asserts the sigma and dists bit for bit; returns the image's gap over
+    its largest attenuation."""
+    assert set(got) == set(want)
+    for k in ("static_sigma", "dists"):
+        assert got[k].shape == want[k].shape and torch.equal(got[k], want[k]), k
+    scale = float((i0 - want["pix_static"].double()).abs().max())
+    return float((got["pix_static"].double() - want["pix_static"].double()).abs().max()) / scale
+
+
+def check_eval_static(dev, act, per_ray) -> float:
+    """The one-field Beer-Lambert kernel against ``render_transmission``
+    on densities across every branch of the activations (softplus past
+    +-20, clamp on both bounds), 500 shared depths or 628 per-ray ones,
+    three tiles with a partial last one; the depths span 100, so that the
+    image attenuates by about one, as check_composite's. Raises on a
+    disagreement; returns the image's gap."""
+    from nerfca_tpu_torch.ops.cuda import fused_train as ft
+
+    r, s, tile, i0 = 777, 628 if per_ray else 500, 320, 2.16
+    g = torch.Generator(device=dev).manual_seed(s + 11)
+    raw = 8.0 * torch.randn(r, s, generator=g, device=dev)
+    z = torch.sort(100.0 * torch.rand(r if per_ray else 1, s, generator=g, device=dev),
+                   dim=1).values
+    z = z if per_ray else z[0].contiguous()
+    before = dict(ft.LAUNCHES)
+    got = ft.eval_static_buffers(r, z)
+    for start in range(0, r, tile):
+        ft.eval_static(raw[start:start + tile], z, i0, act, got, start)
+    assert ft.LAUNCHES["eval_static.kernel"] == before["eval_static.kernel"] + 3
+    assert ft.LAUNCHES["eval_composite.kernel"] == before["eval_composite.kernel"]
+    gap = static_gap(got, torch_static(raw, z, i0, act), i0)
+    assert gap <= COMPOSITE_REL, gap
+    return gap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["softplus", "sigmoid", "clamp"])
+@pytest.mark.parametrize("per_ray", [False, True])
+def test_eval_static_kernel_matches_torch(dev, act, per_ray):
+    gap = check_eval_static(dev, act, per_ray)
+    print(f"eval static, {act} per_ray={per_ray}: image within {gap:.3e}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["kernel", "bf16", "plain"])
+def test_static_view_routes_its_render(dev, case):
+    # render_test_view with the static field alone: with use_pallas each
+    # tile is one one-field K1 and one eval_static launch (bf16: K1's bf16
+    # instantiation); without, the plain field and render_transmission over
+    # the joined tiles, counted once as a torch composite
+    from nerfca_tpu_torch.ops.cuda import fused_train as ft
+    from nerfca_tpu_torch.train.evaluation import render_static_test_view, render_test_view
+    from nerfca_tpu_torch.train.step import StaticHParams
+
+    cd = "bfloat16" if case == "bf16" else "float32"
+    params, cfg, w, o, d, z, k1 = static_rays(dev, 600, 64, shared_z=True, compute_dtype=cd)
+    hp = StaticHParams(use_pallas=case != "plain", depth_samples_coarse=64, compute_dtype=cd)
+    step, tile, i0 = 70, 256, 2.16
+    ft.reset_launch_counts()
+    ff.reset_launch_counts()
+    got = render_test_view({"static": params}, o, d, None, z, step, {"static": cfg}, hp, i0,
+                           tile=tile)
+    kernel = case != "plain"
+    assert ff.LAUNCHES["fused_static_field_fwd.rays"] == 3 * kernel
+    assert ft.LAUNCHES["eval_static.kernel"] == 3 * kernel
+    assert ft.LAUNCHES["eval_composite.torch"] == 1 - kernel
+    assert ft.LAUNCHES["eval_composite.kernel"] == ff.LAUNCHES["fused_field_fwd"] == 0
+    with torch.no_grad():  # tile by tile, as the view runs them
+        raw = torch.cat([k1(o[i:i + tile], d[i:i + tile], z) if kernel else
+                         ff.plain_static_field_rays(params, o[i:i + tile], d[i:i + tile], z,
+                                                    cfg, w)[..., 0]
+                         for i in range(0, 600, tile)])
+    gap = static_gap(got, torch_static(raw, z, i0, hp.output_activation), i0)
+    print(f"eval static, view ({case}): image within {gap:.3e}")
+    assert gap <= COMPOSITE_REL
+    again = render_static_test_view({"static": params}, o, d, z, step, cfg, hp, i0, tile=tile)
+    for k in got:
+        assert torch.equal(got[k], again[k]), k
+
+
+def check_static_view(dev) -> float:
+    """static3d-k1-render's view (portbench/): 40000 rays x 500 samples in
+    ten 4096-ray tiles: ten one-field K1 launches, ten eval_static launches,
+    no torch composite; the image against render_transmission of the same
+    raw densities. Raises on a disagreement; returns the image's gap."""
+    from nerfca_tpu_torch.ops.cuda import fused_train as ft
+    from nerfca_tpu_torch.train.evaluation import render_test_view
+    from nerfca_tpu_torch.train.step import field_window
+    from portbench import harness
+    from portbench.mixes import render
+
+    bench = harness.load_json(harness.ROOT / "BENCHMARK.json")
+    _, cfg, traffic, _ = harness.cell_files(bench, "static3d-k1-render")
+    su = render.setup(cfg, traffic, 3_000_000_029, dev)
+    view = su["views"][int(su["order"][0])]
+    o, d, z = view["origins"], view["directions"], su["z"]
+    before = {**ff.LAUNCHES, **ft.LAUNCHES}
+    got = render_test_view(su["params"], o, d, None, z, su["step"], su["fields"], su["hp"],
+                           su["i0"], tile=su["tile"])
+    made = {k: v - before[k] for k, v in {**ff.LAUNCHES, **ft.LAUNCHES}.items()}
+    assert made["fused_static_field_fwd.rays"] == 10, made
+    assert made["fused_static_field_fwd"] == 10, made
+    assert made["eval_static.kernel"] == 10, made
+    assert made["eval_composite.torch"] == made["eval_composite.kernel"] == 0, made
+    cfg_s = su["fields"]["static"]
+    k1 = ff.StaticFieldRays(su["params"]["static"], cfg_s, field_window(cfg_s, su["step"], dev),
+                            "float32", su["tile"])
+    with torch.no_grad():
+        raw = torch.cat([k1(o[i:i + su["tile"]], d[i:i + su["tile"]], z)
+                         for i in range(0, o.shape[0], su["tile"])])
+    gap = static_gap(got, torch_static(raw, z, su["i0"], su["hp"].output_activation), su["i0"])
+    assert gap <= COMPOSITE_REL, gap
+    return gap
+
+
+@pytest.mark.gpu
+def test_static_view_on_the_cells_view(dev):
+    gap = check_static_view(dev)
+    print(f"eval static, the cell's view: image within {gap:.3e} of the largest attenuation")
+
+
+@pytest.mark.gpu
+def test_static_view_repacks_updated_weights(dev):
+    # each view packs the one-field K1 from the weights as they are then
+    # (train/evaluation.py::_tile_fields): an in-place update of the
+    # weights, as Adam's, shows in the next view, as other tensors do
+    from nerfca_tpu_torch.train.evaluation import render_test_view
+    from nerfca_tpu_torch.train.step import StaticHParams
+
+    params, cfg, _, o, d, z, _ = static_rays(dev, 600, 64, shared_z=True)
+    hp = StaticHParams(use_pallas=True, depth_samples_coarse=64)
+
+    def render(p):
+        return render_test_view({"static": p}, o, d, None, z, 70, {"static": cfg}, hp, 2.16,
+                                tile=256)["pix_static"]
+
+    first = render(params)
+    assert torch.equal(first, render(params))
+    with torch.no_grad():
+        params["out"]["b"].add_(1.0)
+    updated = render(params)
+    fresh = render({"early": [{k: t.detach().clone() for k, t in layer.items()}
+                              for layer in params["early"]],
+                    "out": {k: t.detach().clone() for k, t in params["out"].items()}})
+    assert not torch.equal(first, updated) and torch.equal(updated, fresh)
