@@ -53,7 +53,8 @@ numbers from ``portbench/``. This script times nothing. It
    c. the clean-protocol reconstruction, ``configs/synth-4view-best.txt``
       (SYNTH-FOVHC at 96^3, 4 views, the motion hull, K3, ray jitter,
       selection view 0,0, ``best_metric separated_psnr``) for 1000 steps:
-      finite steps with K3 on each, a non-empty hull, K3 and K1 against
+      finite steps with K3 on each, the in-loop evals' first view captured
+      as a CUDA graph and the later ones replayed, a non-empty hull, K3 and K1 against
       their plain versions at the trained state, checkpoints 500, 1000 and
       1001 with checkpoint-best at the highest selection metric; a resume
       from checkpoint-500 whose checkpoint-1000 equals the first run's
@@ -90,14 +91,16 @@ numbers from ``portbench/``. This script times nothing. It
    d. the static 3-D method through ``run_nerf.main`` on ``configs/3d.txt``
       (its own one-phase 128^3 dataset, ``STATIC_STEPS`` steps): the
       one-field K1 and K2 once a step and nothing else, each eval view one
-      one-field K1 on rays and one ``eval_static`` a tile; the train loss and
+      one-field K1 on rays and one ``eval_static`` a tile, the first eval
+      captured as a CUDA graph and the later ones replayed; the train loss and
       ``test_image_psnr`` at steps 0, 100, 200 beside the JAX record
       (``JAX_STATIC``), gated (``GATE_STATIC_LOSS0_REL``,
       ``GATE_STATIC_PSNR_DB``); the entries against their plain versions at
       the trained state;
    f. ``configs/3d.txt --static_pos_enc fourier`` through ``run_nerf.main``
-      on phase d's dataset, ``FOURIER_STATIC_STEPS`` steps, under phase d's
-      gates against its own JAX record (``JAX_STATIC_FOURIER``);
+      on phase d's dataset, ``FOURIER_STATIC_STEPS`` steps (evals at 50 and
+      100, the second a replay), under phase d's gates against its own JAX
+      record (``JAX_STATIC_FOURIER``);
    g. data parallelism at the flagship widths: world 1 over NCCL in this
       process (the sharded K3 entry equals K3 bitwise), then ``DP_WORLD``
       ranks over gloo on the one card in spawned processes (the sharded K3
@@ -177,8 +180,9 @@ JAX_STATIC = os.path.join(REPO, "artifacts", "port", "static_3d_jax-200.json")
 # phase 4f: the same method with --static_pos_enc fourier (configs/3d.txt's
 # sigma 2, basis 12), FOURIER_STATIC_STEPS steps, against its own JAX record
 # (scripts/static_3d_jax_record.py --static_pos_enc fourier --n_iters 100),
-# under phase 4d's gates
-FOURIER_STATIC_STEPS = 100
+# under phase 4d's gates; two evals, so that the second replays the
+# first's CUDA graph after 50 Adam steps
+FOURIER_STATIC_STEPS, FOURIER_STATIC_EVERY = 100, 50
 JAX_STATIC_FOURIER = os.path.join(REPO, "artifacts", "port", "static_3d_fourier_jax-100.json")
 # the fourier composite (phase 4e) and the fourier kernel checks: both
 # fields of configs/composite.txt on the fourier encoding at sigma 2
@@ -543,14 +547,15 @@ def k3_errors(tag: str, got, want) -> dict:
 def counted_run(argv: list, static: bool = False) -> dict:
     """``run_composite.main(argv)`` (``run_nerf.main`` with ``static``) with
     the launch counts set to 0 just before and read just after, the eval
-    renders' launches apart."""
+    renders' launches and views apart."""
     from nerfca_tpu_torch.train import evaluation, run_composite, run_nerf
 
-    info = {"eval_launches": {}}
+    info = {"eval_launches": {}, "eval_views": 0}
     render = evaluation.render_test_view  # the static method's eval renders through it too
 
     def counted_render(*a, **k):
         before = launch_counts()
+        info["eval_views"] += 1
         out = render(*a, **k)
         for key, v in launch_counts().items():
             info["eval_launches"][key] = info["eval_launches"].get(key, 0) + v - before[key]
@@ -569,6 +574,17 @@ def counted_run(argv: list, static: bool = False) -> dict:
                 evals=[r for r in records if "test_image_psnr" in r],
                 train_launches={k: total[k] - info["eval_launches"].get(k, 0) for k in total})
     return info
+
+
+def check_eval_graphs(what: str, res: dict) -> None:
+    """The in-loop evals of a ``counted_run`` as the eval renderer's CUDA
+    graphs run them: the first view captured, every later view (after
+    Adam's in-place steps and at a new window) replayed, none eager."""
+    el, n = res["eval_launches"], res["eval_views"]
+    got = tuple(el.get("eval_view." + k, 0) for k in ("capture", "replay", "eager"))
+    if n < 2 or got != (1, n - 1, 0):
+        raise AssertionError(f"{what}: {n} eval views ran as (capture, replay, eager) {got}, "
+                             f"expected (1, {n - 1}, 0)")
 
 
 def drive_main_path(workdir: str, extra_argv: list, n_steps: int,
@@ -1197,6 +1213,7 @@ def clean_protocol_phase(workdir: str, extra_argv: tuple = ()) -> dict:
         raise AssertionError(f"clean protocol: K3 did not run on every step: {tl}")
     if res["eval_launches"].get("fused_field_fwd", 0) < 1:
         raise AssertionError(f"clean protocol: K1 not launched in the evals: {res}")
+    check_eval_graphs("clean protocol", res)
     hull = out["setup"]["hull"]
     occupied = float((hull.grid > 0.5).float().mean()) if hull is not None else 0.0
     if not occupied > 0:
@@ -2028,11 +2045,13 @@ def static_phase(workdir: str, fourier: bool = False) -> dict:
     ``STATIC_EVERY``), launch counts set to 0 just before and read just
     after: the one-field K1 and K2 once a step, no composite launch and no
     K3; each eval view one one-field K1 on rays and one ``eval_static`` a
-    4096-ray tile, no torch composite. Then the step-0 eval (the seed's initial field, as the trainer's
+    4096-ray tile, no torch composite, the first eval view captured as a
+    CUDA graph and each later one replayed. Then the step-0 eval (the seed's initial field, as the trainer's
     eval scores it) and the entries against their plain versions at the
     trained state. With ``fourier`` (phase 4f): ``configs/3d.txt
     --static_pos_enc fourier`` on the same dataset, ``FOURIER_STATIC_STEPS``
-    steps, held against its own JAX record. Raises on any failure."""
+    steps, an eval every ``FOURIER_STATIC_EVERY``, held against its own JAX
+    record. Raises on any failure."""
     import torch
 
     from nerfca_tpu_torch.models.fields import init_static_field
@@ -2040,8 +2059,8 @@ def static_phase(workdir: str, fourier: bool = False) -> dict:
     from nerfca_tpu_torch.train import evaluation
     from nerfca_tpu_torch.train.step import field_window
 
-    steps, every = (FOURIER_STATIC_STEPS, FOURIER_STATIC_STEPS) if fourier else (STATIC_STEPS,
-                                                                                  STATIC_EVERY)
+    steps, every = ((FOURIER_STATIC_STEPS, FOURIER_STATIC_EVERY) if fourier
+                    else (STATIC_STEPS, STATIC_EVERY))
     argv = ["--config", STATIC_CONFIG, "--use_pallas", "true", "--platform", "cuda",
             "--n_iters", str(steps), "--display_every", str(every), "--seed", "0",
             "--log_every", "1", "--data_root", os.path.join(workdir, "data-static"),
@@ -2072,6 +2091,7 @@ def static_phase(workdir: str, fourier: bool = False) -> dict:
             or el.get("eval_composite.kernel") or el.get("fused_field_fwd")):
         raise AssertionError(f"static: expected {n_tiles} one-field K1 and eval_static "
                              f"launches in the evals and no other: {el}")
+    check_eval_graphs("static", res)
 
     setup, state = out["setup"], out["state"]
     cfg, view = setup["cfg"], setup["test_view"]

@@ -54,6 +54,10 @@ one-field sibling, :func:`eval_static` (``static_composite_kernel``),
 renders the static method's view after the one-field K1, the UNSCALED
 sigma and the image of ``render_transmission``;
 ``LAUNCHES["eval_static.kernel"]`` counts its launches.
+``LAUNCHES["eval_view.capture"]``, ``["eval_view.replay"]`` and
+``["eval_view.eager"]`` count the eval renderer's views by how they ran
+(``train/evaluation.py::ViewGraphs``); a replay adds its captured
+launches to the counts above.
 """
 
 from __future__ import annotations
@@ -87,7 +91,8 @@ ACTIVATIONS = ("softplus", "sigmoid", "clamp")
 MAX_SAMPLES = 1024  # the loss kernel keeps a ray's raw densities in shared memory
 
 LAUNCHES = {"fused_train_loss": 0, "eval_composite.kernel": 0, "eval_composite.torch": 0,
-            "eval_static.kernel": 0}
+            "eval_static.kernel": 0, "eval_view.capture": 0, "eval_view.replay": 0,
+            "eval_view.eager": 0}
 
 
 def reset_launch_counts() -> None:

@@ -17,10 +17,17 @@ for the view; the static method's field takes the one-field K1
 sibling (``eval_static``) the same way. Everywhere else the tiles are
 joined and rendered by ``ops/render.py``. Both give the same sigmas and
 dists bit for bit and the same images up to the order of each per-ray sum.
+
+On the card, with every pair on the kernel path, a view's launches are one
+CUDA graph (:class:`ViewGraphs`), captured at the first view of a key and
+replayed for each later view with the same key: the device no longer waits
+through the host's packing, checks and launches at the head of a view.
 """
 
 from __future__ import annotations
 
+import collections
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -29,6 +36,7 @@ import torch
 from nerfca_tpu_torch.ops.hull import hull_gate_rays
 from nerfca_tpu_torch.ops.losses import weighted_mse
 from nerfca_tpu_torch.ops.render import render_transmission, render_transmission_composite
+from nerfca_tpu_torch.ops.cuda import fused_field as ff
 from nerfca_tpu_torch.ops.cuda import fused_train as ft
 from nerfca_tpu_torch.ops.cuda.fused_field import (
     StaticFieldRays, kernel_supported, plain_static_field_rays,
@@ -39,6 +47,9 @@ from nerfca_tpu_torch.train.step import (
 )
 from nerfca_tpu_torch.utils.profiling import span
 
+# the route counters a replay adds its captured launches to
+_COUNTERS = (ff.LAUNCHES, ft.LAUNCHES)
+
 
 def _fields(cfgs: dict, suffix: str) -> tuple:
     """The fields of the pair ``suffix`` names: the static and the temporal
@@ -46,11 +57,18 @@ def _fields(cfgs: dict, suffix: str) -> tuple:
     return ("static", "temp") if "temp" + suffix in cfgs else ("static",)
 
 
-def _tile_fields(params, step: int, windows, cfgs, hp, z, tile: int, suffix: str,
-                 on_kernel: bool):
+def view_windows(cfgs: dict, step: int, device=None) -> dict:
+    """The windows of a view's fields at ``step``: both fields'
+    (:func:`field_windows`), or the static method's field's alone."""
+    if "temp" in cfgs:
+        return field_windows(cfgs, step, device)
+    return {"static": field_window(cfgs["static"], step, device)}
+
+
+def _tile_fields(params, windows, cfgs, hp, z, tile: int, suffix: str, on_kernel: bool):
     """A tile's raw densities ``[r, S]``, one for each field of the pair
     ``suffix`` names, from its rays and phases: both fields through
-    :func:`evaluate_fields` (``windows``: :func:`field_windows`); the static
+    :func:`evaluate_fields` (``windows``: :func:`view_windows`); the static
     method's field through the one-field K1 on the card (``on_kernel``:
     packed with its window once for the view's tiles), else the plain field
     under ``hp.dtype``, as the JAX package renders it."""
@@ -59,21 +77,19 @@ def _tile_fields(params, step: int, windows, cfgs, hp, z, tile: int, suffix: str
             s_raw, t_raw = evaluate_fields(params, o, d, z, ph, windows, cfgs, hp, suffix)
             return s_raw[..., 0], t_raw[..., 0]
         return both
-    p, cfg = params["static" + suffix], cfgs["static" + suffix]
-    window = field_window(cfg, step, z.device)
+    p, cfg, window = params["static" + suffix], cfgs["static" + suffix], windows["static"]
     if on_kernel:
         k1 = StaticFieldRays(p, cfg, window, hp.compute_dtype, tile)
         return lambda o, d, ph: (k1(o, d, z),)
     return lambda o, d, ph: (plain_static_field_rays(p, o, d, z, cfg, window, hp.dtype)[..., 0],)
 
 
-def _tiles(params, origins, directions, phases, depth_values, step: int, windows, cfgs, hp,
-           tile: int, hull, suffix: str, on_kernel: bool):
+def _tiles(params, origins, directions, phases, depth_values, windows, cfgs, hp, tile: int,
+           hull, suffix: str, on_kernel: bool):
     """The pair ``suffix`` names on every ray, ``tile`` rays at a time: per
     tile its first ray, the raw densities ``[tile, S]`` of each field
     (:func:`_tile_fields`) and the hull gate (None without a hull)."""
-    fields = _tile_fields(params, step, windows, cfgs, hp, depth_values, tile, suffix,
-                          on_kernel)
+    fields = _tile_fields(params, windows, cfgs, hp, depth_values, tile, suffix, on_kernel)
     for start in range(0, origins.shape[0], tile):
         with span("nerfca.eval.tile"):
             rows = slice(start, start + tile)
@@ -92,8 +108,8 @@ def composite_on_kernel(origins, cfgs: dict, hp, suffix: str = "") -> bool:
             and all(kernel_supported(cfgs[f + suffix]) for f in _fields(cfgs, suffix)))
 
 
-def _render_pair(params, origins, directions, phases, depth_values, step: int, windows, cfgs,
-                 hp, tile: int, hull, i0: float, suffix: str, images: bool,
+def _render_pair(params, origins, directions, phases, depth_values, windows, cfgs, hp,
+                 tile: int, hull, i0: float, suffix: str, images: bool,
                  on_kernel: bool) -> dict:
     """The pair's composite and, with ``images``, its static and dynamic
     images; the static method's pair (one field): its image ``pix_static``,
@@ -101,8 +117,8 @@ def _render_pair(params, origins, directions, phases, depth_values, step: int, w
     kernel right after its K1, into buffers for the view; else the tiles
     joined, then the renders of ``ops/render.py`` over the whole view."""
     one = len(_fields(cfgs, suffix)) == 1
-    tiles = _tiles(params, origins, directions, phases, depth_values, step, windows, cfgs, hp,
-                   tile, hull, suffix, on_kernel)
+    tiles = _tiles(params, origins, directions, phases, depth_values, windows, cfgs, hp, tile,
+                   hull, suffix, on_kernel)
     act = hp.output_activation
     if on_kernel and one:
         out = None
@@ -139,6 +155,172 @@ def _render_pair(params, origins, directions, phases, depth_values, step: int, w
     return out
 
 
+def _render_view(params, origins, directions, phases, pairs, windows, cfgs, hp, tile: int,
+                 hull, i0: float) -> dict:
+    """Every pair of ``pairs`` (``(suffix, depths)``) on the view's rays,
+    launched as it goes: the coarse pair's outputs, and the fine pair's
+    under ``_fine``."""
+    out = {}
+    for suffix, z in pairs:
+        got = _render_pair(params, origins, directions, phases, z, windows, cfgs, hp, tile,
+                           hull, i0, suffix, images=not suffix,
+                           on_kernel=composite_on_kernel(origins, cfgs, hp, suffix))
+        out.update({k + suffix: v for k, v in got.items()})
+    return out
+
+
+def _tensors(tree) -> list:
+    """Every tensor in a nest of dicts, lists and tuples, in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+class _ViewGraph:
+    """One view's launches, captured: the buffers its rays and windows are
+    copied into before a replay (``rays``, ``windows``; a window shared by
+    both fields is one buffer, so K1 keeps its shared units), the step
+    whose windows those buffers hold, the buffers its launches write
+    (``out``), and what its launches added to the route counters
+    (``launches``). ``graph`` None: the view could not be captured, and
+    each view of its key runs eagerly."""
+
+    def __init__(self, graph, rays: dict, windows: dict, step: int, out: Optional[dict],
+                 launches: list):
+        self.graph, self.rays, self.step, self.out = graph, rays, step, out
+        self.launches = launches
+        self.windows = {}  # each buffer once, under the first field that reads it
+        for k, buf in windows.items():
+            if buf is not None and all(b is not buf for b in self.windows.values()):
+                self.windows[k] = buf
+        self.refs: list = []
+
+    def replay(self, rays: dict, step: int, windows_at) -> dict:
+        """The view of ``rays`` at ``step``: the rays copied in, the windows
+        too where the step is another than the last replay's
+        (``windows_at()`` makes them), replayed, and the outputs handed
+        out as copies, so a tensor returned for one view never changes
+        under its caller when a later view replays."""
+        for k, buf in self.rays.items():
+            buf.copy_(rays[k])
+        if step != self.step:
+            windows = windows_at()
+            for k, buf in self.windows.items():
+                buf.copy_(windows[k])
+            self.step = step
+        self.graph.replay()
+        for counts, added in zip(_COUNTERS, self.launches):
+            for k, v in added.items():
+                counts[k] += v
+        return {k: v.clone() for k, v in self.out.items()}
+
+
+class ViewGraphs:
+    """The eval renderer's captured views, at most ``capacity`` of them,
+    the least recently used dropped first. A view's key holds every value
+    a launch bakes in: the address and layout of each tensor the view's
+    launches read (the weights, the depths, the hull), the rays' layout
+    (their values are copied into the graph's buffers before each replay),
+    and the caller's part (in ``render_test_view``: the tile, the configs,
+    the hyperparameters and the initial intensity). The fields' windows
+    are a function of the step under the key's configs, which also fix
+    their layout and whether the two fields share one; their values are
+    copied into the graph's buffers when the step changes. A graph reads
+    the weights at their addresses, so an in-place update of them (Adam's)
+    shows in the next replay; an entry holds its tensors by weak reference
+    and goes when any of them dies, so it keeps no freed weights alive and
+    never replays a freed address. Counted in ``fused_train.LAUNCHES``:
+    ``eval_view.capture``, ``eval_view.replay`` and ``eval_view.eager`` (a
+    view of a key that could not be captured, or off the kernel path)."""
+
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+        self.entries: collections.OrderedDict = collections.OrderedDict()
+
+    def render(self, read: list, rays: dict, step: int, windows_at, key: tuple, run) -> dict:
+        """The view ``run(rays, windows_at())`` renders eagerly at
+        ``step``, replayed where its key was captured. The first view of a
+        key runs eagerly (its warm-up: every lazy set-up of the launches,
+        such as a kernel's attributes or a cached window, happens outside
+        the capture), then is captured for the views after it."""
+        key = (key, tuple((t.data_ptr(), t.shape, t.stride(), t.dtype, t.device) for t in read),
+               tuple((k, t.shape, t.dtype) for k, t in rays.items()))
+        entry = self.entries.get(key)
+        if entry is None:
+            windows = windows_at()
+            out = run(rays, windows)
+            entry = self._capture(key, read, rays, windows, step, run)
+            ft.LAUNCHES["eval_view.capture" if entry.graph is not None else "eval_view.eager"] += 1
+            return out
+        self.entries.move_to_end(key)
+        if entry.graph is None:
+            ft.LAUNCHES["eval_view.eager"] += 1
+            return run(rays, windows_at())
+        ft.LAUNCHES["eval_view.replay"] += 1
+        return entry.replay(rays, step, windows_at)
+
+    def _capture(self, key: tuple, read: list, rays: dict, windows: dict, step: int,
+                 run) -> _ViewGraph:
+        """The view's launches captured into a new entry under ``key``; an
+        entry without a graph where the capture fails (a launch that
+        waits for the host, say). The route counters are left as they
+        were: the capture ran nothing."""
+        dev = rays["origins"].device
+        ray_bufs = {k: torch.empty(t.shape, dtype=t.dtype, device=dev).copy_(t)
+                    for k, t in rays.items()}
+        win_bufs: dict = {}
+        for k, w in windows.items():
+            same = [j for j in win_bufs if windows[j] is w]
+            win_bufs[k] = None if w is None else win_bufs[same[0]] if same else w.clone()
+        before = [dict(c) for c in _COUNTERS]
+        with span("nerfca.eval.capture"):
+            graph, out = self._record(run, ray_bufs, win_bufs, dev)
+        launches = [{k: c[k] - b[k] for k in c if c[k] != b[k]} for c, b in zip(_COUNTERS,
+                                                                                  before)]
+        for c, b in zip(_COUNTERS, before):
+            c.update(b)
+        entry = _ViewGraph(graph, ray_bufs, win_bufs, step, out, launches)
+
+        def drop(_, key=key):
+            self.entries.pop(key, None)
+
+        entry.refs = [weakref.ref(t, drop) for t in read]
+        self.entries[key] = entry
+        while len(self.entries) > self.capacity:
+            self.entries.popitem(last=False)
+        return entry
+
+    @staticmethod
+    def _record(run, rays: dict, windows: dict, dev) -> tuple:
+        """``run(rays, windows)`` captured on a side stream of ``dev``: the
+        graph and the buffers its launches write, or (None, None) where
+        the capture fails. Only this thread's calls are held to the
+        capture's rules (``thread_local``)."""
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        try:
+            with torch.cuda.stream(stream):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    out = run(rays, windows)
+                finally:
+                    graph.capture_end()
+        except RuntimeError:
+            graph, out = None, None
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        return graph, out
+
+
+# one entry for each method and pair serves every caller: the trainers'
+# in-loop evals, run_eval and run_render render one key view after view
+VIEW_GRAPHS = ViewGraphs(capacity=4)
+
+
 @torch.no_grad()
 def render_test_view(params, test_origins, test_directions, test_phases, depth_values,
                      step: int, cfgs: dict, hp, initial_intensity: float,
@@ -154,7 +336,10 @@ def render_test_view(params, test_origins, test_directions, test_phases, depth_v
     resampled hierarchical pass): ``pix_fine`` and the fine sigmas and
     dists. Each pair's composite takes the Beer-Lambert kernel where
     :func:`composite_on_kernel` holds; a view whose composite ran in torch
-    counts one ``fused_train.LAUNCHES["eval_composite.torch"]``.
+    counts one ``fused_train.LAUNCHES["eval_composite.torch"]``. Where it
+    holds for every pair, the view's launches are a CUDA graph
+    (:data:`VIEW_GRAPHS`), bitwise the eager view's; the tensors returned
+    are the caller's to keep.
 
     The static method's view: ``cfgs`` ``{"static": cfg}`` with its
     ``StaticHParams``, no phases (``test_phases`` None) and no hull; it
@@ -164,21 +349,27 @@ def render_test_view(params, test_origins, test_directions, test_phases, depth_v
     if hull is not None and "temp" not in cfgs:
         raise ValueError("the motion hull gates the temporal field; the static method has none")
     with span("nerfca.eval.view"):
-        # the static method's field takes its window in _tile_fields
-        windows = field_windows(cfgs, step, test_origins.device) if "temp" in cfgs else None
         pairs = [("", depth_values)]
         if depth_values_fine is not None and "static_fine" in params:
             pairs.append(("_fine", depth_values_fine))
-        out, on_kernel = {}, True
-        for suffix, z in pairs:
-            kernel = composite_on_kernel(test_origins, cfgs, hp, suffix)
-            on_kernel = on_kernel and kernel
-            got = _render_pair(params, test_origins, test_directions, test_phases, z, step,
-                               windows, cfgs, hp, tile, hull, initial_intensity, suffix,
-                               images=not suffix, on_kernel=kernel)
-            out.update({k + suffix: v for k, v in got.items()})
-        ft.LAUNCHES["eval_composite.torch"] += int(not on_kernel)
-        return out
+        rays = {k: t for k, t in (("origins", test_origins), ("directions", test_directions),
+                                  ("phases", test_phases)) if t is not None}
+
+        def run(r: dict, w: dict) -> dict:
+            return _render_view(params, r["origins"], r["directions"], r.get("phases"), pairs,
+                                w, cfgs, hp, tile, hull, initial_intensity)
+
+        def windows_at():
+            return view_windows(cfgs, step, test_origins.device)
+
+        if all(composite_on_kernel(test_origins, cfgs, hp, suffix) for suffix, _ in pairs):
+            fields = [params[f + suffix] for suffix, _ in pairs for f in _fields(cfgs, suffix)]
+            read = _tensors(fields) + [z for _, z in pairs] + _tensors(hull)
+            key = (tile, float(initial_intensity), hp, tuple(sorted(cfgs.items())))
+            return VIEW_GRAPHS.render(read, rays, step, windows_at, key, run)
+        ft.LAUNCHES["eval_composite.torch"] += 1
+        ft.LAUNCHES["eval_view.eager"] += 1
+        return run(rays, windows_at())
 
 
 def render_static_test_view(params, test_origins, test_directions, depth_values, step: int,

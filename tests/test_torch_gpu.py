@@ -1688,3 +1688,209 @@ def test_static_view_repacks_updated_weights(dev):
                               for layer in params["early"]],
                     "out": {k: t.detach().clone() for k, t in params["out"].items()}})
     assert not torch.equal(first, updated) and torch.equal(updated, fresh)
+
+
+# ---------------------------------------------------------------------------
+# The eval renderer's views as CUDA graphs (train/evaluation.py::ViewGraphs):
+# a key's first view runs eagerly and is captured, each later view of the
+# key replays the graph. At the cells' shapes (40000 rays x 500 samples in
+# 4096-ray tiles), both methods: every output of a replay bitwise the eager
+# view's, after an in-place update of the weights and a step inside the
+# window's anneal too
+
+
+VIEW_CELLS = ("composite-k1-render", "static3d-k1-render")
+# each cell's route counters: K1's launches and the Beer-Lambert kernel's
+VIEW_ROUTES = {"composite-k1-render": (SHARED, "eval_composite.kernel"),
+               "static3d-k1-render": ("fused_static_field_fwd.rays", "eval_static.kernel")}
+
+
+def cell_setup(dev, cell: str, seed: int) -> dict:
+    """The cell's views, depths and weights, as ``portbench/`` sets them up."""
+    from portbench import harness
+    from portbench.mixes import render
+
+    bench = harness.load_json(harness.ROOT / "BENCHMARK.json")
+    _, cfg, traffic, _ = harness.cell_files(bench, cell)
+    return render.setup(cfg, traffic, seed, dev)
+
+
+def cell_view(su: dict, v: int, params=None, step=None, eager: bool = False) -> dict:
+    """View ``v`` of the cell's order through ``render_test_view`` (with
+    ``eager``: through the renderer's eager body, no graph), of ``params``
+    (the cell's weights) at ``step`` (the cell's)."""
+    from nerfca_tpu_torch.train import evaluation
+
+    view = su["views"][int(su["order"][v % len(su["views"])])]
+    params = su["params"] if params is None else params
+    step = su["step"] if step is None else step
+    o, d = view["origins"], view["directions"]
+    phases = view["phases"] if "temp" in su["fields"] else None
+    if eager:
+        windows = evaluation.view_windows(su["fields"], step, o.device)
+        return evaluation._render_view(params, o, d, phases, [("", su["z"])], windows,
+                                       su["fields"], su["hp"], su["tile"], su["p_hull"],
+                                       su["i0"])
+    return evaluation.render_test_view(params, o, d, phases, su["z"], step, su["fields"],
+                                       su["hp"], su["i0"], tile=su["tile"], hull=su["p_hull"])
+
+
+def assert_views_equal(got: dict, want: dict) -> None:
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].shape == want[k].shape and torch.equal(got[k], want[k]), k
+
+
+def launch_counts() -> dict:
+    from nerfca_tpu_torch.ops.cuda import fused_train as ft
+
+    return {**ff.LAUNCHES, **ft.LAUNCHES}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", VIEW_CELLS)
+def test_view_graph_replays_the_eager_view(dev, cell):
+    # three views of the cell: one capture, two replays, no eager view; the
+    # route counters count the three views' launches; each replay bitwise
+    # the eager view; the first view's tensors unchanged by the replays
+    su = cell_setup(dev, cell, 3_000_000_037)
+    before = launch_counts()
+    got = [cell_view(su, 0)]
+    kept = {k: t.clone() for k, t in got[0].items()}
+    got += [cell_view(su, v) for v in (1, 2)]
+    made = {k: v - before[k] for k, v in launch_counts().items()}
+    assert (made["eval_view.capture"], made["eval_view.replay"], made["eval_view.eager"]) == (
+        1, 2, 0), made
+    k1, bl = VIEW_ROUTES[cell]
+    assert made[k1] == made[bl] == 30 and made["eval_composite.torch"] == 0, made
+    for v in (1, 2):
+        assert_views_equal(got[v], cell_view(su, v, eager=True))
+    assert_views_equal(got[0], kept)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", VIEW_CELLS)
+def test_view_graph_reads_updated_weights(dev, cell):
+    # an Adam-style in-place update of every weight and a step inside the
+    # window's anneal (the graph was captured with the window open): the
+    # next view replays, bitwise a fresh eager render of the updated
+    # weights at that step
+    from nerfca_tpu_torch.train import evaluation
+    from nerfca_tpu_torch.train.step import field_window
+
+    su = cell_setup(dev, cell, 3_000_000_041)
+    cell_view(su, 0)
+    cfg = su["fields"]["static"]
+    anneal = cfg.pos_enc_window_decay_steps // 2
+    assert not torch.equal(field_window(cfg, anneal, dev), field_window(cfg, su["step"], dev))
+    g = torch.Generator(device=dev).manual_seed(7)
+    with torch.no_grad():
+        for t in evaluation._tensors(su["params"]):
+            t.add_(1e-3 * torch.randn(t.shape, generator=g, device=dev))
+    before = launch_counts()
+    got = cell_view(su, 1, step=anneal)
+    made = {k: v - before[k] for k, v in launch_counts().items()}
+    assert made["eval_view.replay"] == 1 and made["eval_view.capture"] == 0, made
+    assert_views_equal(got, cell_view(su, 1, step=anneal, eager=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", VIEW_CELLS)
+def test_view_graph_follows_the_weights_storage(dev, cell):
+    # the same values in other storage capture anew (bitwise the first
+    # weights' view); once the first weights are freed, their entry is gone
+    import gc
+
+    from nerfca_tpu_torch.train import evaluation
+    from portbench import inputs
+
+    entries = evaluation.VIEW_GRAPHS.entries
+    su = cell_setup(dev, cell, 3_000_000_043)
+    cell_view(su, 0)
+    first = next(reversed(entries))
+    other = inputs.clone_params(su["params"])
+    before = launch_counts()
+    got = cell_view(su, 1, params=other)
+    made = {k: v - before[k] for k, v in launch_counts().items()}
+    assert made["eval_view.capture"] == 1 and made["eval_view.replay"] == 0, made
+    second = next(reversed(entries))
+    assert second != first and first in entries
+    assert_views_equal(got, cell_view(su, 1, eager=True))
+    del su["params"]
+    gc.collect()
+    assert first not in entries and second in entries
+
+
+def route_case(dev, case: str) -> tuple:
+    """A 600-ray composite view of 64 shared depths for ``case``: the
+    kernel path, with a motion hull, with the fine pair on 90 depths of
+    its own, in bf16, or the plain fields. ``(params, o, d, ph, z, cfgs,
+    hp, z_fine, hull)``."""
+    from nerfca_tpu_torch.ops.hull import MotionHull
+    from nerfca_tpu_torch.train.step import CompositeHParams
+
+    args, _ = make(dev, r=600, s=64, shared_z=True)
+    ps, pt, o, d, z, ph, cfg_s, cfg_t, _, _ = args
+    params, cfgs = {"static": ps, "temp": pt}, {"static": cfg_s, "temp": cfg_t}
+    z_fine = None
+    if case == "fine":
+        fine, _ = make(dev, r=600, s=64, shared_z=True, seed=1)
+        params.update(static_fine=fine[0], temp_fine=fine[1])
+        cfgs.update(static_fine=cfg_s, temp_fine=cfg_t)
+        z_fine = torch.linspace(3.7, 5.3, 90, device=dev)
+    h = None
+    if case == "hull":
+        g = torch.Generator(device=dev).manual_seed(3)
+        h = MotionHull(torch.rand(8, 8, 8, generator=g, device=dev),
+                       torch.full((3,), 0.1, device=dev),
+                       torch.tensor([0.25, -0.1, 0.0], device=dev))
+    hp = CompositeHParams(use_pallas=case != "plain", depth_samples_coarse=64,
+                          compute_dtype="bfloat16" if case == "bf16" else "float32")
+    return params, o, d, ph, z, cfgs, hp, z_fine, h
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["hull", "fine", "bf16"])
+def test_view_graph_replays_hull_fine_and_bf16_views(dev, case):
+    # the hull-gated view, the view with the fine pair and the bf16 view
+    # are captured too: the second view replays, bitwise the first
+    from nerfca_tpu_torch.train.evaluation import render_test_view
+
+    params, o, d, ph, z, cfgs, hp, z_fine, h = route_case(dev, case)
+    before = launch_counts()
+    views = [render_test_view(params, o, d, ph, z, 50, cfgs, hp, 2.16, tile=256,
+                              depth_values_fine=z_fine, hull=h) for _ in range(2)]
+    made = {k: v - before[k] for k, v in launch_counts().items()}
+    assert (made["eval_view.capture"], made["eval_view.replay"], made["eval_view.eager"]) == (
+        1, 1, 0), made
+    assert_views_equal(views[1], views[0])
+
+
+@pytest.mark.gpu
+def test_a_view_that_cannot_be_captured_runs_eagerly(dev, monkeypatch):
+    # a hull gate that waits for the host fails the capture: the first view
+    # is the eager one, every later view of the key runs eagerly (the
+    # capture is not tried again), and all of them are the eager view
+    from nerfca_tpu_torch.train import evaluation
+
+    params, o, d, ph, z, cfgs, hp, _, h = route_case(dev, "hull")
+    gate_rays = evaluation.hull_gate_rays
+
+    def waits_for_the_host(*args):
+        gate = gate_rays(*args)
+        float(gate.sum())
+        return gate
+
+    monkeypatch.setattr(evaluation, "hull_gate_rays", waits_for_the_host)
+    before = launch_counts()
+    views = [evaluation.render_test_view(params, o, d, ph, z, 50, cfgs, hp, 2.16, tile=256,
+                                         hull=h) for _ in range(3)]
+    made = {k: v - before[k] for k, v in launch_counts().items()}
+    assert (made["eval_view.capture"], made["eval_view.replay"], made["eval_view.eager"]) == (
+        0, 0, 3), made
+    for got in views[1:]:
+        assert_views_equal(got, views[0])
+    monkeypatch.undo()  # the card still captures and replays after the failed capture
+    again = [evaluation.render_test_view(params, o, d, ph, z, 60, cfgs, hp, 2.16, tile=256)
+             for _ in range(2)]
+    assert_views_equal(again[1], again[0])

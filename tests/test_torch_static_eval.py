@@ -140,8 +140,9 @@ def test_cpu_views_keep_the_torch_route(fields):
     ff.reset_launch_counts()
     got = evaluation.render_test_view(params, origins, dirs, phases if fields == 2 else None,
                                       z, 50, cfgs, hp, I0, tile=4)
-    assert ft.LAUNCHES["eval_composite.torch"] == 1
-    assert not any(v for k, v in ft.LAUNCHES.items() if k != "eval_composite.torch")
+    assert ft.LAUNCHES["eval_composite.torch"] == ft.LAUNCHES["eval_view.eager"] == 1
+    assert not any(v for k, v in ft.LAUNCHES.items()
+                   if k not in ("eval_composite.torch", "eval_view.eager"))
     assert not any(ff.LAUNCHES.values())
     if fields == 2:
         want = whole_view_composite(params, origins, dirs, phases, z, cfgs, hp, None, "", True)
@@ -218,7 +219,8 @@ def test_each_view_packs_the_one_field_k1_once(monkeypatch):
     monkeypatch.setattr(evaluation, "StaticFieldRays", Counted)
 
     def view(step):
-        return list(evaluation._tiles(weights, origins, dirs, None, z, step, None,
+        windows = evaluation.view_windows({"static": cfg}, step)
+        return list(evaluation._tiles(weights, origins, dirs, None, z, windows,
                                       {"static": cfg}, hp, 16, None, "", True))
 
     assert len(view(60)) == 4 and len(made) == 1  # 50 rays in 16-ray tiles
