@@ -69,7 +69,8 @@ def test_a_view_altered_where_it_is_produced_is_not_correct(cell, fault, monkeyp
 
     def broken(*a, **k):
         out = real(*a, **k)
-        for key in ("pix", "pix_static", "pix_temp"):
+        # a composite view has three images; a static view has one
+        for key in [name for name in ("pix", "pix_static", "pix_temp") if name in out]:
             pix = out[key].clone()
             if fault == "one_pixel":
                 pix[len(pix) // 3] -= 1e-4
