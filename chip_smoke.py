@@ -22,9 +22,11 @@ numbers from ``portbench/``. This script times nothing. It
       Beer-Lambert kernel (``check_composite_view``, ``check_composite``);
       the static method's eval (``check_static_rays``, free_windowed and
       fourier, ``check_static_view`` on its cell's 40000 x 500 view,
-      ``check_eval_static`` at per-ray depths);
+      ``check_eval_static`` at per-ray depths); NAF's hash-field kernel
+      against the plain field on a view of ``naf-hash-render``
+      (``tests/test_torch_hash_gpu.py::check_hash_view``, 40000 x 192);
       prints a ``kernels`` line, each case with its shape and the launches
-      it made;
+      it made, the hash-field case also its roofline bound ``bound_ms``;
 3. drives the main paths through ``nerfca_tpu_torch.train.run_composite.main``
    (``run_nerf.main`` for the static method), each with the launch counts
    set to 0 just before and read just after:
@@ -101,6 +103,12 @@ numbers from ``portbench/``. This script times nothing. It
       on phase d's dataset, ``FOURIER_STATIC_STEPS`` steps (evals at 50 and
       100, the second a replay), under phase d's gates against its own JAX
       record (``JAX_STATIC_FOURIER``);
+   p. NAF's field, ``configs/naf.txt --use_pallas true``, through
+      ``run_nerf.main`` on phase d's dataset, ``NAF_STEPS`` steps and an
+      eval every ``NAF_EVERY``: training plain (no kernel launch), each eval
+      view one hash-field kernel and one ``eval_static`` a 4096-ray tile,
+      none on the plain path, the first eval captured as a CUDA graph and
+      the later ones replayed; the losses and PSNRs finite;
    g. data parallelism at the flagship widths: world 1 over NCCL in this
       process (the sharded K3 entry equals K3 bitwise), then ``DP_WORLD``
       ranks over gloo on the one card in spawned processes (the sharded K3
@@ -184,6 +192,13 @@ JAX_STATIC = os.path.join(REPO, "artifacts", "port", "static_3d_jax-200.json")
 # first's CUDA graph after 50 Adam steps
 FOURIER_STATIC_STEPS, FOURIER_STATIC_EVERY = 100, 50
 JAX_STATIC_FOURIER = os.path.join(REPO, "artifacts", "port", "static_3d_fourier_jax-100.json")
+# phase 4p: NAF's attenuation field (configs/naf.txt) through run_nerf.main
+# on phase 4d's dataset, NAF_STEPS plain train steps (no kernel computes the
+# hash grid's backward) and an eval every NAF_EVERY on the hash-field kernel;
+# phase o's case of that kernel on a view of the naf-hash-render cell
+NAF_CONFIG = os.path.join(REPO, "configs", "naf.txt")
+NAF_STEPS, NAF_EVERY = 10, 5
+HASH_CASE = "hash field, the cell's view"
 # the fourier composite (phase 4e) and the fourier kernel checks: both
 # fields of configs/composite.txt on the fourier encoding at sigma 2
 FOURIER_SIGMA = 2.0
@@ -332,16 +347,19 @@ def cuda_time_ms(fn, iters: int = 5, warmup: int = 2) -> float:
 def launch_counts() -> dict:
     from nerfca_tpu_torch.ops.cuda import fused_field as ff
     from nerfca_tpu_torch.ops.cuda import fused_train as ft
+    from nerfca_tpu_torch.ops.cuda import hash_field as hf
 
-    return {**ff.LAUNCHES, **ft.LAUNCHES}
+    return {**ff.LAUNCHES, **ft.LAUNCHES, **hf.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     from nerfca_tpu_torch.ops.cuda import fused_field as ff
     from nerfca_tpu_torch.ops.cuda import fused_train as ft
+    from nerfca_tpu_torch.ops.cuda import hash_field as hf
 
     ff.reset_launch_counts()
     ft.reset_launch_counts()
+    hf.LAUNCHES.update(dict.fromkeys(hf.LAUNCHES, 0))
 
 
 def leaf_errors(names, got, want) -> tuple[float, float, str]:
@@ -464,11 +482,18 @@ def kernel_checks(seed: int = 0) -> list:
     plain field (free_windowed and fourier, 1024 x 500 of ``make``'s rays),
     its view on ``static3d-k1-render``'s 40000 x 500 (the launches of each
     route counted) and the one-field Beer-Lambert kernel at 628 per-ray
-    depths. Returns each case with its shape and the launches it made."""
+    depths; NAF's hash-field kernel against the plain field on a view of
+    ``naf-hash-render`` (40000 x 192 in 4096-ray launches, the table drawn
+    U(-1, 1)), with the view's roofline bound (``bound_ms``,
+    ``portbench/metrics/hash_roofline.py``). Returns each case with its
+    shape and the launches it made."""
     import torch
 
     sys.path.insert(0, os.path.join(REPO, "tests"))  # as scripts/gpu_check_seeds.py imports it
     import test_torch_gpu as gpu
+    import test_torch_hash_gpu as hash_gpu
+    from portbench import harness
+    from portbench.metrics import hash_roofline
 
     dev = torch.device("cuda")
 
@@ -509,7 +534,11 @@ def kernel_checks(seed: int = 0) -> list:
               lambda: gpu.check_static_rays(dev, 1024, 500, True, enc="fourier")),
              ("eval static, the cell's view", 40000, 500, lambda: gpu.check_static_view(dev)),
              ("eval static per-ray", 777, 628,
-              lambda: gpu.check_eval_static(dev, "softplus", per_ray=True))]
+              lambda: gpu.check_eval_static(dev, "softplus", per_ray=True)),
+             (HASH_CASE, 40000, 192, lambda: hash_gpu.check_hash_view(dev))]
+    naf = harness.cell_files(harness.load_json(harness.ROOT / "BENCHMARK.json"),
+                             hash_gpu.CELL)[1]
+    extra = {HASH_CASE: {"bound_ms": 1e3 * hash_roofline.view_bound_s(naf, 40000, 192)}}
     done = []
     for name, rays, samples, run in cases:
         before = launch_counts()
@@ -517,7 +546,10 @@ def kernel_checks(seed: int = 0) -> list:
         torch.cuda.synchronize()
         made = {k: v - before.get(k, 0) for k, v in launch_counts().items()
                 if v != before.get(k, 0)}
-        done.append({"case": name, "rays": rays, "samples": samples, "launches": made})
+        done.append({"case": name, "rays": rays, "samples": samples, "launches": made,
+                     **extra.get(name, {})})
+    if done[-1]["launches"] != {"hash_field.kernel": 10}:
+        raise AssertionError(f"{HASH_CASE}: expected 10 hash-field launches: {done[-1]}")
     return done
 
 
@@ -2122,6 +2154,43 @@ def static_phase(workdir: str, fourier: bool = False) -> dict:
             "rays": int(setup["device_data"]["rays"].shape[0]), "view": [w, h]}
 
 
+def naf_phase(workdir: str) -> dict:
+    """Phase 4p: NAF's field through ``run_nerf.main`` on ``configs/naf.txt``
+    with ``--use_pallas true`` (phase 4d's dataset, ``NAF_STEPS`` steps, an
+    eval every ``NAF_EVERY``), launch counts set to 0 just before and read
+    just after: no kernel launch in training (the hash grid trains on the
+    plain field); each eval view one ``hash_field_kernel`` and one
+    ``eval_static`` a 4096-ray tile, no view on the plain path and no K1,
+    the first eval view captured as a CUDA graph and each later one
+    replayed; finite losses and PSNRs. Raises on any failure."""
+    argv = ["--config", NAF_CONFIG, "--use_pallas", "true", "--platform", "cuda",
+            "--n_iters", str(NAF_STEPS), "--display_every", str(NAF_EVERY), "--seed", "0",
+            "--log_every", "1", "--data_root", os.path.join(workdir, "data-static"),
+            "--log_dir_root", os.path.join(workdir, "cases-naf")]
+    res = counted_run(argv, static=True)
+    out, tl, el = res["run"], res["train_launches"], res["eval_launches"]
+    n_total = NAF_STEPS + 1
+    if out["diverged_at"] is not None or out["final_step"] != n_total:
+        raise AssertionError(f"naf: diverged at {out['diverged_at']}, final step "
+                             f"{out['final_step']}")
+    if len(res["train"]) != n_total or not all(math.isfinite(r["train_loss"])
+                                               for r in res["train"]):
+        raise AssertionError(f"naf: {len(res['train'])} logged steps, not all finite")
+    if any(tl.values()):
+        raise AssertionError(f"naf: training launched a kernel: {tl}")
+    if [r["step"] for r in res["evals"]] != list(range(NAF_EVERY, n_total, NAF_EVERY)) or not all(
+            math.isfinite(r["test_image_psnr"]) for r in res["evals"]):
+        raise AssertionError(f"naf: evals {res['evals']}")
+    view_rays = int(out["setup"]["test_view"]["origins"].shape[0])
+    n_tiles = len(res["evals"]) * -(-view_rays // 4096)
+    routes = {k: v for k, v in el.items() if v and not k.startswith("eval_view.")}
+    if routes != {"hash_field.kernel": n_tiles, "eval_static.kernel": n_tiles}:
+        raise AssertionError(f"naf: expected {n_tiles} hash-field and eval_static launches in "
+                             f"the evals and no other: {el}")
+    check_eval_graphs("naf", res)
+    return res
+
+
 def report_static(sp: dict, card: str) -> bool:
     """Print phase 4d (4f) beside the JAX record; True when both gates pass."""
     with open(sp["record"]) as f:
@@ -2295,6 +2364,11 @@ def main() -> int:
         if not report_static(fsp, card):
             raise AssertionError("static fourier: the run is outside the gates against the JAX "
                                  "record")
+        nf = naf_phase(workdir)
+        log(f"NAF's field (configs/naf.txt --use_pallas true, run_nerf, {NAF_STEPS} plain steps; "
+            f"{card}): train_loss {[round(r['train_loss'], 6) for r in nf['train']]}, "
+            f"test_image_psnr {[round(r['test_image_psnr'], 4) for r in nf['evals']]}")
+        log(f"  launches: training {nf['train_launches']}, in-loop evals {nf['eval_launches']}")
 
         dp = data_parallel_phase(workdir)
         r0 = dp["ranks"][0]

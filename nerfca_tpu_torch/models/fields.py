@@ -9,13 +9,25 @@ parameter dict (port of ``nerfca_tpu/models/fields.py``).
 The temporal field concatenates a learnable per-phase latent row
 (10 cardiac phases x ``num_time_dim``) to the encoded position.
 
+``hidden_activation`` ``'leaky_relu'`` (slope 0.01) takes the ReLUs'
+place; ``pos_enc`` ``'hashgrid'`` encodes through a learned table, the
+leaf ``"table"`` (``ops/encoding.py::hash_encode``), over a cube of half
+extent ``hash_bound`` at the origin. Both are the port's own, for NAF's
+attenuation field (Zha et al., MICCAI 2022: the hash grid, then 32 -> 32
+-> 32, ``concat(encoded, h)`` -> 32, -> 1, LeakyReLU between), which maps
+onto the layers above as one early layer, a skip and no late layer at
+width 32. A checkpoint leaves them out of its field configs where they
+hold their defaults (:data:`PORT_ONLY_DEFAULTS`), so that the JAX package
+reads those configs.
+
 Parameter layout: the same tree as the JAX package, ``{"early": [{"w",
 "b"}, ...], "out": {"w", "b"}, "latents", "fourier"}``, but every ``w`` is
 kept in the ``nn.Linear`` layout ``[out, in]`` (JAX keeps ``[in, out]``);
 :func:`params_from_jax` and :func:`params_to_jax` convert. A ``fourier``
 field carries its fixed Gaussian projection as the leaf ``"fourier"``,
 drawn as JAX draws it; it is a buffer that no gradient reaches. A field
-with ``num_late_layers > 0`` adds the leaves ``"skip"`` and ``"late"``.
+with ``num_late_layers > 0`` adds the leaves ``"skip"`` and ``"late"``, a
+``hashgrid`` field the trained leaf ``"table"``.
 
 ``compute_dtype`` ``torch.bfloat16`` (or ``"bfloat16"``) rounds every
 matmul operand to bf16 (round to nearest even) and keeps the products, the
@@ -35,12 +47,17 @@ import torch.nn.functional as F
 
 from nerfca_tpu_torch.ops import prng
 from nerfca_tpu_torch.ops.encoding import (
-    encoded_feature_count, make_fourier_coefficients, posenc,
+    HASH_FEATURES, HASH_TABLE_ENTRIES, encoded_feature_count, hash_encode,
+    make_fourier_coefficients, posenc,
 )
 
 Params = Dict[str, Any]
 
 NUM_CARDIAC_PHASES = 10
+LEAKY_SLOPE = 0.01  # NAF's nn.LeakyReLU() default
+HASH_INIT = 1e-4  # Instant-NGP's table init, U(-1e-4, 1e-4)
+# the FieldConfig keys the JAX package lacks, at their defaults
+PORT_ONLY_DEFAULTS = {"hidden_activation": "relu", "hash_bound": 0.0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +78,8 @@ class FieldConfig:
     fourier_sigma: float = 0.0
     use_time_latents: bool = False
     num_time_dim: int = 8
+    hidden_activation: str = "relu"
+    hash_bound: float = 0.0
 
     @property
     def encoded_features(self) -> int:
@@ -112,6 +131,10 @@ def init_static_field(key, cfg: FieldConfig, device=None) -> Params:
         params["fourier"] = make_fourier_coefficients(
             prng.fold_in(key, 0xF0), cfg.pos_enc_basis, cfg.fourier_sigma,
             cfg.num_input_channels, device)
+    if cfg.pos_enc == "hashgrid":
+        table = prng.uniform(prng.fold_in(key, 0x4A5), (HASH_TABLE_ENTRIES, HASH_FEATURES),
+                             -HASH_INIT, HASH_INIT)
+        params["table"] = torch.from_numpy(table).to(device)
     return params
 
 
@@ -145,22 +168,33 @@ def _linear(layer: Params, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     return F.linear(x, w, layer.get("b"))
 
 
+def hidden_activation(cfg: FieldConfig):
+    """The hidden layers' activation: ReLU, or LeakyReLU at :data:`LEAKY_SLOPE`."""
+    if cfg.hidden_activation == "relu":
+        return torch.relu
+    if cfg.hidden_activation == "leaky_relu":
+        return lambda x: F.leaky_relu(x, LEAKY_SLOPE)
+    raise ValueError(f"hidden_activation must be relu or leaky_relu, got "
+                     f"{cfg.hidden_activation!r}")
+
+
 def apply_mlp(params: Params, features: torch.Tensor, cfg: FieldConfig,
               return_intermediates: bool = False, compute_dtype=torch.float32):
     """Run the MLP trunk on already-encoded features ``[..., F]``."""
     cd = torch_dtype(compute_dtype)
+    act = hidden_activation(cfg)
     intermediates = []
     h = features
     for layer in params["early"]:
-        h = torch.relu(_linear(layer, h, cd))
+        h = act(_linear(layer, h, cd))
         if return_intermediates:
             intermediates.append(h)
     if cfg.num_late_layers > 0:
-        h = torch.relu(_linear(params["skip"], torch.cat([features, h], dim=-1), cd))
+        h = act(_linear(params["skip"], torch.cat([features, h], dim=-1), cd))
         if return_intermediates:
             intermediates.append(h)
         for layer in params["late"]:
-            h = torch.relu(_linear(layer, h, cd))
+            h = act(_linear(layer, h, cd))
             if return_intermediates:
                 intermediates.append(h)
     out = _linear(params["out"], h, cd)
@@ -173,9 +207,17 @@ def apply_static_field(params: Params, points: torch.Tensor, cfg: FieldConfig,
                        window: Optional[torch.Tensor] = None,
                        return_intermediates: bool = False, compute_dtype=torch.float32):
     """``points [..., 3] -> raw density [..., C_out]``."""
-    enc = posenc(points, cfg.pos_enc, cfg.pos_enc_basis, window=window,
-                 fourier_coefficients=params.get("fourier"))
-    return apply_mlp(params, enc, cfg, return_intermediates, compute_dtype)
+    return apply_mlp(params, encode(params, points, cfg, window), cfg, return_intermediates,
+                     compute_dtype)
+
+
+def encode(params: Params, points: torch.Tensor, cfg: FieldConfig, window=None):
+    """A field's encoding of ``points [..., 3]``: the hash grid over the
+    field's table, or :func:`posenc`."""
+    if cfg.pos_enc == "hashgrid":
+        return hash_encode(points, params["table"], cfg.hash_bound)
+    return posenc(points, cfg.pos_enc, cfg.pos_enc_basis, window=window,
+                  fourier_coefficients=params.get("fourier"))
 
 
 def apply_temporal_field(params: Params, points: torch.Tensor, phases: torch.Tensor,
@@ -183,8 +225,7 @@ def apply_temporal_field(params: Params, points: torch.Tensor, phases: torch.Ten
                          return_intermediates: bool = False, compute_dtype=torch.float32):
     """``points [..., 3]``, integer ``phases [...]`` -> raw density; the
     phase's latent row is concatenated to the encoded position."""
-    enc = posenc(points, cfg.pos_enc, cfg.pos_enc_basis, window=window,
-                 fourier_coefficients=params.get("fourier"))
+    enc = encode(params, points, cfg, window)
     latents = params["latents"][phases.long()]
     return apply_mlp(params, torch.cat([enc, latents], dim=-1), cfg, return_intermediates,
                      compute_dtype)

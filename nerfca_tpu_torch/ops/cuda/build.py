@@ -24,10 +24,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 HEADERS = ("field_common.cuh", "field_mma.cuh", "k1_wgmma.cuh")
-LIBRARIES = ("fused_field", "fused_train")
+LIBRARIES = ("fused_field", "fused_train", "hash_field")
 # per-library nvcc flags: the loss kernel keeps multiply and add separate
 # (no FMA contraction) so its arithmetic matches the plain version's
-EXTRA_FLAGS = {"fused_field": [], "fused_train": ["-fmad=false"]}
+EXTRA_FLAGS = {"fused_field": [], "fused_train": ["-fmad=false"], "hash_field": []}
 
 _LOADED: dict = {}
 

@@ -6,9 +6,11 @@ Adam's ``mu``/``nu`` keyed by leaf name, ``count``, ``step`` and the
 step's random key; plain tensors and ints, so ``torch.load(...,
 weights_only=True)`` reads it) and ``metadata.json`` in the JAX package's
 schema (``format_version``, ``field_configs``, ``run``), so either package
-reads the other's field configs. The annealing state derives from the
-step and the key is the JAX trainer's (``ops/prng.py``), drawn on the
-host, so a resume is exact and restores on any device.
+reads the other's field configs (the port's own keys are left out where
+they hold their defaults; a ``hashgrid`` field is the port's alone). The
+annealing state derives from the step and the key is the JAX trainer's
+(``ops/prng.py``), drawn on the host, so a resume is exact and restores on
+any device.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from nerfca_tpu_torch.models.fields import FieldConfig
+from nerfca_tpu_torch.models.fields import PORT_ONLY_DEFAULTS, FieldConfig
 from nerfca_tpu_torch.train.step import TrainState, param_items, params_from_leaves
 
 STATE_FILE = "state.pt"
@@ -53,11 +55,18 @@ def save_checkpoint(
     }, os.path.join(directory, STATE_FILE))
     meta: dict[str, Any] = {"format_version": 1}
     if cfgs is not None:
-        meta["field_configs"] = {k: dataclasses.asdict(v) for k, v in cfgs.items()}
+        meta["field_configs"] = {k: _config_record(v) for k, v in cfgs.items()}
     if run_metadata is not None:
         meta["run"] = run_metadata
     with open(os.path.join(directory, "metadata.json"), "w") as f:
         json.dump(meta, f, indent=2, default=str)
+
+
+def _config_record(cfg: FieldConfig) -> dict:
+    """A field config as the metadata holds it: the port's own keys left
+    out where they hold their defaults, so the JAX package reads it."""
+    return {k: v for k, v in dataclasses.asdict(cfg).items()
+            if not (k in PORT_ONLY_DEFAULTS and v == PORT_ONLY_DEFAULTS[k])}
 
 
 def load_checkpoint(

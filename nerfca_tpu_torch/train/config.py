@@ -21,6 +21,10 @@ import os
 from typing import Optional, Sequence
 
 
+# flags the JAX package's parser lacks, with their defaults
+PORT_ONLY_FLAGS = {"static_hidden_activation": "relu"}
+
+
 def _bool(x) -> bool:
     return str(x).lower() == "true"
 
@@ -148,6 +152,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--static_pos_enc_window_start", type=int, default=0)
     p.add_argument("--static_pos_enc_window_decay_steps", type=int, default=150000)
     p.add_argument("--static_pos_enc_window_max", type=float, default=0.0)
+    # the port's own (the JAX package has neither): 'relu' or 'leaky_relu'
+    # (NAF's field, with --static_pos_enc hashgrid; configs/naf.txt)
+    p.add_argument("--static_hidden_activation", type=str, default="relu")
 
     # positional encoding windowing
     p.add_argument("--window_weight_start", type=int, default=0)

@@ -18,6 +18,10 @@ sibling (``eval_static``) the same way. Everywhere else the tiles are
 joined and rendered by ``ops/render.py``. Both give the same sigmas and
 dists bit for bit and the same images up to the order of each per-ray sum.
 
+A ``hashgrid`` field (NAF's, the static method's) takes the hash-field
+kernel (``ops/cuda/hash_field.py::HashFieldRays``) in K1's place on the
+card, one launch a tile, then the same one-field Beer-Lambert kernel.
+
 On the card, with every pair on the kernel path, a view's launches are one
 CUDA graph (:class:`ViewGraphs`), captured at the first view of a key and
 replayed for each later view with the same key: the device no longer waits
@@ -38,9 +42,11 @@ from nerfca_tpu_torch.ops.losses import weighted_mse
 from nerfca_tpu_torch.ops.render import render_transmission, render_transmission_composite
 from nerfca_tpu_torch.ops.cuda import fused_field as ff
 from nerfca_tpu_torch.ops.cuda import fused_train as ft
+from nerfca_tpu_torch.ops.cuda import hash_field as hf
 from nerfca_tpu_torch.ops.cuda.fused_field import (
     StaticFieldRays, kernel_supported, plain_static_field_rays,
 )
+from nerfca_tpu_torch.ops.cuda.hash_field import HashFieldRays
 from nerfca_tpu_torch.train.step import (
     CompositeHParams, StaticHParams, evaluate_fields, field_window, field_windows,
     loss_weights, regularized_loss, regularizer_losses,
@@ -48,7 +54,7 @@ from nerfca_tpu_torch.train.step import (
 from nerfca_tpu_torch.utils.profiling import span
 
 # the route counters a replay adds its captured launches to
-_COUNTERS = (ff.LAUNCHES, ft.LAUNCHES)
+_COUNTERS = (ff.LAUNCHES, ft.LAUNCHES, hf.LAUNCHES)
 
 
 def _fields(cfgs: dict, suffix: str) -> tuple:
@@ -70,14 +76,18 @@ def _tile_fields(params, windows, cfgs, hp, z, tile: int, suffix: str, on_kernel
     ``suffix`` names, from its rays and phases: both fields through
     :func:`evaluate_fields` (``windows``: :func:`view_windows`); the static
     method's field through the one-field K1 on the card (``on_kernel``:
-    packed with its window once for the view's tiles), else the plain field
-    under ``hp.dtype``, as the JAX package renders it."""
+    packed with its window once for the view's tiles), a ``hashgrid`` field
+    through the hash-field kernel, else the plain field under ``hp.dtype``,
+    as the JAX package renders it."""
     if "temp" + suffix in cfgs:
         def both(o, d, ph):
             s_raw, t_raw = evaluate_fields(params, o, d, z, ph, windows, cfgs, hp, suffix)
             return s_raw[..., 0], t_raw[..., 0]
         return both
     p, cfg, window = params["static" + suffix], cfgs["static" + suffix], windows["static"]
+    if on_kernel and cfg.pos_enc == "hashgrid":
+        field = HashFieldRays(p, cfg, tile)
+        return lambda o, d, ph: (field(o, d, z),)
     if on_kernel:
         k1 = StaticFieldRays(p, cfg, window, hp.compute_dtype, tile)
         return lambda o, d, ph: (k1(o, d, z),)
@@ -103,9 +113,14 @@ def composite_on_kernel(origins, cfgs: dict, hp, suffix: str = "") -> bool:
     """Whether the pair ``suffix`` names takes the eval's Beer-Lambert kernel
     (the static method's field alone: its one-field sibling): CUDA tensors
     with every field of the pair on K1 (:func:`evaluate_fields`'s
-    condition)."""
+    condition), or the static method's field on the hash-field kernel,
+    which computes in f32 alone."""
+    fields = _fields(cfgs, suffix)
     return (origins.device.type == "cuda" and hp.use_pallas
-            and all(kernel_supported(cfgs[f + suffix]) for f in _fields(cfgs, suffix)))
+            and all(kernel_supported(cfgs[f + suffix])
+                    or (len(fields) == 1 and hf.kernel_supported(cfgs[f + suffix])
+                        and hp.dtype == torch.float32)
+                    for f in fields))
 
 
 def _render_pair(params, origins, directions, phases, depth_values, windows, cfgs, hp,
@@ -369,6 +384,8 @@ def render_test_view(params, test_origins, test_directions, test_phases, depth_v
             return VIEW_GRAPHS.render(read, rays, step, windows_at, key, run)
         ft.LAUNCHES["eval_composite.torch"] += 1
         ft.LAUNCHES["eval_view.eager"] += 1
+        hf.LAUNCHES["hash_field.plain_views"] += any(c.pos_enc == "hashgrid"
+                                                     for c in cfgs.values())
         return run(rays, windows_at())
 
 

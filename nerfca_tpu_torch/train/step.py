@@ -550,7 +550,8 @@ def param_items(params) -> list:
     """``(name, tensor)`` for every leaf Adam holds, in a fixed order: the
     early layers, a ``fourier`` field's projection (a buffer: its gradient
     is zero, so Adam leaves it as it is, as optax does), the output layer,
-    the latent table, then a field's skip and late layers."""
+    the latent table, then a field's skip and late layers, then a
+    ``hashgrid`` field's table."""
     items = []
     for group in sorted(params):
         p = params[group]
@@ -565,6 +566,8 @@ def param_items(params) -> list:
             items += [(f"{group}/skip/{k}", p["skip"][k]) for k in sorted(p["skip"])]
         for i, layer in enumerate(p.get("late", [])):
             items += [(f"{group}/late/{i}/{k}", layer[k]) for k in sorted(layer)]
+        if "table" in p:
+            items.append((f"{group}/table", p["table"]))
     return items
 
 
@@ -584,6 +587,8 @@ def params_from_leaves(params, leaves) -> dict:
             g["skip"] = {k: next(it) for k in sorted(p["skip"])}
         if "late" in p:
             g["late"] = [{k: next(it) for k in sorted(layer)} for layer in p["late"]]
+        if "table" in p:
+            g["table"] = next(it)
         out[group] = g
     return out
 

@@ -35,6 +35,7 @@ from nerfca_tpu_torch.models.fields import FieldConfig, init_static_field, init_
 from nerfca_tpu_torch.ops import prng
 from nerfca_tpu_torch.ops.hull import hull_args_record, hull_from_args
 from nerfca_tpu_torch.ops.cuda.fused_field import kernel_supported
+from nerfca_tpu_torch.ops.cuda.hash_field import kernel_supported as hash_kernel_supported
 from nerfca_tpu_torch.ops.sampling import linspace_depths, stratify_depths
 from nerfca_tpu_torch.train import evaluation
 from nerfca_tpu_torch.train.checkpoint import CheckpointManager, load_checkpoint
@@ -74,7 +75,15 @@ def static_config_from_args(args) -> FieldConfig:
         pos_enc_window_decay_steps=args.static_pos_enc_window_decay_steps,
         pos_enc_window_max=args.static_pos_enc_window_max,
         fourier_sigma=args.static_pos_enc_fourier_sigma,
+        hidden_activation=args.static_hidden_activation,
     )
+
+
+def volume_half_extent(info: dict) -> float:
+    """The half extent of the cube at the origin that holds the dataset's
+    volume (scaled units), the box a ``hashgrid`` field encodes over."""
+    half = 0.5 * np.asarray(info["nVoxel"], np.float64) * np.asarray(info["dVoxel"], np.float64)
+    return float(np.max(np.abs(np.asarray(info["offOrigin"], np.float64)) + half))
 
 
 def field_configs_from_args(args) -> dict:
@@ -166,8 +175,15 @@ def resolve_pallas_support(hp, cfgs):
     dict of configs, or the static trainer's single ``FieldConfig``. Only
     the coarse pair decides: a fine pair outside the envelope only warns,
     and its pass runs plain (``composite_forward`` gates each pass on its
-    own pair) while the coarse pass keeps the kernels."""
+    own pair) while the coarse pass keeps the kernels. The static trainer's
+    ``hashgrid`` field in the hash-field kernel's envelope keeps
+    ``use_pallas``, with a warning: it trains plain, and its eval views take
+    that kernel."""
     if not hp.use_pallas:
+        return hp
+    if not isinstance(cfgs, dict) and hash_kernel_supported(cfgs):
+        warnings.warn("a hashgrid field trains on the plain torch path (no kernel computes "
+                      "the hash grid's backward); its eval views take the hash-field kernel")
         return hp
     coarse = [cfgs[k] for k in ("static", "temp") if k in cfgs] if isinstance(cfgs, dict) \
         else [cfgs]
@@ -541,6 +557,8 @@ def train_static(args=None, argv=None, max_steps: Optional[int] = None) -> dict:
     if hp.nb_var_rays > 0 and len(var_ids) == 0:
         hp = dataclasses.replace(hp, nb_var_rays=0)
     cfg = static_config_from_args(args)
+    if cfg.pos_enc == "hashgrid":
+        cfg = dataclasses.replace(cfg, hash_bound=volume_half_extent(info))
     hp = resolve_pallas_support(hp, cfg)
     tx = make_optimizer(args.lr, args.lr_end_factor, args.lr_decay_steps,
                         weight_decay=args.weight_decay)

@@ -137,12 +137,17 @@ def test_field_config_metadata_reads_across_packages(writer, tmp_path):
         state = jax_state(cfgs, js.make_optimizer(1e-3, 0.01, 100))
         jck.save_checkpoint(str(tmp_path), state, cfgs, run_metadata=run)
         loaded = tck.load_field_configs(str(tmp_path))
-        want = {k: dataclasses.asdict(v) for k, v in cfgs.items()}
+        # and the port's own keys at their defaults
+        want = {k: {**dataclasses.asdict(v), **tf.PORT_ONLY_DEFAULTS} for k, v in cfgs.items()}
     else:
         tcfgs = {k: tf.FieldConfig(**dataclasses.asdict(v)) for k, v in cfgs.items()}
         tck.save_checkpoint(str(tmp_path), port_state(), tcfgs, run_metadata=run)
         loaded = jck.load_field_configs(str(tmp_path))
-        want = {k: dataclasses.asdict(v) for k, v in tcfgs.items()}
+        # the port's own keys at their defaults are left out for JAX
+        want = {k: {n: x for n, x in dataclasses.asdict(v).items()
+                    if n not in tf.PORT_ONLY_DEFAULTS} for k, v in tcfgs.items()}
+        assert all(dataclasses.asdict(v)[n] == x for v in tcfgs.values()
+                   for n, x in tf.PORT_ONLY_DEFAULTS.items())
     assert {k: dataclasses.asdict(v) for k, v in loaded.items()} == want
     with open(tmp_path / "metadata.json") as f:
         meta = json.load(f)

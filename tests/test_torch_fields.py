@@ -36,8 +36,10 @@ def inputs(r=3, s=20, seed=0):
 
 
 def test_config_fields_match():
+    # the JAX package's fields, then the port's own (tf.PORT_ONLY_DEFAULTS)
     assert [f.name for f in tf.FieldConfig.__dataclass_fields__.values()] == [
-        f.name for f in jf.FieldConfig.__dataclass_fields__.values()]
+        f.name for f in jf.FieldConfig.__dataclass_fields__.values()] + list(
+        tf.PORT_ONLY_DEFAULTS)
     _, jt, _, tt = cfgs(basis=12)
     assert tt.encoded_features == jt.encoded_features == 75
     assert tt.input_features == jt.input_features == 83

@@ -419,8 +419,9 @@ def test_fine_configs_init_and_eval_depths_are_jax():
     targs, jargs = (mod.parse_args(["--config", SMALL, *FINE_ARGV]) for mod in (tcfg, jcfg))
     tc, jc = ttr.field_configs_from_args(targs), jtr.field_configs_from_args(jargs)
     assert sorted(tc) == sorted(jc) == ["static", "static_fine", "temp", "temp_fine"]
-    for k in jc:
-        assert dataclasses.asdict(tc[k]) == dataclasses.asdict(jc[k])
+    for k in jc:  # and the port's own keys at their defaults
+        assert dataclasses.asdict(tc[k]) == {**dataclasses.asdict(jc[k]),
+                                             **tf.PORT_ONLY_DEFAULTS}
     tstate = ttr._init_composite_state(targs, tc, None, torch.device("cpu"))
     jstate = jtr._init_composite_state(jargs, jc, js.make_optimizer(1e-3, 0.01, 300))
     got = {k: tf.params_to_jax(v) for k, v in tstate.params.items()}

@@ -332,8 +332,9 @@ def test_static_hparams_and_support_match_jax():
     b = dataclasses.asdict(jtr.static_hparams_from_args(j_parse_args(argv)))
     assert a == b
     cfg = ttr.static_config_from_args(tcfg.parse_args(["--config", CONFIG_3D]))
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(
-        jtr.field_configs_from_args(j_parse_args(["--config", CONFIG_3D]))["static"])
+    assert dataclasses.asdict(cfg) == {**dataclasses.asdict(  # and the port's own keys
+        jtr.field_configs_from_args(j_parse_args(["--config", CONFIG_3D]))["static"]),
+        **tf.PORT_ONLY_DEFAULTS}
     hp = ts.StaticHParams(use_pallas=True)
     assert ttr.resolve_pallas_support(hp, cfg) is hp
     with pytest.warns(UserWarning, match="envelope"):

@@ -53,6 +53,8 @@ def test_overwrite_args_matches_jax(overrides):
     a = vars(tcfg.overwrite_args(tcfg.parse_args(argv), overrides))
     b = vars(jcfg.overwrite_args(jcfg.parse_args(argv), overrides))
     a.pop("platform"), b.pop("platform")
+    # the port's own flags, which the JAX parser lacks, at their defaults
+    assert {k: a.pop(k) for k in tcfg.PORT_ONLY_FLAGS} == tcfg.PORT_ONLY_FLAGS
     assert a == b
     for k, v in a.items():
         assert type(v) is type(b[k]), k

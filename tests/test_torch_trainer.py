@@ -150,10 +150,15 @@ def test_resolve_pallas_support_downgrades_with_warning():
 
 @pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(REPO, "configs", "*.txt"))))
 def test_configs_parse_like_the_jax_package(path):
+    # the port's own flags (tcfg.PORT_ONLY_FLAGS) aside, which the JAX
+    # parser lacks and a config file only sets for the port
     a = vars(tcfg.parse_args(["--config", path]))
     b = vars(jcfg.parse_args(["--config", path]))
     a.pop("platform"), b.pop("platform")
+    own = {k: a.pop(k) for k in tcfg.PORT_ONLY_FLAGS}
     assert a == b
+    file_values = tcfg.read_config_file(path)
+    assert own == {k: file_values.get(k, v) for k, v in tcfg.PORT_ONLY_FLAGS.items()}
 
 
 def test_package_imports_no_jax():
